@@ -5,23 +5,30 @@ Run from the repository root with no arguments on a machine with one
 card: ``python3 chip_smoke.py``. It imports nothing of JAX or of the JAX
 package. Phases, each printed as it runs:
 
-1. device: the card's name and power limit; build both CUDA kernels from
-   ``spacemesh_tpu_torch/csrc`` (one nvcc each, started together);
+1. device: the card's name and power limit; build the three CUDA sources
+   from ``spacemesh_tpu_torch/csrc`` (one nvcc each, started together) and
+   print each kernel's registers and spills;
 2. ROMix: the kernel against its plain PyTorch version on the card (N=1024
-   at a ragged batch, and N=8192 at the init batch of 32768 lanes), and
-   full labels against ``hashlib.scrypt``; exact equality;
-3. proving scan: the kernel against its plain version, and one prove step
+   at a ragged batch, and N=8192 at the init batch of 32768 lanes), whole
+   and fill phase only (``mix_phase=False``), and full labels against
+   ``hashlib.scrypt``; exact equality; the fill/mix time split;
+3. PBKDF2: both entry points of the envelope kernel against their plain
+   versions at the init batch (32768 lanes, one shared commitment) and at
+   a ragged batch of per-lane commitments (the verifier's form); exact
+   equality; timed;
+4. proving scan: the kernel against its plain version, and one prove step
    through the kernel against the plain step, on random device-resident
    labels with 16 nonces, at the main path's prove batch (2^18 lanes, all
    valid) and at 2^24 lanes with a ragged ``valid``; exact equality; the
    kernel and its plain version timed at both shapes;
-4. end to end at mainnet parameters (N=8192, k1=26, k2=37, k3=37, the
+5. end to end at mainnet parameters (N=8192, k1=26, k2=37, k3=37, the
    default k2pow difficulty): ``initialize()`` 2^20 labels in batches of
    32768 lanes, ``Prover.prove()`` pipelined and ``prove_serial()``,
    ``verify_many()`` on the proof and on a tampered copy, each held
    against hashlib and the plain CPU path; the kernels' launch counts are
-   zeroed just before and read just after;
-5. a JSON line of per-kernel launches, times and bounds, each time taken
+   zeroed just before and read just after; the torch calls one init batch
+   makes around the kernels, counted on the card;
+6. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``).
 
@@ -46,6 +53,7 @@ UNIT_LABELS = 1 << 20
 PROVE_BATCH = 1 << 18
 SCAN_LANES = 1 << 24
 SCAN_NONCES = 16
+RAGGED_LANES = 1037
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 # integer instruction ceiling: 4 schedulers per SM, each starting one warp
 # instruction (32 lanes) per clock. The 64 INT32 ALU lanes per SM are not
@@ -116,7 +124,8 @@ def phase_device(ctx: dict) -> None:
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -134,7 +143,12 @@ def phase_romix(ctx: dict) -> None:
     want = romix_cuda.romix_r1(x, 1024)
     err = max_abs_err(got, want)
     require(err == 0, "ROMix kernel == plain at N=1024, 300 lanes")
-    log(f"[romix] N=1024 B=300 kernel == plain (max_abs_err {err})")
+    got = romix_cuda.romix(x, 1024, mix_phase=False)
+    want = romix_cuda.romix_r1(x, 1024, mix_phase=False)
+    fill_err = max_abs_err(got, want)
+    require(fill_err == 0, "ROMix fill-only kernel == plain at N=1024")
+    log(f"[romix] N=1024 B=300 kernel == plain (max_abs_err {err}), "
+        f"fill only too (max_abs_err {fill_err})")
 
     commits = rng.integers(0, 256, (32, 32), dtype=np.uint8)
     idx = rng.integers(0, 2**63, 32, dtype=np.uint64)
@@ -152,6 +166,9 @@ def phase_romix(ctx: dict) -> None:
                                     dtype=np.uint32), dev)
     got = romix_cuda.romix(x, N_MAIN)
     ms = cuda_ms(lambda: romix_cuda.romix(x, N_MAIN), reps=3)
+    fill = romix_cuda.romix(x, N_MAIN, mix_phase=False)
+    fill_ms = cuda_ms(lambda: romix_cuda.romix(x, N_MAIN, mix_phase=False),
+                      reps=3)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     want = romix_cuda.romix_r1(x, N_MAIN)
@@ -162,19 +179,83 @@ def phase_romix(ctx: dict) -> None:
                       f"{INIT_BATCH} lanes")
     del want
     torch.cuda.empty_cache()
+    want = romix_cuda.romix_r1(x, N_MAIN, mix_phase=False)
+    torch.cuda.synchronize()
+    fill_err = max_abs_err(fill, want)
+    require(fill_err == 0, f"ROMix fill-only kernel == plain at "
+                           f"N={N_MAIN}, {INIT_BATCH} lanes")
+    del want
+    torch.cuda.empty_cache()
     ops = romix_cuda.int_ops(INIT_BATCH, N_MAIN)
     nbytes = romix_cuda.io_bytes(INIT_BATCH)
     scratch_ms = (romix_cuda.scratch_bytes(INIT_BATCH, N_MAIN)
                   / HBM_BYTES_PER_S * 1e3)
     ctx["romix"] = dict(
-        ms=ms, plain_ms=plain_ms, max_abs_err=err,
-        shape=f"(32, {INIT_BATCH}) N={N_MAIN}", scratch_bound_ms=scratch_ms,
-        **bound(ctx, ops, nbytes))
-    log(f"[romix] N={N_MAIN} B={INIT_BATCH} kernel == plain; kernel "
-        f"{ms:.2f} ms ({INIT_BATCH / ms * 1e3:.0f} labels/s), plain "
-        f"{plain_ms:.0f} ms, bound {ctx['romix']['bound_ms']:.2f} ms "
-        f"({ctx['romix']['bound_by']}), V scratch traffic floor "
-        f"{scratch_ms:.2f} ms")
+        ms=ms, plain_ms=plain_ms, max_abs_err=max(err, fill_err),
+        shape=f"(32, {INIT_BATCH}) N={N_MAIN}", fill_ms=fill_ms,
+        scratch_bound_ms=scratch_ms, **bound(ctx, ops, nbytes))
+    log(f"[romix] N={N_MAIN} B={INIT_BATCH} kernel == plain, whole and "
+        f"fill only; kernel {ms:.2f} ms ({INIT_BATCH / ms * 1e3:.0f} "
+        f"labels/s), plain {plain_ms:.0f} ms, bound "
+        f"{ctx['romix']['bound_ms']:.2f} ms ({ctx['romix']['bound_by']}), "
+        f"V scratch traffic floor {scratch_ms:.2f} ms")
+    log(f"[romix] fill/mix split: fill {fill_ms:.2f} ms, mix "
+        f"{ms - fill_ms:.2f} ms")
+
+
+def pbkdf2_case(ctx: dict, b: int, per_lane: bool, seed: int) -> dict:
+    """Both PBKDF2 entry points against their plain versions on ``b``
+    random (commitment, index) lanes on the card, then both timed."""
+    import numpy as np
+    from spacemesh_tpu_torch.ops import pbkdf2_cuda, u32
+
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    cw = u32.from_numpy(rng.integers(0, 2**32, (8, b) if per_lane else (8,),
+                                     dtype=np.uint32), dev)
+    lo, hi = (u32.from_numpy(rng.integers(0, 2**32, b, dtype=np.uint32), dev)
+              for _ in range(2))
+    blk = pbkdf2_cuda.expand(cw, lo, hi)
+    inner, outer, want = pbkdf2_cuda._expand(cw, lo, hi)
+    out = {"expand": max_abs_err(blk, want)}
+    b_le = u32.from_numpy(rng.integers(0, 2**32, (32, b), dtype=np.uint32),
+                          dev)
+    words = pbkdf2_cuda.finish(cw, b_le)
+    out["finish"] = max_abs_err(
+        words, pbkdf2_cuda._pbkdf2_second(inner, outer, b_le)[:4])
+    form = "per-lane" if per_lane else "shared"
+    for entry in ("expand", "finish"):
+        require(out[entry] == 0, f"PBKDF2 {entry} kernel == plain at B={b} "
+                                 f"({form} commitments)")
+    calls = {"expand": (lambda: pbkdf2_cuda.expand(cw, lo, hi),
+                        lambda: pbkdf2_cuda._expand(cw, lo, hi)),
+             "finish": (lambda: pbkdf2_cuda.finish(cw, b_le),
+                        lambda: pbkdf2_cuda._pbkdf2_second(
+                            *pbkdf2_cuda._midstates(cw), b_le))}
+    res = {}
+    for entry, (kernel, plain) in calls.items():
+        res[entry] = dict(
+            ms=cuda_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=2),
+            max_abs_err=out[entry], shape=f"B={b} {form} commitment",
+            **bound(ctx, pbkdf2_cuda.int_ops(b, entry),
+                    pbkdf2_cuda.io_bytes(b, entry, per_lane)))
+        log(f"[pbkdf2] {entry} B={b} ({form} commitments): kernel == plain; "
+            f"kernel {res[entry]['ms']:.4f} ms, plain "
+            f"{res[entry]['plain_ms']:.1f} ms, bound "
+            f"{res[entry]['bound_ms']:.4f} ms ({res[entry]['bound_by']})")
+    return res
+
+
+def phase_pbkdf2(ctx: dict) -> None:
+    # the init batch's shape (one commitment for every lane), then a ragged
+    # batch of per-lane commitments as the verifier sends
+    main = pbkdf2_case(ctx, INIT_BATCH, per_lane=False, seed=6)
+    ragged = pbkdf2_case(ctx, RAGGED_LANES, per_lane=True, seed=7)
+    for entry in ("expand", "finish"):
+        ctx[f"pbkdf2_{entry}"] = dict(
+            main[entry], ragged={k: ragged[entry][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")})
 
 
 def bound(ctx: dict, ops: int, nbytes: int) -> dict:
@@ -265,7 +346,8 @@ def phase_scan(ctx: dict) -> None:
 def phase_main_path(ctx: dict) -> None:
     import numpy as np
     import torch
-    from spacemesh_tpu_torch.ops import proving, proving_cuda, romix_cuda
+    from spacemesh_tpu_torch.ops import (pbkdf2_cuda, proving, proving_cuda,
+                                         romix_cuda)
     from spacemesh_tpu_torch.post import initializer, prover, verifier
     from spacemesh_tpu_torch.post.data import LabelStore
 
@@ -276,6 +358,8 @@ def phase_main_path(ctx: dict) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as d:
         romix_cuda.launches = 0
         proving_cuda.launches = 0
+        pbkdf2_cuda.expand_launches = 0
+        pbkdf2_cuda.finish_launches = 0
         t0 = time.perf_counter()
         meta, res = initializer.initialize(
             d, node_id=node, commitment=commitment, num_units=1,
@@ -308,16 +392,24 @@ def phase_main_path(ctx: dict) -> None:
         verify_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         ctx["launches"] = {"romix": romix_cuda.launches,
-                           "scan": proving_cuda.launches}
+                           "scan": proving_cuda.launches,
+                           "pbkdf2_expand": pbkdf2_cuda.expand_launches,
+                           "pbkdf2_finish": pbkdf2_cuda.finish_launches}
 
         require(meta.labels_written == UNIT_LABELS, "init wrote every label")
+        st = res.stats
         log(f"[init] {UNIT_LABELS} labels N={N_MAIN} batch={INIT_BATCH}: "
             f"{init_s:.2f} s, {res.labels_per_s:.0f} labels/s; stats "
-            f"{json.dumps(res.stats.as_dict())}")
+            f"{json.dumps(st.as_dict())}")
+        shares = {k: getattr(st, k) / res.elapsed_s for k in (
+            "dispatch_s", "fetch_s", "write_stall_s", "save_s")}
+        log(f"[init] share of the init time: " + ", ".join(
+            f"{k} {v:.1%}" for k, v in shares.items()))
         calls = envelope_calls()
-        per_call = res.stats.dispatch_s / res.stats.batches / calls
-        log(f"[init] envelope: {calls} torch calls per batch outside the "
-            f"kernel (CPU count), {per_call * 1e6:.1f} us of dispatch each")
+        log(f"[init] envelope: {calls} torch calls per batch around the "
+            f"kernels (counted on the card), "
+            f"{st.dispatch_s / st.batches * 1e3:.2f} ms of dispatch per "
+            "batch")
         store = LabelStore(d, meta)
         try:
             stored = np.frombuffer(store.read_labels(0, UNIT_LABELS),
@@ -354,15 +446,15 @@ def phase_main_path(ctx: dict) -> None:
         require(bool((vals < thr).all()), "hashlib + plain CPU path accept")
         log(f"[verify] verify_many -> {verdicts} in {verify_s:.2f} s; "
             "hashlib labels + plain CPU hashes agree")
-    require(ctx["launches"]["romix"] > 0, "main path launched ROMix")
-    require(ctx["launches"]["scan"] > 0, "main path launched the scan")
+    for key, n in ctx["launches"].items():
+        require(n > 0, f"main path launched {key}")
     log(f"[launches] main path: {json.dumps(ctx['launches'])}")
 
 
 def envelope_calls() -> int:
-    """Torch calls one init batch makes outside the ROMix kernel: PBKDF2
-    expand and finish plus the VRF min-scan, counted on the CPU (the
-    count does not depend on the batch size or N)."""
+    """Torch calls one init batch makes around the kernels on the card:
+    the wrappers of PBKDF2 expand, ROMix and PBKDF2 finish, and the VRF
+    min-scan (the count does not depend on the batch size or N)."""
     import numpy as np
     import torch
     from spacemesh_tpu_torch.ops import scrypt, u32
@@ -374,14 +466,14 @@ def envelope_calls() -> int:
             Count.calls += 1
             return func(*args, **(kwargs or {}))
 
-    cw = u32.from_numpy(scrypt.commitment_to_words(bytes(32)))
-    lo = u32.from_numpy(np.arange(64, dtype=np.uint32))
-    hi = torch.zeros(64, dtype=torch.int32)
-    carry = u32.from_numpy(scrypt.vrf_carry_init())
+    dev = "cuda"
+    cw = u32.from_numpy(scrypt.commitment_to_words(bytes(32)), dev)
+    lo = u32.from_numpy(np.arange(64, dtype=np.uint32), dev)
+    hi = torch.zeros(64, dtype=torch.int32, device=dev)
+    carry = u32.from_numpy(scrypt.vrf_carry_init(), dev)
     with Count():
-        inner, outer, blk = scrypt._expand(cw, lo, hi)
-        words = scrypt._pbkdf2_second(inner, outer, blk)[:4]
-        scrypt._minscan(words, lo, hi, carry)
+        scrypt.scrypt_labels_with_min(cw, lo, hi, carry, n=16)
+    torch.cuda.synchronize()
     return Count.calls
 
 
@@ -416,17 +508,27 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device(ctx)
     phase_romix(ctx)
+    phase_pbkdf2(ctx)
     phase_scan(ctx)
     phase_main_path(ctx)
-    extra = {"romix": {"scratch_bound_ms": ctx["romix"]["scratch_bound_ms"]},
+    extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
+                                                     "scratch_bound_ms")},
              "scan": {"full_width": {k: ctx["scan_full"][k] for k in (
-                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")}}}
+                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")}},
+             "pbkdf2_expand": {"ragged": ctx["pbkdf2_expand"]["ragged"]},
+             "pbkdf2_finish": {"ragged": ctx["pbkdf2_finish"]["ragged"]}}
+    envelope = ("spacemesh_tpu/ops/scrypt.py:440 (XLA-fused envelope, no "
+                "Pallas kernel)")
     kernels = []
     for key, name, source, replaces in (
             ("romix", "romix_r1", "spacemesh_tpu_torch/csrc/romix.cu",
              "spacemesh_tpu/ops/romix_pallas.py:96"),
             ("scan", "proving_scan", "spacemesh_tpu_torch/csrc/proving_scan.cu",
-             "spacemesh_tpu/ops/proving_pallas.py:65")):
+             "spacemesh_tpu/ops/proving_pallas.py:65"),
+            ("pbkdf2_expand", "pbkdf2_expand",
+             "spacemesh_tpu_torch/csrc/pbkdf2.cu", envelope),
+            ("pbkdf2_finish", "pbkdf2_finish",
+             "spacemesh_tpu_torch/csrc/pbkdf2.cu", envelope)):
         m = ctx[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

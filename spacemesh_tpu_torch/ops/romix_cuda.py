@@ -2,9 +2,10 @@
 
 Replaces ``spacemesh_tpu/ops/romix_pallas.py::_romix_kernel`` (the
 ``pallas_call`` at :185), which ``ops/scrypt.py`` reached through
-``_romix_dispatch``. The kernel is ``csrc/romix.cu``: one thread per lane,
-the 32-word block in registers, Salsa20/8 unrolled, and a per-lane scratch
-``V[lane][i][0..31]`` that this wrapper allocates.
+``_romix_dispatch``. The kernel is ``csrc/romix.cu``: four threads per
+lane, each holding one Salsa column of both halves of the block in
+registers, and a per-lane scratch ``V[lane][i]`` of 128-byte rows that
+this wrapper allocates.
 
 What bounds it on an H100: about 13.9 M integer instructions per lane at
 N=8192 (16384 BlockMix of 832 add/rotate/xor each, plus the mix xors,
@@ -66,14 +67,18 @@ def scratch_bytes(lanes: int, n: int) -> int:
     return lanes * n * 2 * 32 * 4
 
 
-def romix_r1(x: torch.Tensor, n: int) -> torch.Tensor:
+def romix_r1(x: torch.Tensor, n: int, *, mix_phase: bool = True
+             ) -> torch.Tensor:
     """Plain ROMix over a (32, B) int32 block batch, word-major V (n, 32, B)
-    as ``spacemesh_tpu/ops/scrypt.py::romix_r1``."""
+    as ``spacemesh_tpu/ops/scrypt.py::romix_r1``. ``mix_phase=False``
+    stops after the fill phase (the fill/mix time split)."""
     b = x.shape[1]
     v = torch.empty((n, 32, b), dtype=x.dtype, device=x.device)
     for i in range(n):
         v[i] = x
         x = blockmix_r1(x)
+    if not mix_phase:
+        return x
     for _ in range(n):
         j = (x[16] & (n - 1)).long()
         vj = torch.gather(v, 0, j.view(1, 1, b).expand(1, 32, b))[0]
@@ -96,43 +101,48 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
-def romix(x: torch.Tensor, n: int, *, max_lanes: int | None = None
-          ) -> torch.Tensor:
+def romix(x: torch.Tensor, n: int, *, max_lanes: int | None = None,
+          mix_phase: bool = True) -> torch.Tensor:
     """ROMix over a (32, B) int32 block batch; returns (32, B).
 
     On a CUDA tensor this launches ``csrc/romix.cu`` over chunks of at most
     ``max_lanes`` lanes (default: what fits the free memory); on a CPU
-    tensor it runs :func:`romix_r1`."""
+    tensor it runs :func:`romix_r1`. ``mix_phase=False`` stops after the
+    fill phase."""
     global launches
     check_n(n)
-    if x.dim() != 2 or x.shape[0] != 32 or x.dtype != DTYPE:
+    # each tensor attribute read once: on the card every read is a
+    # host-side torch call per batch
+    shape, dev = x.shape, x.device
+    if len(shape) != 2 or shape[0] != 32 or x.dtype != DTYPE:
         raise ValueError(f"romix wants a (32, B) int32 tensor, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
-        return romix_r1(x, n)
-    if x.device.type != "cuda":
-        raise ValueError(f"romix: unsupported device {x.device}")
+                         f"{tuple(shape)} {x.dtype}")
+    if dev.type == "cpu":
+        return romix_r1(x, n, mix_phase=mix_phase)
+    if dev.type != "cuda":
+        raise ValueError(f"romix: unsupported device {dev}")
     x = x.contiguous()
-    b = x.shape[1]
+    b = shape[1]
     out = torch.empty_like(x)
     if b == 0:
         return out
     fn = _lib()
     per = min(b, max_lanes if max_lanes is not None
-              else lanes_that_fit(n, x.device))
+              else lanes_that_fit(n, dev))
     if per < 1:
         raise ValueError("max_lanes must be positive")
-    v = torch.empty((per, n, 32), dtype=DTYPE, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    v = torch.empty((per, n, 32), dtype=DTYPE, device=dev)
+    xp, op, vp = x.data_ptr(), out.data_ptr(), v.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         for c0 in range(0, b, per):
             lanes = min(per, b - c0)
-            err = fn(x.data_ptr() + 4 * c0, out.data_ptr() + 4 * c0,
-                     v.data_ptr(), b, lanes, n, stream)
+            err = fn(xp + 4 * c0, op + 4 * c0, vp, b, lanes, n,
+                     int(mix_phase), stream)
             launches += 1
             _build.check(err, "romix_r1_launch")
     return out

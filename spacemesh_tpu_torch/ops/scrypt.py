@@ -5,10 +5,11 @@ Port of ``spacemesh_tpu/ops/scrypt.py``. A label is
     label(commitment, i) = scrypt(password=commitment, salt=le64(i),
                                   N=n, r=1, p=1, dklen=16)
 
-bit-exact against ``hashlib.scrypt``. The pipeline is PBKDF2-HMAC-SHA256
-expand (:func:`_expand`) -> ROMix (``ops/romix_cuda.py``: the CUDA kernel
-on the card, the plain twin on the CPU) -> PBKDF2 finish
-(:func:`_pbkdf2_second`) -> optionally the VRF min-scan (:func:`_minscan`).
+bit-exact against ``hashlib.scrypt``. The pipeline is three kernels on
+the card, each with its plain twin on the CPU: PBKDF2-HMAC-SHA256 expand
+(``ops/pbkdf2_cuda.py``) -> ROMix (``ops/romix_cuda.py``) -> PBKDF2 finish
+(``ops/pbkdf2_cuda.py``), then optionally the VRF min-scan
+(:func:`_minscan`, tensor code).
 Block state is (32, B) int32 bit patterns, lanes trailing, as in the JAX
 package. The JAX package's shape buckets, autotune plan and chunked/row
 ROMix variants exist for XLA's per-shape compiles and the TPU race; this
@@ -20,74 +21,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import romix_cuda, u32
+from . import pbkdf2_cuda, romix_cuda, u32
 from .romix_cuda import check_n as _check_n
 from .romix_cuda import romix_r1  # noqa: F401  (the plain ROMix, re-exported)
 from .salsa import blockmix_r1, salsa20_8  # noqa: F401  (re-exported)
-from .sha256 import byteswap32, hmac_midstates, sha256_compress
+from .sha256 import byteswap32
 from .u32 import flip, s32
 
 LABEL_BYTES = 16  # reference: 16-byte labels, 2^32 per 64 GiB unit
 
 
-def _const(rows: dict[int, int], height: int, b: int, device) -> torch.Tensor:
-    """A (height, b) int32 block of constant words (``rows``: index -> u32)."""
-    col = np.zeros((height, 1), dtype=np.uint32)
-    for i, v in rows.items():
-        col[i, 0] = v
-    return u32.from_numpy(col, device).expand(height, b)
-
-
-def _hmac_finish(outer_mid, inner_digest):
-    """Outer HMAC compression over a 32-byte inner digest batch (8, B)."""
-    b = inner_digest.shape[1]
-    tail = _const({0: 0x80000000, 7: (64 + 32) * 8}, 8, b,
-                  inner_digest.device)
-    return sha256_compress(outer_mid, torch.cat([inner_digest, tail]))
-
-
-def _pbkdf2_first(inner_mid, outer_mid, idx_lo, idx_hi):
-    """PBKDF2(pw, salt=le64(index), c=1, dklen=128) -> (32, B) LE words."""
-    b = idx_lo.shape[0]
-    salt = torch.stack([byteswap32(idx_lo), byteswap32(idx_hi)])
-    out = []
-    for i in (1, 2, 3, 4):
-        # message = salt le64(index) || be32(i), then SHA padding
-        tail = _const({0: i, 1: 0x80000000, 13: (64 + 12) * 8}, 14, b,
-                      idx_lo.device)
-        block = torch.cat([salt, tail])
-        out.append(_hmac_finish(outer_mid, sha256_compress(inner_mid, block)))
-    return byteswap32(torch.cat(out))  # repack BE digests as LE words
-
-
-def _pbkdf2_second(inner_mid, outer_mid, b_le):
-    """PBKDF2(pw, salt=B'||be32(1), c=1) -> 32-byte digests, (8, B) BE."""
-    b = b_le.shape[1]
-    st = sha256_compress(inner_mid, byteswap32(b_le[0:16]))
-    st = sha256_compress(st, byteswap32(b_le[16:32]))
-    tail = _const({0: 1, 1: 0x80000000, 15: (64 + 132) * 8}, 16, b,
-                  b_le.device)
-    st = sha256_compress(st, tail)
-    return _hmac_finish(outer_mid, st)
-
-
-def _expand(commitment_words, idx_lo, idx_hi):
-    # commitment_words: (8,) shared across the batch, or (8, B) per lane
-    inner_mid, outer_mid = hmac_midstates(commitment_words)
-    if inner_mid.dim() == 1:
-        inner_mid = inner_mid[:, None]
-        outer_mid = outer_mid[:, None]
-    return inner_mid, outer_mid, _pbkdf2_first(inner_mid, outer_mid,
-                                               idx_lo, idx_hi)
-
-
 def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *,
                         n: int) -> torch.Tensor:
     """Labels for (B,) index halves -> (4, B) int32 BE words (batch minor);
-    the port of ``scrypt_labels_jit``. Runs on the inputs' device."""
-    inner_mid, outer_mid, blk = _expand(commitment_words, idx_lo, idx_hi)
+    the port of ``scrypt_labels_jit``. Runs on the inputs' device: on the
+    card, as three kernel launches."""
+    blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
     blk = romix_cuda.romix(blk, n)
-    return _pbkdf2_second(inner_mid, outer_mid, blk)[:4]
+    return pbkdf2_cuda.finish(commitment_words, blk)
 
 
 # --- VRF-nonce scan ---------------------------------------------------------
@@ -140,9 +91,10 @@ def _minscan(words, idx_lo, idx_hi, carry):
 
     Limbs are compared through :func:`u32.flip`, which maps u32 order onto
     int32 order; the limb values themselves are stored unflipped."""
-    # LE-u128 key limbs, most significant first: byteswap gives the LE u32
-    # limbs of the BE word groups, and word order gives significance
-    f3, f2, f1, f0 = (flip(byteswap32(words[i])) for i in (3, 2, 1, 0))
+    # LE-u128 key limbs: byteswap gives the LE u32 limbs of the BE word
+    # groups (word 3 the most significant), flipped for the compares; one
+    # op each over all four limbs, since each op is a host dispatch
+    f0, f1, f2, f3 = flip(byteswap32(words)).unbind(0)
     top = s32(_U32_MAX ^ 0x80000000)  # flip(0xFFFFFFFF)
     m3 = f3.min()
     eq = f3 == m3

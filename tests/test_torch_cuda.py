@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from spacemesh_tpu_torch.ops import proving, proving_cuda, romix_cuda, scrypt
-from spacemesh_tpu_torch.ops import u32
+from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving, proving_cuda
+from spacemesh_tpu_torch.ops import romix_cuda, scrypt, u32
 from spacemesh_tpu_torch.post import initializer
 
 pytestmark = pytest.mark.cuda
@@ -44,6 +44,35 @@ def test_romix_kernel_matches_plain(dev, n, b):
     assert torch.equal(got, romix_cuda.romix_r1(x, n))
 
 
+@pytest.mark.parametrize("n,b", [(16, 300), (1024, 257)])
+def test_romix_fill_phase_kernel_matches_plain(dev, n, b):
+    x = u32.from_numpy(_rand_u32((32, b), 50 + n), dev)
+    before = romix_cuda.launches
+    got = romix_cuda.romix(x, n, max_lanes=128, mix_phase=False)
+    assert romix_cuda.launches == before + 3
+    assert torch.equal(got, romix_cuda.romix_r1(x, n, mix_phase=False))
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("b", [1, 1000])
+def test_pbkdf2_kernels_match_plain(dev, per_lane, b):
+    rng = np.random.default_rng(b)
+    idx = rng.integers(0, 2**64, b, dtype=np.uint64)
+    idx[:min(b, 3)] = [2**32 - 1, 2**32, 2**63 + 1][:min(b, 3)]
+    lo, hi = (u32.from_numpy(h, dev) for h in scrypt.split_indices(idx))
+    cw = u32.from_numpy(_rand_u32((8, b) if per_lane else (8,), b + 1), dev)
+    before = (pbkdf2_cuda.expand_launches, pbkdf2_cuda.finish_launches)
+    blk = pbkdf2_cuda.expand(cw, lo, hi)
+    inner, outer, want = pbkdf2_cuda._expand(cw, lo, hi)
+    assert torch.equal(blk, want)
+    b_le = u32.from_numpy(_rand_u32((32, b), b + 2), dev)
+    got = pbkdf2_cuda.finish(cw, b_le)
+    assert torch.equal(got, pbkdf2_cuda._pbkdf2_second(inner, outer,
+                                                       b_le)[:4])
+    assert (pbkdf2_cuda.expand_launches,
+            pbkdf2_cuda.finish_launches) == (before[0] + 1, before[1] + 1)
+
+
 def test_labels_through_the_kernel_match_hashlib(dev):
     idx = np.array([0, 1, 2**32 - 1, 2**32, 2**63 + 9], dtype=np.uint64)
     got = scrypt.scrypt_labels(COMMIT, idx, n=1024, device=dev)
@@ -51,6 +80,21 @@ def test_labels_through_the_kernel_match_hashlib(dev):
         assert bytes(got[i]) == hashlib.scrypt(
             COMMIT, salt=int(ix).to_bytes(8, "little"), n=1024, r=1, p=1,
             dklen=16)
+
+
+def test_labels_through_all_three_kernels_match_hashlib(dev):
+    rng = np.random.default_rng(21)
+    commits = rng.integers(0, 256, (40, 32), dtype=np.uint8)
+    idx = rng.integers(0, 2**64, 40, dtype=np.uint64)
+    launches = (pbkdf2_cuda.expand_launches, romix_cuda.launches,
+                pbkdf2_cuda.finish_launches)
+    got = scrypt.scrypt_labels_multi(commits, idx, n=512, device=dev)
+    assert (pbkdf2_cuda.expand_launches, romix_cuda.launches,
+            pbkdf2_cuda.finish_launches) == tuple(c + 1 for c in launches)
+    for i in range(40):
+        assert bytes(got[i]) == hashlib.scrypt(
+            bytes(commits[i]), salt=int(idx[i]).to_bytes(8, "little"),
+            n=512, r=1, p=1, dklen=16)
 
 
 def _scan_args(dev, count=700, batch=1024, start=2**32 - 300):

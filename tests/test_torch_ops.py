@@ -153,6 +153,23 @@ def test_romix_matches_jax_and_pallas_interpret(n, b):
     assert np.array_equal(got, np.asarray(pallas))
 
 
+@pytest.mark.parametrize("n,b", [(16, 13), (1024, 5)])
+def test_romix_fill_phase_matches_jax_and_pallas_interpret(n, b):
+    """mix_phase=False stops after the fill (the fill/mix time split)."""
+    x = _rand_u32((32, b), 70 + n)
+    before = romix_cuda.launches
+    got = N_(romix_cuda.romix(T(x), n, mix_phase=False))
+    assert romix_cuda.launches == before
+    assert np.array_equal(got, N_(romix_cuda.romix_r1(T(x), n,
+                                                      mix_phase=False)))
+    assert np.array_equal(got, np.asarray(jscrypt.romix_r1(
+        jnp.asarray(x), n, mix_phase=False)))
+    pallas = romix_pallas(jnp.asarray(x), n=n, lane_tile=b, interpret=True,
+                          mix_phase=False)
+    assert np.array_equal(got, np.asarray(pallas))
+    assert not np.array_equal(got, N_(romix_cuda.romix(T(x), n)))
+
+
 def test_romix_rejects_bad_inputs():
     with pytest.raises(ValueError):
         romix_cuda.romix(torch.zeros((32, 4), dtype=torch.int32), 3)
