@@ -27,7 +27,9 @@ package. Phases, each printed as it runs:
    ``verify_many()`` on the proof and on a tampered copy, each held
    against hashlib and the plain CPU path; the kernels' launch counts are
    zeroed just before and read just after; the torch calls one init batch
-   makes around the kernels, counted on the card;
+   makes around the kernels, counted on the card; the first init batch's
+   dispatch time apart from the others', beside one bare allocation of
+   its 32 GiB V scratch;
 6. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``).
@@ -42,10 +44,12 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import subprocess
 import sys
 import tempfile
 import time
+
+from spacemesh_tpu_torch.tools.measure import (HBM_BYTES_PER_S, bound,
+                                               cuda_ms, int_ops_per_s, smi)
 
 N_MAIN = 8192
 INIT_BATCH = 1 << 15
@@ -54,39 +58,10 @@ PROVE_BATCH = 1 << 18
 SCAN_LANES = 1 << 24
 SCAN_NONCES = 16
 RAGGED_LANES = 1037
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-# integer instruction ceiling: 4 schedulers per SM, each starting one warp
-# instruction (32 lanes) per clock. The 64 INT32 ALU lanes per SM are not
-# the limit: integer adds also run on the FMA pipe (IMAD).
-LANES_PER_SM_CLK = 128
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call of ``fn`` by CUDA events, after warm-up."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def max_abs_err(a, b) -> int:
@@ -113,9 +88,7 @@ def phase_device(ctx: dict) -> None:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     ctx["smi"] = smi("name,power.limit")
     log(ctx["smi"])
-    max_mhz = float(smi("clocks.max.sm").split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ctx["int_ops_per_s"] = sms * LANES_PER_SM_CLK * max_mhz * 1e6
+    ctx["int_ops_per_s"], sms, max_mhz = int_ops_per_s()
     log(f"[device] {sms} SMs, max SM clock {max_mhz:.0f} MHz -> integer "
         f"instruction peak {ctx['int_ops_per_s'] / 1e12:.2f} Top/s")
     t0 = time.perf_counter()
@@ -193,7 +166,8 @@ def phase_romix(ctx: dict) -> None:
     ctx["romix"] = dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=max(err, fill_err),
         shape=f"(32, {INIT_BATCH}) N={N_MAIN}", fill_ms=fill_ms,
-        scratch_bound_ms=scratch_ms, **bound(ctx, ops, nbytes))
+        scratch_bound_ms=scratch_ms,
+        **bound(ops, nbytes, ctx["int_ops_per_s"]))
     log(f"[romix] N={N_MAIN} B={INIT_BATCH} kernel == plain, whole and "
         f"fill only; kernel {ms:.2f} ms ({INIT_BATCH / ms * 1e3:.0f} "
         f"labels/s), plain {plain_ms:.0f} ms, bound "
@@ -237,8 +211,9 @@ def pbkdf2_case(ctx: dict, b: int, per_lane: bool, seed: int) -> dict:
         res[entry] = dict(
             ms=cuda_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=2),
             max_abs_err=out[entry], shape=f"B={b} {form} commitment",
-            **bound(ctx, pbkdf2_cuda.int_ops(b, entry),
-                    pbkdf2_cuda.io_bytes(b, entry, per_lane)))
+            **bound(pbkdf2_cuda.int_ops(b, entry, per_lane),
+                    pbkdf2_cuda.io_bytes(b, entry, per_lane),
+                    ctx["int_ops_per_s"]))
         log(f"[pbkdf2] {entry} B={b} ({form} commitments): kernel == plain; "
             f"kernel {res[entry]['ms']:.4f} ms, plain "
             f"{res[entry]['plain_ms']:.1f} ms, bound "
@@ -256,13 +231,6 @@ def phase_pbkdf2(ctx: dict) -> None:
             main[entry], ragged={k: ragged[entry][k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "max_abs_err")})
-
-
-def bound(ctx: dict, ops: int, nbytes: int) -> dict:
-    ops_ms = ops / ctx["int_ops_per_s"] * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def scan_case(b: int, valid: int, start: int, thr: int, seed: int,
@@ -334,7 +302,7 @@ def phase_scan(ctx: dict) -> None:
         ctx[key] = dict(ms=c["ms"], plain_ms=c["plain_ms"],
                         max_abs_err=c["max_abs_err"],
                         shape=f"B={b} nonces={SCAN_NONCES}",
-                        **bound(ctx, c["ops"], c["nbytes"]))
+                        **bound(c["ops"], c["nbytes"], ctx["int_ops_per_s"]))
         rate = b * SCAN_NONCES / c["ms"] / 1e6
         log(f"[scan] B={b} nonces={SCAN_NONCES}: kernel == plain (mask, "
             f"segments; {c['hits']} hits), prove step via kernel == plain "
@@ -355,6 +323,7 @@ def phase_main_path(ctx: dict) -> None:
     commitment = hashlib.sha256(b"chip-smoke-commitment").digest()
     challenge = hashlib.sha256(b"chip-smoke-challenge").digest()
     params = prover.ProofParams()  # mainnet k1/k2/k3, default k2pow
+    alloc_ms = v_alloc_ms()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as d:
         romix_cuda.launches = 0
         proving_cuda.launches = 0
@@ -406,10 +375,12 @@ def phase_main_path(ctx: dict) -> None:
         log(f"[init] share of the init time: " + ", ".join(
             f"{k} {v:.1%}" for k, v in shares.items()))
         calls = envelope_calls()
+        rest = st.dispatch_s - st.first_dispatch_s
         log(f"[init] envelope: {calls} torch calls per batch around the "
-            f"kernels (counted on the card), "
-            f"{st.dispatch_s / st.batches * 1e3:.2f} ms of dispatch per "
-            "batch")
+            f"kernels (counted on the card); dispatch of the first batch "
+            f"{st.first_dispatch_s * 1e3:.2f} ms (one bare allocation of "
+            f"its V scratch: {alloc_ms:.2f} ms), of each later batch "
+            f"{rest / max(st.batches - 1, 1) * 1e3:.2f} ms on average")
         store = LabelStore(d, meta)
         try:
             stored = np.frombuffer(store.read_labels(0, UNIT_LABELS),
@@ -449,6 +420,24 @@ def phase_main_path(ctx: dict) -> None:
     for key, n in ctx["launches"].items():
         require(n > 0, f"main path launched {key}")
     log(f"[launches] main path: {json.dumps(ctx['launches'])}")
+
+
+def v_alloc_ms() -> float:
+    """Host milliseconds of one allocation of an init batch's ROMix V
+    scratch with the allocator's cache emptied first, as the main path's
+    first batch finds it; the cache is emptied again after."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v = torch.empty((INIT_BATCH, N_MAIN, 32), dtype=torch.int32,
+                    device="cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    del v
+    torch.cuda.empty_cache()
+    return ms
 
 
 def envelope_calls() -> int:
@@ -502,8 +491,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
-    import spacemesh_tpu_torch  # noqa: F401  (fails outside the checkout)
-
     ctx: dict = {}
     t0 = time.perf_counter()
     phase_device(ctx)

@@ -15,11 +15,13 @@
 //           the first 4 big-endian digest words -> (4, B)
 //
 // SHA-256 compression is unrolled in registers with funnel-shift rotates;
-// constant padding words fold into immediates. Bound: 10 compressions per
-// lane in expand and 6 in finish (about 2300 integer operations each)
-// against 136 and 144 bytes of device traffic per lane, so the operations
-// bound it, a few hundredths of a millisecond at 32768 lanes: launch
-// latency sets its time.
+// constant padding words fold into immediates. Bound: 8 compressions per
+// lane in expand and 4 in finish, plus the midstates' 2 once for a shared
+// commitment (about 1300 integer operations each), against 136 and 144
+// bytes of device traffic per lane, so the operations bound it, about a
+// hundredth of a millisecond at 32768 lanes: launch latency sets its time.
+// The kernel recomputes the midstates in every lane, two compressions per
+// lane more than a shared commitment needs, so that it stays one launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -12,10 +12,12 @@ label words pass through device memory.
 It replaces no Pallas kernel: the JAX package compiles this envelope into
 one XLA program around its ROMix kernel
 (``spacemesh_tpu/ops/scrypt.py::_labels_fused``, :440-450). What bounds it
-on an H100: 10 SHA-256 compressions per lane in expand and 6 in finish
-(:data:`COMPRESS_OPS` integer operations each, :func:`int_ops`) against
-at most 176 bytes per lane (:func:`io_bytes`), so the operations bound it,
-about 0.036 ms for both at 32768 lanes; launch latency sets its time.
+on an H100: 8 SHA-256 compressions per lane in expand and 4 in finish,
+plus the 2 of the HMAC midstates once per batch for a shared commitment
+or once per lane for per-lane ones (:data:`COMPRESS_OPS` integer
+operations each, :func:`int_ops`), against at most 176 bytes per lane
+(:func:`io_bytes`). So the operations bound it, about 0.015 ms for both
+at 32768 lanes with one commitment; launch latency sets its time.
 
 :func:`expand` and :func:`finish` take the kernel for CUDA tensors and the
 plain twins (:func:`_expand`, :func:`_pbkdf2_second`, ported from the JAX
@@ -37,19 +39,28 @@ from .u32 import DTYPE
 expand_launches = 0
 finish_launches = 0
 
-# integer operations of one SHA-256 compression: 48 schedule words (two
-# sigmas of 5 and 3 adds), 64 rounds (two Sigmas of 5, Ch 4, Maj 5, 7
-# adds) and the 8 feed-forward adds
-COMPRESS_OPS = 48 * 13 + 64 * 26 + 8
-EXPAND_COMPRESSIONS = 2 + 4 * 2   # midstates, then 4 x (inner, outer)
-FINISH_COMPRESSIONS = 2 + 3 + 1   # midstates, 3 inner blocks, outer
+# integer operations of one SHA-256 compression on sm_90. Counted by hand,
+# with LOP3 doing any three-input logic (a three-way xor, Ch, Maj) and
+# IADD3 adding three values: 48 schedule words of 10 (two sigmas of 2
+# rotates, a shift and a LOP3; 2 IADD3), 64 rounds of 14 (two Sigmas of 3
+# rotates and a LOP3, Ch 1, Maj 1, 4 IADD3) and 8 feed-forward adds, 1384.
+# The built kernel spends fewer where message words are constant padding:
+# finish's 6 compressions take 7860 SASS instructions besides its loads,
+# byteswaps, addressing and control, 1310 each (tools/romix_probe.py on
+# sm_90a). The bound takes the smaller.
+COMPRESS_OPS = 1310
+MIDSTATE_COMPRESSIONS = 2         # HMAC inner and outer key blocks
+LANE_COMPRESSIONS = {"expand": 4 * 2,   # 4 x (inner, outer)
+                     "finish": 3 + 1}   # 3 inner blocks, outer
 
 
-def int_ops(lanes: int, entry: str) -> int:
+def int_ops(lanes: int, entry: str, per_lane_commitment: bool) -> int:
     """Integer operations of ``entry`` ("expand" or "finish") over
-    ``lanes`` lanes: its compressions."""
-    per = {"expand": EXPAND_COMPRESSIONS, "finish": FINISH_COMPRESSIONS}
-    return lanes * per[entry] * COMPRESS_OPS
+    ``lanes`` lanes: its compressions, the midstates' once per commitment
+    (once for the batch when it shares one)."""
+    keys = lanes if per_lane_commitment else 1
+    return (lanes * LANE_COMPRESSIONS[entry]
+            + keys * MIDSTATE_COMPRESSIONS) * COMPRESS_OPS
 
 
 def io_bytes(lanes: int, entry: str, per_lane_commitment: bool) -> int:

@@ -56,6 +56,7 @@ class PipelineStats:
 
     batches: int = 0
     dispatch_s: float = 0.0   # host time enqueueing device work
+    first_dispatch_s: float = 0.0  # the first batch's share of dispatch_s
     fetch_s: float = 0.0      # blocked on device->host label copies
     write_stall_s: float = 0.0  # blocked on writer-pool backpressure
     write_s: float = 0.0      # filesystem time inside the writer pool
@@ -162,6 +163,7 @@ class Initializer:
         finally:
             stats.batches = pipe.stats.batches
             stats.dispatch_s = pipe.stats.dispatch_s
+            stats.first_dispatch_s = pipe.stats.first_dispatch_s
             stats.write_s = writer.write_seconds
             writer.close(drain=False)
 

@@ -27,6 +27,7 @@ from typing import Any, Callable, Iterable, Optional
 class PipelineStats:
     batches: int = 0
     dispatch_s: float = 0.0   # host time enqueueing device work
+    first_dispatch_s: float = 0.0  # the first batch's share of dispatch_s
     retire_s: float = 0.0     # blocked consuming results
     early_exited: bool = False
     stopped: bool = False
@@ -66,7 +67,10 @@ class Pipeline:
                 return None
             t0 = time.perf_counter()
             pending.append(dispatch(item))
-            stats.dispatch_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            stats.dispatch_s += dt
+            if not stats.batches:
+                stats.first_dispatch_s = dt
             stats.batches += 1
             if len(pending) >= self.inflight:
                 result = self._retire(retire, pending.popleft())

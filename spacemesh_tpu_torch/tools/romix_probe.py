@@ -1,19 +1,20 @@
-"""Time the ROMix kernel's two phases on the card and show its instructions.
+"""Time the ROMix kernel's two phases on the card and show the instructions
+of the ROMix and PBKDF2 kernels.
 
     python3 -m spacemesh_tpu_torch.tools.romix_probe [--lanes 32768]
-        [--n 8192] [--reps 3]
 
 Needs one CUDA card and ``nvcc``. Prints, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. ptxas's registers and spills for ``csrc/romix.cu``;
-3. the SASS opcode histogram of the ROMix kernel (``cuobjdump -sass`` on
-   the built library): the whole kernel, and each loop body found by its
-   backward branch (the fill loop and the mix loop each hold one BlockMix);
-4. the CUDA-event time of the whole kernel and of the fill phase alone
-   (``mix_phase=False``) at (32, lanes), and the mix phase as their
-   difference, with the operations bound and the V-traffic floor beside
-   them;
+2. ptxas's registers and spills for ``csrc/romix.cu`` and ``csrc/pbkdf2.cu``;
+3. the SASS opcode histogram of each of their kernels (``cuobjdump -sass``
+   on the built library): the whole kernel, and each loop body found by its
+   backward branch (ROMix's fill and mix loops each hold one BlockMix, the
+   PBKDF2 expand loop one inner and one outer compression);
+4. the CUDA-event time of the whole ROMix kernel and of the fill phase
+   alone (``mix_phase=False``) at (32, lanes), N=8192, and the mix phase as
+   their difference, with the operations bound and the V-traffic floor
+   beside them;
 5. the SM clock and power that nvidia-smi samples while the whole kernel
    runs back to back;
 6. the rates the card's own library kernels reach on a tensor of V's size
@@ -32,18 +33,14 @@ import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12
-LANES_PER_SM_CLK = 128
+from .measure import HBM_BYTES_PER_S, cuda_ms, int_ops_per_s, smi
+
+N = 8192
+REPS = 3
+SOURCES = ("romix", "pbkdf2")
 
 _INST = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"([^;]*);")
-
-
-def smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def sass_functions(lib: Path) -> dict[str, list[tuple[int, str, str]]]:
@@ -83,33 +80,16 @@ def loops(insts):
 
 def show_sass(lib: Path) -> None:
     for name, insts in sass_functions(lib).items():
-        if "romix" not in name:
-            continue
         print(f"[sass] {name}: {len(insts)} instructions: "
               f"{histogram(insts)}")
         for lo, hi in loops(insts):
             body = [i for i in insts if lo <= i[0] <= hi]
-            if len(body) > 200:  # a BlockMix body, not a copy loop
+            if len(body) > 200:  # a hash body, not a copy loop
                 print(f"[sass]   loop 0x{lo:x}-0x{hi:x}: {len(body)} "
                       f"instructions: {histogram(body)}")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def time_phases(lanes: int, n: int, reps: int) -> None:
+def time_phases(lanes: int) -> None:
     import numpy as np
     import torch
 
@@ -118,19 +98,16 @@ def time_phases(lanes: int, n: int, reps: int) -> None:
     dev = torch.device("cuda")
     x = u32.from_numpy(np.random.default_rng(5).integers(
         0, 2**32, (32, lanes), dtype=np.uint32), dev)
-    max_mhz = float(smi("clocks.max.sm").split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ops_ms = (romix_cuda.int_ops(lanes, n)
-              / (sms * LANES_PER_SM_CLK * max_mhz * 1e6) * 1e3)
-    v_ms = romix_cuda.scratch_bytes(lanes, n) / HBM_BYTES_PER_S * 1e3
-    whole = cuda_ms(lambda: romix_cuda.romix(x, n), reps)
-    fill = cuda_ms(lambda: romix_cuda.romix(x, n, mix_phase=False), reps)
-    print(f"[time] (32, {lanes}) N={n}: whole {whole:.3f} ms, fill "
+    ops_ms = romix_cuda.int_ops(lanes, N) / int_ops_per_s()[0] * 1e3
+    v_ms = romix_cuda.scratch_bytes(lanes, N) / HBM_BYTES_PER_S * 1e3
+    whole = cuda_ms(lambda: romix_cuda.romix(x, N), REPS)
+    fill = cuda_ms(lambda: romix_cuda.romix(x, N, mix_phase=False), REPS)
+    print(f"[time] (32, {lanes}) N={N}: whole {whole:.3f} ms, fill "
           f"{fill:.3f} ms, mix {whole - fill:.3f} ms "
           f"({lanes / whole * 1e3:.0f} labels/s); operations bound "
           f"{ops_ms:.2f} ms, V traffic floor {v_ms:.2f} ms (fill half "
           f"{v_ms / 2:.2f})", flush=True)
-    clocks_under_load(lambda: romix_cuda.romix(x, n), 1.0)
+    clocks_under_load(lambda: romix_cuda.romix(x, N), 1.0)
 
 
 def clocks_under_load(fn, seconds: float) -> None:
@@ -163,7 +140,7 @@ def clocks_under_load(fn, seconds: float) -> None:
           flush=True)
 
 
-def memory_floors(lanes: int, n: int) -> None:
+def memory_floors(lanes: int) -> None:
     """What the card's own library kernels reach on a tensor of V's size:
     ``fill_`` (sequential stores, the fill's write volume without its
     arithmetic) and ``embedding_bag`` summing 2^24 rows picked at random
@@ -173,9 +150,9 @@ def memory_floors(lanes: int, n: int) -> None:
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    rows = lanes * n
+    rows = lanes * N
     v = torch.empty((rows, 32), dtype=torch.float32, device=dev)
-    fill_ms = cuda_ms(lambda: v.fill_(1.0), 3)
+    fill_ms = cuda_ms(lambda: v.fill_(1.0), REPS)
     nbytes = rows * 128
     print(f"[floor] fill_ of V's {nbytes / 2**30:.0f} GiB: {fill_ms:.3f} ms, "
           f"{nbytes / fill_ms / 1e9:.3f} TB/s", flush=True)
@@ -183,7 +160,8 @@ def memory_floors(lanes: int, n: int) -> None:
     gen = torch.Generator(device=dev).manual_seed(9)
     idx = torch.randint(0, rows, (picks,), generator=gen, device=dev)
     offsets = torch.arange(0, picks, 256, device=dev)
-    bag_ms = cuda_ms(lambda: F.embedding_bag(idx, v, offsets, mode="sum"), 3)
+    bag_ms = cuda_ms(lambda: F.embedding_bag(idx, v, offsets, mode="sum"),
+                     REPS)
     print(f"[floor] embedding_bag of {picks} random 128-byte rows of V: "
           f"{bag_ms:.3f} ms, {picks * 128 / bag_ms / 1e9:.3f} TB/s of row "
           f"reads", flush=True)
@@ -194,8 +172,6 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--lanes", type=int, default=32768)
-    ap.add_argument("--n", type=int, default=8192)
-    ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("romix_probe: no CUDA card", file=sys.stderr)
@@ -203,14 +179,15 @@ def main() -> int:
     from ..ops import _build
 
     print(smi("name,power.limit"), flush=True)
-    log = _build.build_all(("romix",))["romix"]
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
-    show_sass(_build.library_path("romix"))
-    time_phases(args.lanes, args.n, args.reps)
+    logs = _build.build_all(SOURCES)
+    for name in SOURCES:
+        for line in logs[name].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+        show_sass(_build.library_path(name))
+    time_phases(args.lanes)
     torch.cuda.empty_cache()
-    memory_floors(args.lanes, args.n)
+    memory_floors(args.lanes)
     return 0
 
 

@@ -53,6 +53,18 @@ def test_romix_fill_phase_kernel_matches_plain(dev, n, b):
     assert torch.equal(got, romix_cuda.romix_r1(x, n, mix_phase=False))
 
 
+def test_lanes_that_fit_counts_free_and_cached_memory(dev):
+    held = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
+    del held  # 256 MiB now cached by the allocator, not in use
+    n = 8192
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = (torch.cuda.memory_reserved(dev)
+              - torch.cuda.memory_allocated(dev))
+    assert cached >= 1 << 28
+    want = int((free + cached) * 0.9) // (n * 128)
+    assert abs(romix_cuda.lanes_that_fit(n, dev) - want) <= 1
+
+
 @pytest.mark.parametrize("per_lane", [False, True])
 @pytest.mark.parametrize("b", [1, 1000])
 def test_pbkdf2_kernels_match_plain(dev, per_lane, b):

@@ -128,8 +128,11 @@ def test_bad_shapes_and_dtypes_raise():
 
 
 def test_bounds_count_the_compressions():
-    assert pbkdf2_cuda.COMPRESS_OPS == 2296
-    assert pbkdf2_cuda.int_ops(3, "expand") == 3 * 10 * 2296
-    assert pbkdf2_cuda.int_ops(3, "finish") == 3 * 6 * 2296
+    assert pbkdf2_cuda.COMPRESS_OPS == 1310
+    # a shared commitment's midstates are needed once for the batch
+    assert pbkdf2_cuda.int_ops(3, "expand", False) == (3 * 8 + 2) * 1310
+    assert pbkdf2_cuda.int_ops(3, "finish", False) == (3 * 4 + 2) * 1310
+    assert pbkdf2_cuda.int_ops(3, "expand", True) == 3 * 10 * 1310
+    assert pbkdf2_cuda.int_ops(3, "finish", True) == 3 * 6 * 1310
     assert pbkdf2_cuda.io_bytes(3, "expand", False) == 32 + 3 * 136
     assert pbkdf2_cuda.io_bytes(3, "finish", True) == 3 * (32 + 144)

@@ -171,6 +171,26 @@ def test_pipeline_window_early_exit_and_stop():
     assert engine.Pipeline().run([], dispatch, retire) is None
 
 
+def test_pipeline_records_the_first_dispatch_apart(monkeypatch):
+    clock = iter(range(100))
+    monkeypatch.setattr(engine.time, "perf_counter", lambda: next(clock))
+    pipe = engine.Pipeline(inflight=8)
+    assert pipe.run(range(3), lambda i: i, lambda i: None) is None
+    # each dispatch reads the clock twice, one tick apart
+    assert pipe.stats.batches == 3
+    assert pipe.stats.first_dispatch_s == 1
+    assert pipe.stats.dispatch_s == 3
+
+
+def test_bound_is_the_larger_of_bytes_and_operations():
+    from spacemesh_tpu_torch.tools import measure
+
+    by_ops = measure.bound(10**12, 0, 10**12)
+    assert by_ops == {"bound_ms": 1000.0, "bound_by": "operations"}
+    by_bytes = measure.bound(1, int(measure.HBM_BYTES_PER_S), 10**12)
+    assert by_bytes == {"bound_ms": 1000.0, "bound_by": "bytes"}
+
+
 def test_kernel_build_keys_on_source_and_raises_on_failed_nvcc(
         monkeypatch, tmp_path):
     a = _build.library_path("romix")
