@@ -30,13 +30,27 @@ package. Phases, each printed as it runs:
    makes around the kernels, counted on the card; the first init batch's
    dispatch time apart from the others', beside one bare allocation of
    its 32 GiB V scratch;
-6. a JSON line of per-kernel launches, times and bounds, each time taken
+6. [worker] the PoST worker as a smesher runs it: ``python -m
+   spacemesh_tpu_torch.post init`` in a subprocess (2^18 labels, N=8192,
+   batches of 32768, stage timings), 64 random stored labels against
+   hashlib; ``benchmark`` at 32768 lanes in a subprocess; a
+   ``PostSupervisor`` serving that store, whose ``info()`` and
+   ``proof()`` (through ``RemotePostClient``) must equal the store's
+   geometry and the in-process ``Prover``'s proof at window_groups 1 and
+   4; the worker killed once, restarted by the supervisor on the same
+   port with ``SPACEMESH_PROVE_WINDOW_GROUPS=4``, and the same proof
+   again; ``verify`` in subprocesses, exit 0 on the proof and exit 1 on a
+   copy with one index swapped for a non-qualifying one. The kernels'
+   launch counts are zeroed before the in-process proves and verify and
+   read after;
+7. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Labels per unit are cut from mainnet's 2^32 to 2^20
-for the time limit; N, the label width and k1/k2/k3 are not cut.
+(2^18 for the worker) for the time limit; N, the label width and
+k1/k2/k3 are not cut.
 """
 
 from __future__ import annotations
@@ -44,6 +58,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -58,6 +74,9 @@ PROVE_BATCH = 1 << 18
 SCAN_LANES = 1 << 24
 SCAN_NONCES = 16
 RAGGED_LANES = 1037
+WORKER_LABELS = 1 << 18
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI = [sys.executable, "-m", "spacemesh_tpu_torch.post"]
 
 
 def log(msg: str) -> None:
@@ -422,6 +441,209 @@ def phase_main_path(ctx: dict) -> None:
     log(f"[launches] main path: {json.dumps(ctx['launches'])}")
 
 
+def run_cli(args: list, want_rc: int = 0) -> dict:
+    """Run the port's CLI in a subprocess from the checkout; its last
+    stdout line parsed as JSON. Fails unless it exits with ``want_rc``."""
+    out = subprocess.run(CLI + args, cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    require(out.returncode == want_rc,
+            f"`post {args[0]}` exited {out.returncode} (want {want_rc}): "
+            f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def cli_verify_both(d: str, challenge: bytes, good, bad) -> list:
+    """``post verify`` of the store at ``d`` on two proofs, in two
+    subprocesses at once: [(exit code, JSON line)] for each."""
+    procs = []
+    try:
+        for proof in (good, bad):
+            path = os.path.join(os.path.dirname(d),
+                                f"proof-{len(procs)}.json")
+            with open(path, "w") as fh:
+                json.dump(proof.to_dict(), fh)
+            procs.append(subprocess.Popen(
+                CLI + ["verify", "--data-dir", d, "--proof-file", path,
+                       "--challenge-hex", challenge.hex()],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        res = []
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            require(p.returncode in (0, 1),
+                    f"`post verify` exited {p.returncode}: {err[-2000:]}")
+            res.append((p.returncode,
+                        json.loads(out.strip().splitlines()[-1])))
+        return res
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def wait_served(client, timeout: float) -> float:
+    """Seconds until ``client.ping()`` answers again after a restart."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            client.ping()
+            return time.perf_counter() - t0
+        except (OSError, RuntimeError):
+            require(time.perf_counter() - t0 < timeout,
+                    "worker came back after the kill")
+            time.sleep(0.2)
+
+
+def phase_worker(ctx: dict) -> None:
+    import numpy as np
+    import torch
+    from spacemesh_tpu_torch.ops import (pbkdf2_cuda, proving, proving_cuda,
+                                         romix_cuda)
+    from spacemesh_tpu_torch.post import prover, verifier
+    from spacemesh_tpu_torch.post.data import LabelStore, PostMetadata
+    from spacemesh_tpu_torch.post.remote import RemotePostClient
+    from spacemesh_tpu_torch.post.supervisor import PostSupervisor
+
+    node = hashlib.sha256(b"chip-smoke-worker-node").digest()
+    commitment = hashlib.sha256(b"chip-smoke-worker-commitment").digest()
+    challenge = hashlib.sha256(b"chip-smoke-worker-challenge").digest()
+    params = prover.ProofParams()  # what the CLI and the worker default to
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the subprocesses need the card's memory
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-worker-") as base:
+        d = os.path.join(base, node.hex()[:16])
+        t0 = time.perf_counter()
+        init = run_cli(["init", "--data-dir", d, "--node-id-hex", node.hex(),
+                        "--commitment-hex", commitment.hex(),
+                        "--num-units", "1",
+                        "--labels-per-unit", str(WORKER_LABELS),
+                        "--scrypt-n", str(N_MAIN), "--batch", str(INIT_BATCH),
+                        "--stage-timings"])
+        init_cmd_s = time.perf_counter() - t0
+        require(init["labels_written"] == WORKER_LABELS,
+                "CLI init wrote every label")
+        st = init["stages"]
+        shares = {k: st[k] / init["elapsed_s"] for k in (
+            "dispatch_s", "fetch_s", "write_stall_s", "save_s")}
+        log(f"[worker] CLI init {WORKER_LABELS} labels N={N_MAIN} "
+            f"batch={INIT_BATCH}: {json.dumps(init)} ({init_cmd_s:.1f} s of "
+            "command time); share of the init time: " + ", ".join(
+                f"{k} {v:.1%}" for k, v in shares.items()))
+        meta = PostMetadata.load(d)
+        store = LabelStore(d, meta)
+        try:
+            stored = np.frombuffer(store.read_labels(0, WORKER_LABELS),
+                                   dtype=np.uint8).reshape(-1, 16)
+        finally:
+            store.close()
+        rng = np.random.default_rng(5)
+        for i in sorted(rng.choice(WORKER_LABELS, 64,
+                                   replace=False).tolist()):
+            want = hashlib.scrypt(commitment, salt=i.to_bytes(8, "little"),
+                                  n=N_MAIN, r=1, p=1, dklen=16)
+            require(bytes(stored[i]) == want,
+                    f"CLI-initialized label {i} == hashlib")
+        log("[worker] 64 random labels of the CLI's store == hashlib.scrypt")
+
+        bench = run_cli(["benchmark", "--batch", str(INIT_BATCH),
+                         "--scrypt-n", str(N_MAIN)])
+        require(bench["labels_per_s"] > 0, "benchmark printed a rate")
+        log(f"[worker] CLI benchmark: {json.dumps(bench)}")
+
+        sup = PostSupervisor(base, device="cuda")
+        t0 = time.perf_counter()
+        addr = sup.start(timeout=300)
+        ready_s = time.perf_counter() - t0
+        times = {}
+        try:
+            client = RemotePostClient(addr, node, timeout=600)
+            info = client.info()
+            require((info.node_id, info.commitment, info.num_units,
+                     info.labels_per_unit, info.scrypt_n,
+                     info.labels_written, info.vrf_nonce) ==
+                    (node, commitment, 1, WORKER_LABELS, N_MAIN,
+                     WORKER_LABELS, meta.vrf_nonce),
+                    "worker info() has the store's geometry")
+            log(f"[worker] supervisor spawn to ready {ready_s:.2f} s; "
+                f"info() == the store's geometry")
+            worker = []
+            for rep_ in range(2):  # a cold and a warm prove in the worker
+                t0 = time.perf_counter()
+                worker.append(client.proof(challenge)[0])
+                times[f"worker_g1_{rep_}"] = time.perf_counter() - t0
+            require(worker[0] == worker[1], "worker proofs agree")
+
+            romix_cuda.launches = 0
+            proving_cuda.launches = 0
+            pbkdf2_cuda.expand_launches = 0
+            pbkdf2_cuda.finish_launches = 0
+            for g in (1, 4):
+                pv = prover.Prover(d, params, window_groups=g, device="cuda")
+                t0 = time.perf_counter()
+                proof = pv.prove(challenge)
+                times[f"inproc_g{g}"] = time.perf_counter() - t0
+                require(proof == worker[0],
+                        f"worker proof == in-process proof at G={g}")
+            total = meta.total_labels
+            thr = proving.threshold_u32(params.k1, total)
+            bad = dataclasses.replace(worker[0],
+                                      indices=list(worker[0].indices))
+            bad.indices[0] = replacement_index(worker[0], commitment,
+                                               challenge, thr, total)
+            items = [verifier.VerifyItem(
+                proof=p, challenge=challenge, node_id=node,
+                commitment=commitment, scrypt_n=N_MAIN, total_labels=total)
+                for p in (worker[0], bad)]
+            verdicts = verifier.verify_many(items, params, device="cuda")
+            torch.cuda.synchronize()
+            launches = {"romix": romix_cuda.launches,
+                        "scan": proving_cuda.launches,
+                        "pbkdf2_expand": pbkdf2_cuda.expand_launches,
+                        "pbkdf2_finish": pbkdf2_cuda.finish_launches}
+            require(verdicts == [True, False],
+                    f"in-process verdicts {verdicts} == [True, False]")
+            for key, n in launches.items():
+                require(n > 0, f"worker phase launched {key} in process")
+
+            # kill the worker once: the supervisor restarts it on the same
+            # port, this time proving 4 nonce groups per disk pass
+            sup.env = dict(os.environ, SPACEMESH_PROVE_WINDOW_GROUPS="4")
+            before = sup.restarts
+            sup._proc.kill()
+            back_s = wait_served(client, timeout=300)
+            require(sup.restarts == before + 1 and sup.address == addr,
+                    "supervisor restarted the worker on the same port")
+            for rep_ in range(2):
+                t0 = time.perf_counter()
+                again = client.proof(challenge)[0]
+                times[f"worker_g4_{rep_}"] = time.perf_counter() - t0
+                require(again == worker[0],
+                        "the restarted worker's proof (G=4) is the same")
+        finally:
+            sup.stop()
+        require(not sup.alive(), "the supervisor stopped its worker")
+
+        (rc_good, good), (rc_bad, badv) = cli_verify_both(
+            d, challenge, worker[0], bad)
+        require((rc_good, good) == (0, {"valid": True}),
+                f"CLI verify accepted the proof ({rc_good}, {good})")
+        require((rc_bad, badv) == (1, {"valid": False}),
+                f"CLI verify rejected the tampered proof ({rc_bad}, {badv})")
+    log(f"[worker] proof nonce {worker[0].nonce}: worker G=1 "
+        f"{times['worker_g1_0']:.3f} s cold, {times['worker_g1_1']:.3f} s "
+        f"warm; in-process G=1 {times['inproc_g1']:.3f} s, G=4 "
+        f"{times['inproc_g4']:.3f} s; killed, back in {back_s:.2f} s, "
+        f"worker G=4 {times['worker_g4_0']:.3f} s cold, "
+        f"{times['worker_g4_1']:.3f} s warm; all the same proof")
+    log(f"[worker] CLI verify: exit 0 {json.dumps(good)} on the proof, "
+        f"exit 1 {json.dumps(badv)} on the tampered copy; in-process "
+        f"launches {json.dumps(launches)}")
+    ctx["worker"] = dict(init=init, bench=bench, ready_s=ready_s,
+                         back_s=back_s, times=times, launches=launches)
+    log(f"[worker] {ctx['smi']}")
+
+
 def v_alloc_ms() -> float:
     """Host milliseconds of one allocation of an init batch's ROMix V
     scratch with the allocator's cache emptied first, as the main path's
@@ -498,6 +720,7 @@ def main() -> int:
     phase_pbkdf2(ctx)
     phase_scan(ctx)
     phase_main_path(ctx)
+    phase_worker(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
              "scan": {"full_width": {k: ctx["scan_full"][k] for k in (

@@ -9,11 +9,16 @@ byte-identical, so a store written by either package opens in the other:
   ``labels_written`` cursor is the writer pool's *durable* (fsynced)
   cursor and whose ``intervals`` ledger holds a CRC32 per checkpointed
   label interval, so reopen can verify the tail and truncate torn bytes
-  back to the last checkpoint that checks out (:func:`recover_store`).
+  back to the last checkpoint that checks out (:func:`recover_store`);
+* all file I/O goes through an injectable ``fs`` (``utils/fsio.RealFS`` by
+  default), so the disk-fault shim (``post/faultfs.py``) can crash the
+  pipeline at exact operation counts;
+* ENOSPC in the writer pool parks instead of failing: the pool retries on
+  an interval, ``LabelWriter.degraded()`` says why, and the init resumes
+  when space returns.
 
-Left out against the JAX package: the ENOSPC parking of the writer pool
-(any write error fails the pool with :class:`LabelWriteError`) and the
-metrics, sanitizer and tracing hooks.
+Left out against the JAX package: the race sanitizer's hooks and the
+tracing spans.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import zlib
 from pathlib import Path
 
 from ..ops.scrypt import LABEL_BYTES
-from ..utils import fsio
+from ..utils import fsio, metrics
 
 METADATA_FILE = "postdata_metadata.json"
 
@@ -84,15 +89,15 @@ class PostMetadata:
     def labels_per_file(self) -> int:
         return self.max_file_size // LABEL_BYTES
 
-    def save(self, data_dir: str | Path) -> None:
+    def save(self, data_dir: str | Path, fs=None) -> None:
         path = Path(data_dir) / METADATA_FILE
         fsio.atomic_write_text(
-            path, json.dumps(dataclasses.asdict(self), indent=1))
+            path, json.dumps(dataclasses.asdict(self), indent=1), fs=fs)
 
     @classmethod
-    def load(cls, data_dir: str | Path) -> "PostMetadata":
+    def load(cls, data_dir: str | Path, fs=None) -> "PostMetadata":
         path = Path(data_dir) / METADATA_FILE
-        fsio.cleanup_stale_tmps(path)
+        fsio.cleanup_stale_tmps(path, fs=fs)
         text = path.read_text()  # FileNotFoundError propagates: no store
         try:
             doc = json.loads(text)
@@ -109,9 +114,10 @@ class PostMetadata:
 class LabelStore:
     """Reads/writes the ``postdata_N.bin`` files for one data directory."""
 
-    def __init__(self, data_dir: str | Path, meta: PostMetadata):
+    def __init__(self, data_dir: str | Path, meta: PostMetadata, fs=None):
         self.dir = Path(data_dir)
         self.meta = meta
+        self.fs = fs if fs is not None else fsio.REAL
         self.dir.mkdir(parents=True, exist_ok=True)
         self._fd_lock = threading.Lock()
         self._read_fds: dict[int, int] = {}
@@ -125,7 +131,7 @@ class LabelStore:
         with self._fd_lock:
             fd = self._read_fds.get(i)
             if fd is None:
-                fd = os.open(self._file(i), os.O_RDONLY)
+                fd = self.fs.open(self._file(i), os.O_RDONLY)
                 self._read_fds[i] = fd
             return fd
 
@@ -134,7 +140,7 @@ class LabelStore:
             fd = self._read_fds.pop(i, None)
         if fd is not None:
             try:
-                os.close(fd)
+                self.fs.close(fd)
             except OSError:
                 pass
 
@@ -144,7 +150,7 @@ class LabelStore:
             fds, self._read_fds = self._read_fds, {}
         for fd in fds.values():
             try:
-                os.close(fd)
+                self.fs.close(fd)
             except OSError:
                 pass
 
@@ -160,19 +166,20 @@ class LabelStore:
         while off < len(labels):
             fi, within = divmod(idx, lpf)
             take = min(len(labels) - off, (lpf - within) * LABEL_BYTES)
-            fd = os.open(self._file(fi), os.O_CREAT | os.O_WRONLY, 0o644)
+            fd = self.fs.open(self._file(fi), os.O_CREAT | os.O_WRONLY,
+                              0o644)
             try:
                 view = memoryview(labels)[off:off + take]
                 pos = within * LABEL_BYTES
                 while len(view):
-                    n = os.pwrite(fd, view, pos)
+                    n = self.fs.pwrite(fd, view, pos)
                     if n <= 0:
                         raise IOError(
                             f"zero-length write at label {idx} (file {fi})")
                     view = view[n:]
                     pos += n
             finally:
-                os.close(fd)
+                self.fs.close(fd)
             with self._fd_lock:
                 self._dirty.add(fi)
             off += take
@@ -187,14 +194,15 @@ class LabelStore:
         try:
             for fi in sorted(dirty):
                 try:
-                    fd = os.open(self._file(fi), os.O_RDONLY)
+                    fd = self.fs.open(self._file(fi), os.O_RDONLY)
                 except FileNotFoundError:
                     done.add(fi)  # recovery removed it; nothing to sync
                     continue
                 try:
-                    os.fsync(fd)
+                    self.fs.fsync(fd)
                 finally:
-                    os.close(fd)
+                    self.fs.close(fd)
+                metrics.post_store_fsyncs.inc()
                 done.add(fi)
         finally:
             failed = dirty - done
@@ -202,15 +210,19 @@ class LabelStore:
                 with self._fd_lock:
                     self._dirty |= failed
 
-    def start_writer(self) -> "LabelWriter":
-        """A background writer pool: 2 threads, 8 queued writes before
-        the submitter blocks."""
-        return LabelWriter(self, threads=2, queue_depth=8)
+    def start_writer(self, threads: int = 2, queue_depth: int = 8,
+                     **writer_opts) -> "LabelWriter":
+        """A background writer pool: ``threads`` threads, ``queue_depth``
+        queued writes before the submitter blocks (``writer_opts``:
+        enospc_wait, enospc_retry_s)."""
+        return LabelWriter(self, threads=threads, queue_depth=queue_depth,
+                           **writer_opts)
 
-    def start_reader(self, ranges) -> "LabelReader":
-        """A read-ahead pool over ``ranges``: 2 threads, at most 4 ranges
-        buffered or in flight."""
-        return LabelReader(self, ranges, threads=2, depth=4)
+    def start_reader(self, ranges, threads: int = 2,
+                     depth: int = 4) -> "LabelReader":
+        """A read-ahead pool over ``ranges``: ``threads`` threads, at most
+        ``depth`` ranges buffered or in flight."""
+        return LabelReader(self, ranges, threads=threads, depth=depth)
 
     def _pread_retry(self, fi: int, nbytes: int, offset: int) -> bytes:
         """One positioned read with bounded EIO retry and a reopen between
@@ -218,10 +230,11 @@ class LabelStore:
         attempt = 0
         while True:
             try:
-                return os.pread(self._read_fd(fi), nbytes, offset)
+                return self.fs.pread(self._read_fd(fi), nbytes, offset)
             except OSError as e:
                 if e.errno != errno.EIO or attempt >= READ_RETRIES:
                     raise
+                metrics.post_store_read_retries.inc()
                 self._drop_read_fd(fi)
                 time.sleep(min(READ_BACKOFF_CAP_S,
                                READ_BACKOFF_BASE_S * (2 ** attempt)))
@@ -243,6 +256,8 @@ class LabelStore:
             out += chunk
             idx += take
             remaining -= take
+        metrics.post_store_read_calls.inc()
+        metrics.post_store_read_bytes.inc(count * LABEL_BYTES)
         return bytes(out)
 
 
@@ -255,13 +270,23 @@ class LabelWriter:
     contiguously fsynced, advanced only at :meth:`checkpoint` and
     :meth:`drain`. The initializer never persists a cursor beyond the
     durable one.
+
+    ENOSPC parks instead of failing (``enospc_wait=True``): the failing
+    worker retries every ``enospc_retry_s`` (or at :meth:`kick`),
+    :meth:`degraded` says why, backpressure pauses the submitter, and the
+    pool resumes by itself when space returns. Any other OS error, or
+    ENOSPC with the wait off, fails the pool with a typed
+    :class:`LabelWriteError` and unblocks queued submitters.
     """
 
     _STOP = object()
 
     def __init__(self, store: LabelStore, threads: int = 2,
-                 queue_depth: int = 8):
+                 queue_depth: int = 8, enospc_wait: bool = True,
+                 enospc_retry_s: float = 0.5):
         self.store = store
+        self.enospc_wait = enospc_wait
+        self.enospc_retry_s = enospc_retry_s
         self._q: queue.Queue = queue.Queue(maxsize=max(queue_depth, 1))
         self._lock = threading.Lock()
         self._idle = threading.Condition(self._lock)
@@ -271,6 +296,7 @@ class LabelWriter:
         # running CRC32 over [open interval start, _flushed); cut at
         # checkpoint()
         self._crc = 0
+        self._degraded: str | None = None
         self._ckpt_active = False  # parks the flushed/CRC advance
         self._inflight = 0
         self._error: BaseException | None = None
@@ -306,6 +332,49 @@ class LabelWriter:
                         self._inflight -= 1
                     raise
 
+    def flushed(self) -> int:
+        """Label index up to which every label was handed to the OS."""
+        with self._lock:
+            return self._flushed
+
+    def durable(self) -> int:
+        """Label index up to which every label is fsynced."""
+        with self._lock:
+            return self._durable
+
+    def degraded(self) -> str | None:
+        """Why the pool is parked (ENOSPC), or None while healthy."""
+        with self._lock:
+            return self._degraded
+
+    def kick(self) -> None:
+        """Wake a parked ENOSPC retry now (the operator's "space is
+        free" signal, and tests)."""
+        with self._idle:
+            self._idle.notify_all()
+
+    def wait_for_space(self, what: str) -> None:
+        """Park the caller in the ENOSPC degraded state for one retry
+        interval: set ``degraded()``, then wait ``enospc_retry_s`` or a
+        :meth:`kick`. The pool's writes park here, and the initializer's
+        checkpoint and metadata saves too."""
+        with self._idle:
+            if self._closed:
+                raise LabelWriteError("writer closed while waiting "
+                                      "for disk space",
+                                      errno_=errno.ENOSPC)
+            self._degraded = f"enospc: {what} waiting for space"
+            metrics.post_store_degraded.set(1.0)
+            metrics.post_store_enospc_waits.inc()
+            self._idle.wait(timeout=self.enospc_retry_s)
+
+    def clear_degraded(self) -> None:
+        with self._idle:
+            was = self._degraded is not None
+            self._degraded = None
+        if was:
+            metrics.post_store_degraded.set(0.0)
+
     def checkpoint(self) -> tuple[int, int]:
         """Make the flushed prefix durable. Returns ``(durable, crc)`` with
         the CRC of [previous checkpoint, durable). The flushed advance is
@@ -340,7 +409,15 @@ class LabelWriter:
         self._raise_if_failed()
         with self._lock:
             f = self._flushed
-        self.store.sync()
+        while True:
+            try:
+                self.store.sync()
+                break
+            except OSError as e:
+                if e.errno != errno.ENOSPC or not self.enospc_wait:
+                    raise
+                self.wait_for_space("label fsync at drain")
+        self.clear_degraded()
         with self._lock:
             self._durable = f
 
@@ -353,10 +430,18 @@ class LabelWriter:
             if drain and not failed:
                 self.drain()
         finally:
+            # a worker parked on ENOSPC is kicked awake (it sees _closed
+            # and fails), so a full queue makes room for the sentinels
             with self._lock:
                 self._closed = True
+            self.kick()
             for _ in self._threads:
-                self._q.put(self._STOP)
+                while True:
+                    try:
+                        self._q.put(self._STOP, timeout=0.2)
+                        break
+                    except queue.Full:
+                        self.kick()
             for t in self._threads:
                 t.join(timeout=10)
 
@@ -367,6 +452,20 @@ class LabelWriter:
             raise LabelWriteError(
                 errno_=getattr(error, "errno", None)) from error
 
+    def _write_with_enospc_wait(self, start: int, labels: bytes) -> None:
+        """One write; ENOSPC parks this worker in a retry loop instead of
+        failing the pool. Every retry is a real write attempt, so under
+        a fault plan the release is at a set operation count."""
+        while True:
+            try:
+                self.store.write_labels(start, labels)
+                self.clear_degraded()
+                return
+            except OSError as e:
+                if e.errno != errno.ENOSPC or not self.enospc_wait:
+                    raise
+                self.wait_for_space(f"label write at {start}")
+
     def _worker(self) -> None:
         while True:
             item = self._q.get()
@@ -375,7 +474,7 @@ class LabelWriter:
             start, labels = item
             t0 = time.perf_counter()
             try:
-                self.store.write_labels(start, labels)
+                self._write_with_enospc_wait(start, labels)
             except BaseException as e:  # noqa: BLE001 — surfaced to caller
                 with self._idle:
                     if self._error is None:
@@ -513,7 +612,7 @@ def _disk_extent(store: LabelStore, total: int) -> int:
     fi = 0
     while extent < total:
         try:
-            size = os.path.getsize(store._file(fi))
+            size = store.fs.getsize(store._file(fi))
         except OSError:
             break
         extent += min(size // LABEL_BYTES, lpf)
@@ -534,8 +633,8 @@ def _crc_of_range(store: LabelStore, start: int, end: int,
     return crc
 
 
-def recover_store(data_dir: str | Path, meta: PostMetadata
-                  ) -> RecoveryReport:
+def recover_store(data_dir: str | Path, meta: PostMetadata, fs=None,
+                  store: LabelStore | None = None) -> RecoveryReport:
     """Reopen-time recovery: converge the label files and the metadata
     cursor to a verified, mutually consistent state.
 
@@ -546,8 +645,13 @@ def recover_store(data_dir: str | Path, meta: PostMetadata
     3. Truncate bytes past the verified cursor, remove label files wholly
        past it, fsync what was touched.
     4. Persist the repaired metadata.
+
+    ``store`` is an open store over ``data_dir`` whose cached read fds
+    recovery must drop (it stays open); by default recovery opens its own
+    over ``fs``. Repairs count in the ``post_store_recovery_*`` metrics.
     """
-    st = LabelStore(data_dir, meta)
+    own_store = store is None
+    st = LabelStore(data_dir, meta, fs=fs) if own_store else store
     report = RecoveryReport()
     try:
         total = meta.total_labels
@@ -599,21 +703,21 @@ def recover_store(data_dir: str | Path, meta: PostMetadata
             except ValueError:
                 continue
             try:
-                size = os.path.getsize(path)
+                size = st.fs.getsize(path)
             except OSError:
                 continue
             expect = max(0, min(cursor - fi * lpf, lpf)) * LABEL_BYTES
             if size > expect:
                 if expect == 0 and fi * lpf >= cursor:
-                    path.unlink()
+                    st.fs.unlink(path)
                     report.removed_files += 1
                 else:
-                    os.truncate(path, expect)
+                    st.fs.truncate(path, expect)
                 report.truncated_bytes += size - expect
                 touched = True
         if touched:
             st.invalidate()
-            fsio.fsync_dir(st.dir)
+            fsio.fsync_dir(st.dir, fs=st.fs)
 
         changed = (cursor != meta.labels_written
                    or intervals != [list(map(int, iv))
@@ -622,7 +726,13 @@ def recover_store(data_dir: str | Path, meta: PostMetadata
         meta.intervals = intervals
         report.cursor = cursor
         if changed or report.acted:
-            meta.save(st.dir)
+            meta.save(st.dir, fs=st.fs)
+            metrics.post_store_recovery_runs.inc()
+            metrics.post_store_recovery_truncated_bytes.inc(
+                report.truncated_bytes)
+            metrics.post_store_recovery_intervals_dropped.inc(
+                report.intervals_dropped)
         return report
     finally:
-        st.close()
+        if own_store:
+            st.close()

@@ -15,14 +15,25 @@ Metadata is rewritten on a time/label interval; the persisted
 frontier. The VRF scan may run ahead of it: labels are deterministic, so a
 resume recomputes them and the min-merge is idempotent.
 
+The pipeline options are the JAX ``Initializer``'s: ``inflight``,
+``writers`` (with the ``SPACEMESH_INFLIGHT``/``SPACEMESH_WRITERS``
+overrides), ``writer_queue``, the metadata intervals, ``fs`` (the
+injectable I/O layer, ``post/faultfs.py``), ``enospc_retry_s`` and
+``save_barrier``. An ENOSPC anywhere in the storage plane (a label write,
+the checkpoint fsync, the metadata save) parks the session until space
+returns instead of failing it.
+
 Left out against the JAX package: the device mesh, the autotuned kernel
-plan, and the health, remediation, metrics and tracing hooks.
+plan, the tenant label, and the health, remediation, pipeline-metrics and
+tracing hooks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import errno
+import os
 import time
 from pathlib import Path
 from typing import Callable
@@ -38,6 +49,8 @@ from .data import LabelStore, LabelWriter, PostMetadata, recover_store
 # at N=8192 (romix_cuda caps each launch to the card's free memory)
 DEFAULT_BATCH = 1 << 15
 DEFAULT_INFLIGHT = 3   # device batches in flight before the oldest retires
+DEFAULT_WRITERS = 2    # background writer threads
+DEFAULT_WRITER_QUEUE = 8  # pending writes before dispatch backpressure
 # metadata is rewritten when either interval has passed since the last save
 META_INTERVAL_S = 5.0
 META_INTERVAL_LABELS = 1 << 20
@@ -80,18 +93,44 @@ class Initializer:
     """Fills (or resumes) one identity's PoST data directory.
 
     ``progress(done, total)`` reports the fetch frontier: labels whose
-    bytes reached the host and were handed to the writer pool."""
+    bytes reached the host and were handed to the writer pool.
+    ``save_barrier`` drains the writer pool before every metadata
+    checkpoint, so the operations on ``fs`` follow the batch schedule
+    alone, not the writer threads' timing (what a fault plan needs to
+    replay); by default saves overlap the writes. The metadata intervals
+    default to :data:`META_INTERVAL_S` and :data:`META_INTERVAL_LABELS`."""
 
     def __init__(self, data_dir: str | Path, meta: PostMetadata,
                  batch_size: int = DEFAULT_BATCH,
                  progress: Callable[[int, int], None] | None = None,
-                 inflight: int = DEFAULT_INFLIGHT, device="cuda"):
+                 inflight: int | None = None,
+                 writers: int | None = None,
+                 writer_queue: int = DEFAULT_WRITER_QUEUE,
+                 meta_interval_s: float | None = None,
+                 meta_interval_labels: int | None = None,
+                 fs=None,
+                 enospc_retry_s: float = 0.5,
+                 save_barrier: bool = False,
+                 device="cuda"):
         self.device = resolve(device)
-        self.store = LabelStore(data_dir, meta)
+        self.store = LabelStore(data_dir, meta, fs=fs)
         self.meta = meta
         self.batch = batch_size
         self.progress = progress
-        self.inflight = max(int(inflight), 1)
+        self.inflight = max(int(
+            inflight if inflight is not None
+            else os.environ.get("SPACEMESH_INFLIGHT", DEFAULT_INFLIGHT)), 1)
+        self.writers = max(int(
+            writers if writers is not None
+            else os.environ.get("SPACEMESH_WRITERS", DEFAULT_WRITERS)), 1)
+        self.writer_queue = writer_queue
+        self.meta_interval_s = (META_INTERVAL_S if meta_interval_s is None
+                                else meta_interval_s)
+        self.meta_interval_labels = (
+            META_INTERVAL_LABELS if meta_interval_labels is None
+            else meta_interval_labels)
+        self.enospc_retry_s = enospc_retry_s
+        self.save_barrier = save_barrier
         self._resume_at = meta.labels_written  # submit-frontier base
         self.status = (Status.COMPLETE
                        if meta.labels_written >= meta.total_labels
@@ -125,7 +164,9 @@ class Initializer:
         carry_cell = [u32.from_numpy(carry_host, dev)]
         self._snapshot = carry_host
 
-        writer = self.store.start_writer()
+        writer = self.store.start_writer(
+            self.writers, self.writer_queue,
+            enospc_retry_s=self.enospc_retry_s)
         self._last_save_t = time.monotonic()
         self._last_save_labels = written0
 
@@ -166,6 +207,7 @@ class Initializer:
             stats.first_dispatch_s = pipe.stats.first_dispatch_s
             stats.write_s = writer.write_seconds
             writer.close(drain=False)
+            writer.clear_degraded()
 
         if meta.labels_written >= total:
             self.status = Status.COMPLETE
@@ -199,9 +241,9 @@ class Initializer:
         # the label trigger fires on the submit frontier (deterministic per
         # batch schedule), not the flushed cursor (writer-thread timing)
         frontier = self._resume_at + writer.labels_submitted
-        if (time.monotonic() - self._last_save_t < META_INTERVAL_S
+        if (time.monotonic() - self._last_save_t < self.meta_interval_s
                 and frontier - self._last_save_labels
-                < META_INTERVAL_LABELS):
+                < self.meta_interval_labels):
             return
         self._save_meta(writer, stats)
 
@@ -209,10 +251,20 @@ class Initializer:
         """Persist resume metadata. The cursor is the writer's durable
         (contiguous-fsynced) label count; ``checkpoint()`` fsyncs the dirty
         label files first and hands back the interval CRC that recovery
-        verifies on reopen."""
+        verifies on reopen. ENOSPC on the fsync or the save parks through
+        ``writer.wait_for_space`` and retries, like a label write."""
         meta = self.meta
         t0 = time.perf_counter()
-        durable, crc = writer.checkpoint()
+        if self.save_barrier:
+            writer.drain()
+        while True:
+            try:
+                durable, crc = writer.checkpoint()
+                break
+            except OSError as e:
+                if e.errno != errno.ENOSPC or not writer.enospc_wait:
+                    raise
+                writer.wait_for_space("label-file fsync")
         decoded = scrypt.vrf_carry_decode(self._snapshot)
         meta.labels_written = durable
         prev_end = meta.intervals[-1][0] if meta.intervals else 0
@@ -223,7 +275,15 @@ class Initializer:
             meta.vrf_nonce = idx
             meta.vrf_nonce_value = (
                 lo.to_bytes(8, "little") + hi.to_bytes(8, "little")).hex()
-        meta.save(self.store.dir)
+        while True:
+            try:
+                meta.save(self.store.dir, fs=self.store.fs)
+                break
+            except OSError as e:
+                if e.errno != errno.ENOSPC or not writer.enospc_wait:
+                    raise
+                writer.wait_for_space("metadata save")
+        writer.clear_degraded()
         stats.meta_saves += 1
         stats.save_s += time.perf_counter() - t0
         self._last_save_t = time.monotonic()
@@ -235,13 +295,13 @@ class Initializer:
 def open_or_create_meta(data_dir: Path, *, node_id: bytes,
                         commitment: bytes, num_units: int,
                         labels_per_unit: int, scrypt_n: int = 8192,
-                        max_file_size: int = 64 * 1024 * 1024
-                        ) -> PostMetadata:
+                        max_file_size: int = 64 * 1024 * 1024,
+                        fs=None) -> PostMetadata:
     """Load (and parameter-check) or create one identity's metadata. Every
     reopen runs crash recovery (``post/data.py:recover_store``)."""
     dir_ = Path(data_dir)
     if (dir_ / "postdata_metadata.json").exists():
-        meta = PostMetadata.load(dir_)
+        meta = PostMetadata.load(dir_, fs=fs)
         if (meta.node_id != node_id.hex()
                 or meta.commitment != commitment.hex()
                 or meta.scrypt_n != scrypt_n
@@ -251,7 +311,7 @@ def open_or_create_meta(data_dir: Path, *, node_id: bytes,
             raise ValueError(
                 "existing POST data directory was initialized with different "
                 "parameters; refusing to mix label sets")
-        recover_store(dir_, meta)
+        recover_store(dir_, meta, fs=fs)
         return meta
     meta = PostMetadata(
         node_id=node_id.hex(), commitment=commitment.hex(),
@@ -260,7 +320,7 @@ def open_or_create_meta(data_dir: Path, *, node_id: bytes,
     if any(dir_.glob("postdata_*.bin")):
         # label bytes with no durable claim behind them: recovery wipes
         # them so a fresh init cannot build on torn data
-        recover_store(dir_, meta)
+        recover_store(dir_, meta, fs=fs)
     return meta
 
 
@@ -269,14 +329,18 @@ def initialize(data_dir: str | Path, *, node_id: bytes, commitment: bytes,
                max_file_size: int = 64 * 1024 * 1024,
                batch_size: int = DEFAULT_BATCH,
                progress: Callable[[int, int], None] | None = None,
-               device="cuda") -> tuple[PostMetadata, InitResult]:
-    """Create-or-resume an init session. Returns final metadata + timing."""
+               fs=None, device="cuda",
+               **pipeline_opts) -> tuple[PostMetadata, InitResult]:
+    """Create-or-resume an init session. Returns final metadata + timing.
+    ``pipeline_opts`` pass through to :class:`Initializer` (inflight,
+    writers, writer_queue, the metadata intervals, enospc_retry_s,
+    save_barrier); ``fs`` is the injectable I/O layer."""
     dev = resolve(device)
     dir_ = Path(data_dir)
     meta = open_or_create_meta(
         dir_, node_id=node_id, commitment=commitment, num_units=num_units,
         labels_per_unit=labels_per_unit, scrypt_n=scrypt_n,
-        max_file_size=max_file_size)
+        max_file_size=max_file_size, fs=fs)
     init = Initializer(dir_, meta, batch_size=batch_size, progress=progress,
-                       device=dev)
+                       fs=fs, device=dev, **pipeline_opts)
     return meta, init.run()

@@ -5,19 +5,27 @@ is a streaming pipeline:
 
   read     — a bounded background reader pool (``post/data.py``
              LabelReader) prefetches label batches while the device scans;
-  dispatch — up to K batches in flight, each one scan step per nonce group
-             (``ops/proving.py:prove_scan_step``: the scan kernel, then hit
-             compaction and a merge into the running hit state, all on the
-             device); a ragged tail is padded to the batch size with its
-             pad lanes masked off;
-  retire   — the per-batch device-to-host copy is one (NONCE_GROUP,) count
-             vector; the (nonce, index) hits are fetched once per pass.
+  dispatch — up to K batches in flight, each one scan step over the
+             window's nonces (``ops/proving.py:prove_scan_step``: the scan
+             kernel, then hit compaction and a merge into the running hit
+             state, all on the device); a ragged tail is padded to the
+             batch size with its pad lanes masked off;
+  retire   — the per-batch device-to-host copy is one count vector (one
+             count per nonce); the (nonce, index) hits are fetched once
+             per pass.
 
-Each disk pass scans one nonce group. A pass stops early once the winner
-is decided: the lowest nonce with >= k2 hits, once every lower nonce
-provably cannot reach k2 with the labels left. That rule makes the
-pipelined proof identical to the serial scan's (``prove_serial``), which
-fetches each batch's full mask.
+Each disk pass scans a window of ``window_groups`` nonce groups of 16, in
+one scan launch per batch (``n_nonces = 16 * window_groups``). A pass stops
+early once the winner is decided: the lowest nonce with >= k2 hits, once
+every lower nonce provably cannot reach k2 with the labels left. That rule
+makes the pipelined proof identical to the serial scan's
+(``prove_serial``, which fetches each batch's full mask) at any window.
+
+The knobs are the JAX ``Prover``'s, each with its ``SPACEMESH_PROVE_*``
+environment override: ``pipelined`` (``_PIPELINE``, on by default),
+``window_groups`` (``_WINDOW_GROUPS``, 1), ``inflight`` (``_INFLIGHT``, 3),
+``readers`` (``_READERS``, 2) and ``reader_queue`` (``_QUEUE``, 4); ``fs``
+is the injectable I/O layer (``utils/fsio.py``).
 
 A proof for challenge ``ch`` is: nonce (the winning proving nonce), indices
 (the first k2 label indices qualifying under it) and pow_nonce (the k2pow
@@ -27,6 +35,7 @@ witness for (ch, node_id), ``ops/pow.py``).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from pathlib import Path
 
@@ -38,9 +47,18 @@ from ..ops import proving, scrypt, u32
 from ..runtime import engine
 from .data import LabelStore, PostMetadata
 
-NONCE_GROUP = 16   # nonces scanned per disk pass
-INFLIGHT = 3       # device batches in flight before the oldest retires
-MAX_GROUPS = 1025  # nonce search gives up past this many groups
+NONCE_GROUP = 16          # nonces per group; a window is G groups
+DEFAULT_INFLIGHT = 3      # device batches in flight before the oldest retires
+DEFAULT_READERS = 2       # background reader threads
+DEFAULT_READER_QUEUE = 4  # prefetched batches before reader backpressure
+MAX_GROUPS = 1025         # nonce search gives up past this many groups
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 @dataclasses.dataclass
@@ -49,6 +67,9 @@ class Proof:
     indices: list[int]          # k2 qualifying label indices, ascending
     pow_nonce: int
     k2: int
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
     @classmethod
     def from_dict(cls, d: dict) -> "Proof":
@@ -70,7 +91,7 @@ class ProofParams:
 class ProverStats:
     """Per-prove pipeline accounting."""
 
-    windows: int = 0          # disk passes (one nonce group each)
+    windows: int = 0          # disk passes (one nonce window each)
     batches: int = 0          # label batches dispatched
     labels_swept: int = 0     # labels covered across all passes
     read_wait_s: float = 0.0  # blocked on the reader pool
@@ -87,26 +108,50 @@ class ProverStats:
 
 class Prover:
     def __init__(self, data_dir: str | Path, params: ProofParams | None = None,
-                 batch_labels: int = 1 << 14, device="cuda"):
+                 batch_labels: int = 1 << 14,
+                 pipelined: bool | None = None,
+                 window_groups: int | None = None,
+                 inflight: int | None = None,
+                 readers: int | None = None,
+                 reader_queue: int | None = None,
+                 fs=None, device="cuda"):
         self.device = resolve(device)
-        self.meta = PostMetadata.load(data_dir)
+        self.meta = PostMetadata.load(data_dir, fs=fs)
         if self.meta.labels_written < self.meta.total_labels:
             raise ValueError("POST data is not fully initialized")
-        self.store = LabelStore(data_dir, self.meta)
+        self.store = LabelStore(data_dir, self.meta, fs=fs)
         self.params = params or ProofParams()
         # every batch of a pass has one size, a multiple of the segment
         seg = proving.HIT_SEGMENT
         self.batch_labels = -(-max(batch_labels, seg) // seg) * seg
+        if pipelined is None:
+            pipelined = os.environ.get(
+                "SPACEMESH_PROVE_PIPELINE", "1") not in ("0", "off")
+        self.pipelined = pipelined
+        self.window_groups = max(
+            window_groups if window_groups is not None
+            else _env_int("SPACEMESH_PROVE_WINDOW_GROUPS", 1), 1)
+        self.inflight = max(inflight if inflight is not None
+                            else _env_int("SPACEMESH_PROVE_INFLIGHT",
+                                          DEFAULT_INFLIGHT), 1)
+        self.readers = max(readers if readers is not None
+                           else _env_int("SPACEMESH_PROVE_READERS",
+                                         DEFAULT_READERS), 1)
+        self.reader_queue = max(reader_queue if reader_queue is not None
+                                else _env_int("SPACEMESH_PROVE_QUEUE",
+                                              DEFAULT_READER_QUEUE), 1)
         self.last_stats: ProverStats | None = None
 
     # -- entry points -------------------------------------------------------
 
     def prove(self, challenge: bytes) -> Proof:
-        return self._prove_pipelined(challenge, None)
+        if self.pipelined:
+            return self._prove_pipelined(challenge, None)
+        return self.prove_serial(challenge)
 
     def session(self, challenge: bytes) -> "ProveSession":
         """A resumable streaming prove: each ``step()`` is one quantum (the
-        k2pow gate first, then one disk pass per nonce group)."""
+        k2pow gate first, then one disk pass per nonce window)."""
         return ProveSession(self, challenge)
 
     def _prove_pipelined(self, challenge: bytes,
@@ -174,22 +219,24 @@ class Prover:
 
     # -- streaming pipeline -------------------------------------------------
 
-    def _scan_window(self, cw, thr: int, nonce_base: int,
+    def _scan_window(self, cw, thr: int, nonce_base: int, groups: int,
                      stats: ProverStats):
-        """One disk pass over the store scanning nonces ``nonce_base`` ..
-        ``nonce_base + NONCE_GROUP - 1``. Returns (winner_nonce, indices)
-        or (None, None)."""
+        """One disk pass over the store scanning the ``groups * 16`` nonces
+        from ``nonce_base``, in one scan launch per batch. Returns
+        (winner_nonce, indices) or (None, None)."""
         meta, p = self.meta, self.params
         dev = self.device
         total = meta.total_labels
         b = self.batch_labels
         cap = max(p.k2, 1)
+        nn = groups * NONCE_GROUP
         ranges = [(s, min(b, total - s)) for s in range(0, total, b)]
-        state = list(proving.init_hit_state(NONCE_GROUP, cap, dev))
-        host_counts = np.zeros(NONCE_GROUP, dtype=np.int64)
+        state = list(proving.init_hit_state(nn, cap, dev))
+        host_counts = np.zeros(nn, dtype=np.int64)
         stats.windows += 1
         retired_end = [0]
-        reader = self.store.start_reader(ranges)
+        reader = self.store.start_reader(ranges, self.readers,
+                                         self.reader_queue)
         try:
             def dispatch(item):
                 start, count = item
@@ -209,7 +256,7 @@ class Prover:
                     u32.from_numpy(hi, dev),
                     u32.from_numpy(scrypt.labels_to_words(labels), dev),
                     thr, state[0], state[1], count, start & 0xFFFFFFFF,
-                    start >> 32, n_nonces=NONCE_GROUP, max_hits=cap)
+                    start >> 32, n_nonces=nn, max_hits=cap)
                 state[:] = [counts, carry]
                 stats.batches += 1
                 return start + count, HostCopy(bc)
@@ -220,7 +267,7 @@ class Prover:
                     return ticket[0]  # sound early exit: scanned_end
                 return None
 
-            pipe = engine.Pipeline(inflight=INFLIGHT)
+            pipe = engine.Pipeline(inflight=self.inflight)
             rw0 = stats.read_wait_s
             res = pipe.run(ranges, dispatch, retire)
             exited = res is not None
@@ -244,7 +291,7 @@ class Prover:
 
     def _retire(self, item, host_counts, total, stats) -> bool:
         """Fold one batch's per-nonce counts in; True on a sound early
-        exit: some nonce has k2 hits and every lower nonce of the group
+        exit: some nonce has k2 hits and every lower nonce of the window
         cannot reach k2 with the labels left in this pass."""
         scanned_end, bc = item
         p = self.params
@@ -265,7 +312,7 @@ class ProveSession:
     """One resumable streaming prove over an initialized store.
 
     ``step()`` runs one quantum (the k2pow gate on the first call, then one
-    disk pass per nonce group) and returns the Proof once decided.
+    disk pass per nonce window) and returns the Proof once decided.
     ``close()`` is idempotent and drops the store's cached read fds."""
 
     def __init__(self, prover: Prover, challenge: bytes):
@@ -293,8 +340,13 @@ class ProveSession:
             raise RuntimeError("no winning nonce found (k1/k2 mismatch?)")
         thr = proving.threshold_u32(p.params.k1, p.meta.total_labels)
         cw = proving.challenge_words(self.challenge)
-        winner, indices = p._scan_window(cw, thr, self._base, self.stats)
-        self._base += NONCE_GROUP
+        # clamp the last window to the serial prover's give-up bound, so
+        # both paths search the same nonce range
+        groups = min(p.window_groups,
+                     (self._max_nonce - self._base) // NONCE_GROUP)
+        winner, indices = p._scan_window(cw, thr, self._base, groups,
+                                         self.stats)
+        self._base += groups * NONCE_GROUP
         if winner is None:
             return None
         self.proof = Proof(nonce=winner, indices=indices,

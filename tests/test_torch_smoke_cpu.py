@@ -5,6 +5,7 @@ and the kernels stand on (the bounded pipeline, the kernel build).
 
 import ast
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -224,3 +225,94 @@ def test_host_copy_and_state_conversion_round_trip():
     assert np.array_equal(c, counts) and np.array_equal(h, hits)
     with pytest.raises(ValueError):
         convert.vrf_carry_to_torch(np.zeros(5, np.uint32))
+
+
+WORKER_MODULES = ("spacemesh_tpu_torch.post",
+                  "spacemesh_tpu_torch.post.__main__",
+                  "spacemesh_tpu_torch.post.service",
+                  "spacemesh_tpu_torch.post.remote",
+                  "spacemesh_tpu_torch.post.supervisor",
+                  "spacemesh_tpu_torch.post.faultfs",
+                  "spacemesh_tpu_torch.api.rpc",
+                  "spacemesh_tpu_torch.utils.metrics")
+
+
+def test_only_the_grpc_worker_imports_grpc_and_protobuf():
+    """grpc and google.protobuf are imported by ``post/grpc_worker.py`` and
+    ``api/gen/post_pb2.py`` alone; everything else of the worker imports
+    with both blocked, as on a card host that has neither."""
+    importers = set()
+    for path in _port_files():
+        for name in _imported(ast.parse(path.read_text(), str(path))):
+            if name == "grpc" or name.startswith(("grpc.", "google.protobuf")):
+                importers.add(path.relative_to(REPO).as_posix())
+    assert importers == {"spacemesh_tpu_torch/post/grpc_worker.py",
+                         "spacemesh_tpu_torch/api/gen/post_pb2.py"}
+    code = (
+        "import importlib, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'grpc' or name.startswith(('grpc.',\n"
+        "                                              'google.protobuf')):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {WORKER_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not [m for m in sys.modules\n"
+        "            if m == 'grpc' or m.startswith('google.protobuf')]\n"
+        "print('imported')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "imported"
+
+
+def test_worker_entry_points_default_to_cuda_and_never_fall_back(
+        monkeypatch, tmp_path, capsys):
+    """The CLI without --device, PostClient, discover_identities' clients
+    and PostSupervisor all default to cuda and raise or exit non-zero
+    without a card; nothing is written."""
+    from spacemesh_tpu_torch.post import __main__ as cli
+    from spacemesh_tpu_torch.post.data import PostMetadata
+    from spacemesh_tpu_torch.post.remote import discover_identities
+    from spacemesh_tpu_torch.post.service import PostClient
+    from spacemesh_tpu_torch.post.supervisor import PostSupervisor
+
+    node = hashlib.sha256(b"n").hexdigest()
+    store = tmp_path / "store"
+    store.mkdir()
+    PostMetadata(node_id=node, commitment=node, scrypt_n=2, num_units=1,
+                 labels_per_unit=64, max_file_size=1024,
+                 labels_written=64).save(store)
+    (tmp_path / "proof.json").write_text(json.dumps(
+        {"nonce": 0, "indices": [1], "pow_nonce": 0, "k2": 1}))
+    fresh = tmp_path / "fresh"
+    argvs = {
+        "init": ["--data-dir", str(fresh), "--node-id-hex", node,
+                 "--commitment-hex", node, "--num-units", "1",
+                 "--labels-per-unit", "64", "--scrypt-n", "2"],
+        "prove": ["--data-dir", str(store), "--challenge-hex", node],
+        "verify": ["--data-dir", str(store), "--challenge-hex", node,
+                   "--proof-file", str(tmp_path / "proof.json")],
+        "benchmark": ["--batch", "8", "--scrypt-n", "2"],
+        "serve": ["--data-dir", str(tmp_path)],
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cmd, argv in argvs.items():
+        capsys.readouterr()
+        assert cli.main([cmd, *argv]) != 0, cmd
+        out = capsys.readouterr()
+        assert out.out == "" and "cuda" in out.err, cmd
+    assert not fresh.exists()
+    with pytest.raises(RuntimeError, match="cuda"):
+        PostClient(store)
+    with pytest.raises(RuntimeError, match="cuda"):
+        discover_identities(tmp_path)
+    assert discover_identities(tmp_path, device="cpu").registered() == [
+        bytes.fromhex(node)]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    sup = PostSupervisor(tmp_path, env=env)
+    assert sup.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        sup.start(timeout=120)
+    assert not sup.alive()
