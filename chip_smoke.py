@@ -75,6 +75,8 @@ SCAN_LANES = 1 << 24
 SCAN_NONCES = 16
 RAGGED_LANES = 1037
 WORKER_LABELS = 1 << 18
+WINDOW_REPS = 5       # in-process proves per window size and challenge
+WINDOW_CANDIDATES = 24  # challenges tried for each winner group
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLI = [sys.executable, "-m", "spacemesh_tpu_torch.post"]
 
@@ -630,6 +632,7 @@ def phase_worker(ctx: dict) -> None:
                 f"CLI verify accepted the proof ({rc_good}, {good})")
         require((rc_bad, badv) == (1, {"valid": False}),
                 f"CLI verify rejected the tampered proof ({rc_bad}, {badv})")
+        windows = window_medians(d, params)
     log(f"[worker] proof nonce {worker[0].nonce}: worker G=1 "
         f"{times['worker_g1_0']:.3f} s cold, {times['worker_g1_1']:.3f} s "
         f"warm; in-process G=1 {times['inproc_g1']:.3f} s, G=4 "
@@ -639,9 +642,59 @@ def phase_worker(ctx: dict) -> None:
     log(f"[worker] CLI verify: exit 0 {json.dumps(good)} on the proof, "
         f"exit 1 {json.dumps(badv)} on the tampered copy; in-process "
         f"launches {json.dumps(launches)}")
+    for w in windows:
+        log(f"[worker] window: challenge {w['challenge']} winner nonce "
+            f"{w['nonce']} (group {w['group']}), in-process prove median of "
+            f"{WINDOW_REPS} alternating reps: G=1 {w['g1_s']:.4f} s, G=4 "
+            f"{w['g4_s']:.4f} s, G=4/G=1 {w['g4_s'] / w['g1_s']:.3f}; "
+            f"samples G=1 {w['g1']}, G=4 {w['g4']}")
     ctx["worker"] = dict(init=init, bench=bench, ready_s=ready_s,
-                         back_s=back_s, times=times, launches=launches)
+                         back_s=back_s, times=times, launches=launches,
+                         windows=windows)
     log(f"[worker] {ctx['smi']}")
+
+
+def window_medians(d: str, params) -> list:
+    """In-process prove times at window_groups 1 and 4 on the store in
+    ``d``: for the first challenge (of a fixed list) whose winning nonce is
+    in the first group of 16, and the first whose winner is in a later
+    group, since G=4 saves disk passes only in the second case. G=1 and
+    G=4 alternate, each order in turn; every proof must equal G=1's first.
+    Returns one dict per challenge with the medians in seconds."""
+    import statistics
+
+    from spacemesh_tpu_torch.post import prover
+
+    provers = {g: prover.Prover(d, params, window_groups=g, device="cuda")
+               for g in (1, 4)}
+    picked = {}
+    for i in range(WINDOW_CANDIDATES):
+        challenge = hashlib.sha256(b"chip-smoke-window-%d" % i).digest()
+        ref = provers[1].prove(challenge)
+        first = ref.nonce < SCAN_NONCES
+        if first not in picked:
+            picked[first] = (i, challenge, ref)
+        if len(picked) == 2:
+            break
+    require(len(picked) == 2, f"of {WINDOW_CANDIDATES} challenges one has "
+            "its winner in the first nonce group and one in a later group")
+    out = []
+    for first in (True, False):
+        i, challenge, ref = picked[first]
+        samples = {1: [], 4: []}
+        for rep in range(WINDOW_REPS):
+            for g in ((1, 4) if rep % 2 == 0 else (4, 1)):
+                t0 = time.perf_counter()
+                proof = provers[g].prove(challenge)
+                samples[g].append(round(time.perf_counter() - t0, 4))
+                require(proof == ref, f"window G={g} proof == G=1's "
+                        f"(challenge {i})")
+        out.append(dict(challenge=i, nonce=ref.nonce,
+                        group=ref.nonce // SCAN_NONCES,
+                        g1_s=statistics.median(samples[1]),
+                        g4_s=statistics.median(samples[4]),
+                        g1=samples[1], g4=samples[4]))
+    return out
 
 
 def v_alloc_ms() -> float:

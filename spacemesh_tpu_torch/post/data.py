@@ -154,8 +154,6 @@ class LabelStore:
             except OSError:
                 pass
 
-    invalidate = close  # recovery: never serve bytes through a stale fd
-
     def write_labels(self, start_index: int, labels: bytes) -> None:
         """Write ``labels`` (concatenated 16B records) at ``start_index``.
         Positioned writes without O_TRUNC, so concurrent writers never
@@ -633,8 +631,8 @@ def _crc_of_range(store: LabelStore, start: int, end: int,
     return crc
 
 
-def recover_store(data_dir: str | Path, meta: PostMetadata, fs=None,
-                  store: LabelStore | None = None) -> RecoveryReport:
+def recover_store(data_dir: str | Path, meta: PostMetadata,
+                  fs=None) -> RecoveryReport:
     """Reopen-time recovery: converge the label files and the metadata
     cursor to a verified, mutually consistent state.
 
@@ -646,12 +644,9 @@ def recover_store(data_dir: str | Path, meta: PostMetadata, fs=None,
        past it, fsync what was touched.
     4. Persist the repaired metadata.
 
-    ``store`` is an open store over ``data_dir`` whose cached read fds
-    recovery must drop (it stays open); by default recovery opens its own
-    over ``fs``. Repairs count in the ``post_store_recovery_*`` metrics.
+    Repairs count in the ``post_store_recovery_*`` metrics.
     """
-    own_store = store is None
-    st = LabelStore(data_dir, meta, fs=fs) if own_store else store
+    st = LabelStore(data_dir, meta, fs=fs)
     report = RecoveryReport()
     try:
         total = meta.total_labels
@@ -669,7 +664,6 @@ def recover_store(data_dir: str | Path, meta: PostMetadata, fs=None,
             while intervals:
                 end, want = intervals[-1]
                 prev = intervals[-2][0] if len(intervals) > 1 else 0
-                st.invalidate()
                 try:
                     got = _crc_of_range(st, prev, end)
                 except OSError:
@@ -686,7 +680,6 @@ def recover_store(data_dir: str | Path, meta: PostMetadata, fs=None,
         else:
             cursor = min(cursor, extent)
             if cursor > 0:
-                st.invalidate()
                 intervals = []
                 start = 0
                 while start < cursor:
@@ -716,7 +709,6 @@ def recover_store(data_dir: str | Path, meta: PostMetadata, fs=None,
                 report.truncated_bytes += size - expect
                 touched = True
         if touched:
-            st.invalidate()
             fsio.fsync_dir(st.dir, fs=st.fs)
 
         changed = (cursor != meta.labels_written
@@ -734,5 +726,4 @@ def recover_store(data_dir: str | Path, meta: PostMetadata, fs=None,
                 report.intervals_dropped)
         return report
     finally:
-        if own_store:
-            st.close()
+        st.close()

@@ -17,15 +17,16 @@ resume recomputes them and the min-merge is idempotent.
 
 The pipeline options are the JAX ``Initializer``'s: ``inflight``,
 ``writers`` (with the ``SPACEMESH_INFLIGHT``/``SPACEMESH_WRITERS``
-overrides), ``writer_queue``, the metadata intervals, ``fs`` (the
-injectable I/O layer, ``post/faultfs.py``), ``enospc_retry_s`` and
-``save_barrier``. An ENOSPC anywhere in the storage plane (a label write,
-the checkpoint fsync, the metadata save) parks the session until space
-returns instead of failing it.
+overrides), the metadata intervals, ``fs`` (the injectable I/O layer,
+``post/faultfs.py``), ``enospc_retry_s`` and ``save_barrier``. An ENOSPC
+anywhere in the storage plane (a label write, the checkpoint fsync, the
+metadata save) parks the session until space returns instead of failing
+it.
 
 Left out against the JAX package: the device mesh, the autotuned kernel
-plan, the tenant label, and the health, remediation, pipeline-metrics and
-tracing hooks.
+plan, the tenant label, the ``writer_queue`` option (no caller sets it:
+the queue depth is :data:`DEFAULT_WRITER_QUEUE`), and the health,
+remediation, pipeline-metrics and tracing hooks.
 """
 
 from __future__ import annotations
@@ -105,7 +106,6 @@ class Initializer:
                  progress: Callable[[int, int], None] | None = None,
                  inflight: int | None = None,
                  writers: int | None = None,
-                 writer_queue: int = DEFAULT_WRITER_QUEUE,
                  meta_interval_s: float | None = None,
                  meta_interval_labels: int | None = None,
                  fs=None,
@@ -123,7 +123,6 @@ class Initializer:
         self.writers = max(int(
             writers if writers is not None
             else os.environ.get("SPACEMESH_WRITERS", DEFAULT_WRITERS)), 1)
-        self.writer_queue = writer_queue
         self.meta_interval_s = (META_INTERVAL_S if meta_interval_s is None
                                 else meta_interval_s)
         self.meta_interval_labels = (
@@ -165,7 +164,7 @@ class Initializer:
         self._snapshot = carry_host
 
         writer = self.store.start_writer(
-            self.writers, self.writer_queue,
+            self.writers, DEFAULT_WRITER_QUEUE,
             enospc_retry_s=self.enospc_retry_s)
         self._last_save_t = time.monotonic()
         self._last_save_labels = written0
@@ -333,8 +332,8 @@ def initialize(data_dir: str | Path, *, node_id: bytes, commitment: bytes,
                **pipeline_opts) -> tuple[PostMetadata, InitResult]:
     """Create-or-resume an init session. Returns final metadata + timing.
     ``pipeline_opts`` pass through to :class:`Initializer` (inflight,
-    writers, writer_queue, the metadata intervals, enospc_retry_s,
-    save_barrier); ``fs`` is the injectable I/O layer."""
+    writers, the metadata intervals, enospc_retry_s, save_barrier);
+    ``fs`` is the injectable I/O layer."""
     dev = resolve(device)
     dir_ = Path(data_dir)
     meta = open_or_create_meta(

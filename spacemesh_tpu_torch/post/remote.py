@@ -11,7 +11,9 @@ responses {"ok": true, ...} or {"ok": false, "error"}. Proof generation
 runs in a worker thread, so one slow prove does not block the event loop.
 
 The node-side RemotePostClient has the PostClient surface
-(info()/proof()) over blocking sockets.
+(info()/proof()) over blocking sockets. One method is the port's own:
+"metrics" returns the worker process's metrics registry in the text
+exposition format (the post_store_* counters, the ENOSPC degraded gauge).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import socket
 import struct
 from pathlib import Path
 
+from ..utils import metrics
 from .data import PostMetadata
 from .prover import Proof
 from .service import PostInfo, PostService
@@ -105,6 +108,8 @@ class WorkerServer:
                 return {"ok": True,
                         "node_ids": [n.hex() for n in
                                      self.service.registered()]}
+            if method == "metrics":
+                return {"ok": True, "text": metrics.REGISTRY.expose()}
             node_id = bytes.fromhex(req["node_id"])
             client = self.service.client(node_id)
             if client is None:
@@ -161,17 +166,21 @@ class RemotePostClient:
                         "challenge": challenge.hex()})
         return Proof.from_dict(d["proof"]), PostMetadata(**d["meta"])
 
+    def metrics(self) -> str:
+        """The worker process's metrics in the text exposition format."""
+        return self._call({"method": "metrics"})["text"]
+
     def ping(self) -> list[bytes]:
         d = self._call({"method": "registered"})
         return [bytes.fromhex(x) for x in d["node_ids"]]
 
 
-def discover_identities(base_dir: str | Path, params=None, device="cuda",
-                        **prove_opts) -> PostService:
+def discover_identities(base_dir: str | Path, params=None,
+                        device="cuda") -> PostService:
     """Build a PostService from a directory of per-identity PoST data dirs
-    (what the worker CLI serves). ``device`` (default ``"cuda"``) and
-    ``prove_opts`` (the prover's knobs) pass through to every identity's
-    PostClient."""
+    (what the worker CLI serves). ``device`` (default ``"cuda"``) passes
+    through to every identity's PostClient; the prover's knobs come from
+    the ``SPACEMESH_PROVE_*`` environment."""
     from .service import PostClient
 
     service = PostService()
@@ -182,6 +191,5 @@ def discover_identities(base_dir: str | Path, params=None, device="cuda",
         if (p / "postdata_metadata.json").exists():
             meta = PostMetadata.load(p)
             service.register(bytes.fromhex(meta.node_id),
-                             PostClient(p, params, device=device,
-                                        **prove_opts))
+                             PostClient(p, params, device=device))
     return service

@@ -5,10 +5,13 @@ own CLI (``python -u -m spacemesh_tpu_torch.post serve ... --device D``);
 the supervisor restarts it when it exits until stopped, and keeps its
 listen port stable across restarts so clients reconnect.
 
-One difference from the JAX package: a worker that exits before it ever
-reported ready (no card for ``--device cuda``, an unreadable data
-directory) is not restarted; :meth:`PostSupervisor.start` raises with the
-end of its error output instead of timing out.
+One difference from the JAX package: a worker that exits with the CLI's
+usage code 2 before it ever reported ready (its device does not resolve,
+e.g. no card for ``--device cuda``, or its flags are wrong) is not
+restarted, since no retry can succeed; :meth:`PostSupervisor.start`
+raises with the end of its error output instead of timing out. Any other
+early exit (the card briefly out of memory, the port still held) is
+restarted after the backoff, as the JAX supervisor does.
 """
 
 from __future__ import annotations
@@ -21,6 +24,10 @@ import sys
 import threading
 import time
 from pathlib import Path
+
+# the CLI's exit code when the device does not resolve or a flag is wrong
+# (post/__main__.py, argparse): a permanent failure, not a crash
+EXIT_USAGE = 2
 
 
 class PostSupervisor:
@@ -48,7 +55,7 @@ class PostSupervisor:
     def start(self, timeout: float = 60.0) -> tuple[str, int] | None:
         """Spawn the worker and wait until it reports its listen port (or,
         in gRPC mode, that it is registering). Raises RuntimeError when
-        the worker exits before that."""
+        the worker exits with :data:`EXIT_USAGE` before that."""
         self._thread = threading.Thread(target=self._babysit, daemon=True)
         self._thread.start()
         if not self._ready.wait(timeout):
@@ -114,7 +121,7 @@ class PostSupervisor:
             proc.stderr.close()  # type: ignore[union-attr]
             if self._stopped.is_set():
                 return
-            if not self._ready.is_set():
+            if rc == EXIT_USAGE and not self._ready.is_set():
                 self._error = (f"post worker exited with code {rc} before "
                                f"serving: {''.join(tail).strip()}")
                 self._ready.set()

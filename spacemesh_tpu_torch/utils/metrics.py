@@ -1,4 +1,4 @@
-"""Metrics: counters, gauges and histograms with Prometheus text exposition.
+"""Metrics: counters and gauges with Prometheus text exposition.
 
 Port of ``spacemesh_tpu/utils/metrics.py``: the instrument types, the
 registry and the exposition format, with the same names and labels. Only
@@ -85,55 +85,6 @@ class Gauge(_Instrument):
         return out
 
 
-class Histogram(_Instrument):
-    """Bucketed distribution; each distinct labelset carries its own
-    buckets/sum/count series."""
-
-    DEFAULT_BUCKETS = (0.005, 0.05, 0.5, 5.0, 50.0, float("inf"))
-
-    def __init__(self, name, help_="", buckets=DEFAULT_BUCKETS):
-        super().__init__(name, help_)
-        self.buckets = tuple(buckets)
-        # labelset -> [per-bucket counts, sum, count]
-        self._series: dict[tuple, list] = {}
-
-    def observe(self, value: float, **labels) -> None:
-        key = tuple(sorted(labels.items()))
-        with self._lock:
-            s = self._series.get(key)
-            if s is None:
-                s = self._series[key] = [[0] * len(self.buckets), 0.0, 0]
-            s[1] += value
-            s[2] += 1
-            for i, b in enumerate(self.buckets):
-                if value <= b:
-                    s[0][i] += 1
-
-    def sample(self) -> dict[tuple, tuple[list, float, int]]:
-        """{labelset: (cumulative bucket counts, sum, count)} snapshot."""
-        with self._lock:
-            return {k: (list(s[0]), s[1], s[2])
-                    for k, s in self._series.items()}
-
-    def expose(self) -> list[str]:
-        out = [f"# HELP {self.name} {self.help}",
-               f"# TYPE {self.name} histogram"]
-        with self._lock:
-            series = [(k, [list(s[0]), s[1], s[2]])
-                      for k, s in self._series.items()]
-        for labels, (counts, sum_, n) in series:
-            base = _labelstr(labels)
-            sep = "," if base else ""
-            for b, c in zip(self.buckets, counts):
-                le = "+Inf" if b == float("inf") else b
-                out.append(f'{self.name}_bucket{{{base}{sep}le="{le}"}} {c}')
-            out.append(f"{self.name}_sum{{{base}}} {sum_}" if base
-                       else f"{self.name}_sum {sum_}")
-            out.append(f"{self.name}_count{{{base}}} {n}" if base
-                       else f"{self.name}_count {n}")
-        return out
-
-
 class Registry:
     def __init__(self) -> None:
         self._instruments: dict[str, _Instrument] = {}
@@ -144,18 +95,6 @@ class Registry:
 
     def gauge(self, name: str, help_: str = "") -> Gauge:
         return self._get(name, lambda: Gauge(name, help_), Gauge)
-
-    def histogram(self, name: str, help_: str = "", buckets=None) -> Histogram:
-        inst = self._get(
-            name, lambda: Histogram(name, help_,
-                                    buckets or Histogram.DEFAULT_BUCKETS),
-            Histogram)
-        if buckets is not None and tuple(buckets) != inst.buckets:
-            raise ValueError(
-                f"histogram {name} already registered with buckets "
-                f"{inst.buckets}, re-registration asked for "
-                f"{tuple(buckets)}")
-        return inst
 
     def _get(self, name, factory, cls):
         with self._lock:

@@ -6,7 +6,8 @@ init``, through ``main(argv)``) is byte-identical to the JAX package's
 ``verify`` accepts it. The port's worker runs in a real subprocess under
 ``PostSupervisor(device="cpu")`` and answers both packages'
 ``RemotePostClient``s with the JAX ``Prover``'s proof, restarts after a
-kill, and refuses unknown identities. Over gRPC, the JAX package's node
+kill and after an early exit, exposes its metrics, and refuses unknown
+identities. Over gRPC, the JAX package's node
 side (``GrpcApiServer``) drives the port's ``GrpcWorker``. Sizes are the
 JAX worker tests': 1 unit x 256 labels, N=2, k1=64, k2=8, k3=4.
 """
@@ -237,6 +238,53 @@ def test_unknown_identity_is_an_error(supervisor):
             cls(supervisor.address, b"\x42" * 32).info()
 
 
+def test_worker_exposes_its_metrics(supervisor):
+    """The worker process's registry over the wire: a proof's label reads
+    show in post_store_read_calls_total, the ENOSPC gauge is defined."""
+    client = RemotePostClient(supervisor.address, NODE_ID, timeout=300)
+    client.proof(CHALLENGE)
+    text = client.metrics()
+    reads = [float(line.split()[-1]) for line in text.splitlines()
+             if line.startswith("post_store_read_calls_total ")]
+    assert reads and reads[0] > 0
+    assert "# TYPE post_store_degraded gauge" in text
+
+
+def test_supervisor_restarts_a_worker_that_exits_before_serving(stores):
+    """A worker that dies before it serves for a passing cause (its port
+    still held by another process) is restarted with backoff until it
+    comes up; only the CLI's usage exit (no card) ends supervision."""
+    import socket
+    import threading
+
+    base, _, _ = stores
+    holder = socket.socket()
+    holder.bind(("127.0.0.1", 0))
+    holder.listen()
+    port = holder.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    sup = PostSupervisor(base, listen=f"127.0.0.1:{port}", params=PARAMS,
+                         restart_backoff=0.2, env=env, device="cpu")
+    result = {}
+    starter = threading.Thread(
+        target=lambda: result.setdefault("addr", sup.start(timeout=120)))
+    starter.start()
+    try:
+        deadline = time.time() + 60
+        while sup.restarts < 1 and time.time() < deadline:
+            time.sleep(0.1)
+        assert sup.restarts >= 1, "the worker was not restarted"
+        holder.close()
+        starter.join(timeout=120)
+        assert result["addr"] == ("127.0.0.1", port)
+        assert RemotePostClient(result["addr"], NODE_ID).ping() == [NODE_ID]
+    finally:
+        holder.close()
+        sup.stop()
+        starter.join(timeout=10)
+    assert not sup.alive()
+
+
 def test_supervisor_restarts_killed_worker(supervisor, jax_proof):
     assert supervisor.alive()
     before = supervisor.restarts
@@ -291,11 +339,10 @@ def test_grpc_worker_against_the_jax_node_side(stores, jax_proof):
     assert _jax_verifies(proof)
 
 
-def test_discover_identities_passes_device_and_knobs(stores):
+def test_discover_identities_passes_device(stores):
     base, tdir, _ = stores
-    svc = discover_identities(base, params=PARAMS, device="cpu",
-                              window_groups=2)
+    svc = discover_identities(base, params=PARAMS, device="cpu")
     client = svc.client(NODE_ID)
     assert svc.registered() == [NODE_ID]
     assert client.data_dir == tdir and client.device.type == "cpu"
-    assert client._prove_opts == {"window_groups": 2}
+    assert client._prove_opts == {}
