@@ -13,9 +13,11 @@ package. Phases, each printed as it runs:
    and fill phase only (``mix_phase=False``), and full labels against
    ``hashlib.scrypt``; exact equality; the fill/mix time split;
 3. PBKDF2: both entry points of the envelope kernel against their plain
-   versions at the init batch (32768 lanes, one shared commitment) and at
-   a ragged batch of per-lane commitments (the verifier's form); exact
-   equality; timed;
+   versions at the init batch (32768 lanes, one shared commitment), at the
+   packed init's batch (32768 lanes, per-lane commitments) and at a ragged
+   batch of per-lane commitments (the verifier's form); exact equality;
+   timed by CUDA events around back-to-back wrapper calls (the wrapper's
+   call rate) and by the profiler's kernel times;
 4. proving scan: the kernel against its plain version, and one prove step
    through the kernel against the plain step, on random device-resident
    labels with 16 nonces, at the main path's prove batch (2^18 lanes, all
@@ -43,14 +45,27 @@ package. Phases, each printed as it runs:
    copy with one index swapped for a non-qualifying one. The kernels'
    launch counts are zeroed before the in-process proves and verify and
    read after;
-7. a JSON line of per-kernel launches, times and bounds, each time taken
+7. [tenants] many identities on one card through the multi-tenant
+   ``TenantScheduler``: a solo ``initialize()`` of 2^20 labels, then 16
+   identities x 2^16 labels of packed init (32768 lanes per pack), its
+   aggregate rate against the solo one, pack occupancy and the host's VRF
+   fold per pack; the device's idle share during a profiled packed init;
+   64 sampled labels per identity against hashlib, two identities' stores
+   sha256-equal to a solo ``initialize()``, each VRF nonce the stored
+   minimum; 16 ``submit_prove`` equal to a solo ``Prover``'s proofs, their
+   latency with the card idle and under a concurrent packed init; one
+   ``submit_verify`` of the 16 proofs and a tampered one; 16 ``submit_pow``
+   equal to ``ops.pow.search``. The kernels' launch counts are zeroed
+   before the packed init and proves and read after;
+8. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
-   times beside it under ``full_width``).
+   times beside it under ``full_width``, the PBKDF2 pair's packed-init
+   shape under ``perlane``).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Labels per unit are cut from mainnet's 2^32 to 2^20
-(2^18 for the worker) for the time limit; N, the label width and
-k1/k2/k3 are not cut.
+(2^18 for the worker, 2^16 per identity for the tenants) for the time
+limit; N, the label width and k1/k2/k3 are not cut.
 """
 
 from __future__ import annotations
@@ -59,13 +74,16 @@ import dataclasses
 import hashlib
 import json
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
 from spacemesh_tpu_torch.tools.measure import (HBM_BYTES_PER_S, bound,
-                                               cuda_ms, int_ops_per_s, smi)
+                                               cuda_ms, int_ops_per_s,
+                                               kernel_ms, smi)
 
 N_MAIN = 8192
 INIT_BATCH = 1 << 15
@@ -77,7 +95,11 @@ RAGGED_LANES = 1037
 WORKER_LABELS = 1 << 18
 WINDOW_REPS = 5       # in-process proves per window size and challenge
 WINDOW_CANDIDATES = 24  # challenges tried for each winner group
+TENANTS = 16          # identities of the [tenants] phase (BASELINE: 16)
+TENANT_LABELS = 1 << 16  # labels per identity there
+LOAD_LABELS = 1 << 18    # per identity of the init the proves run beside
 REPO = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"  # the [tenants] phase's device
 CLI = [sys.executable, "-m", "spacemesh_tpu_torch.post"]
 
 
@@ -231,27 +253,34 @@ def pbkdf2_case(ctx: dict, b: int, per_lane: bool, seed: int) -> dict:
     for entry, (kernel, plain) in calls.items():
         res[entry] = dict(
             ms=cuda_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=2),
+            kernel_ms=kernel_ms(kernel, f"{entry}_kernel", reps=50),
             max_abs_err=out[entry], shape=f"B={b} {form} commitment",
             **bound(pbkdf2_cuda.int_ops(b, entry, per_lane),
                     pbkdf2_cuda.io_bytes(b, entry, per_lane),
                     ctx["int_ops_per_s"]))
+        k = res[entry]["kernel_ms"]
         log(f"[pbkdf2] {entry} B={b} ({form} commitments): kernel == plain; "
-            f"kernel {res[entry]['ms']:.4f} ms, plain "
-            f"{res[entry]['plain_ms']:.1f} ms, bound "
+            f"wrapper call rate {res[entry]['ms']:.4f} ms, kernel time "
+            f"{'not measured' if k is None else f'{k:.4f} ms'} (profiler), "
+            f"plain {res[entry]['plain_ms']:.1f} ms, bound "
             f"{res[entry]['bound_ms']:.4f} ms ({res[entry]['bound_by']})")
     return res
 
 
 def phase_pbkdf2(ctx: dict) -> None:
-    # the init batch's shape (one commitment for every lane), then a ragged
-    # batch of per-lane commitments as the verifier sends
+    # the init batch's shape (one commitment for every lane), the packed
+    # init's (per-lane commitments at the same width), then a ragged batch
+    # of per-lane commitments as the verifier sends
     main = pbkdf2_case(ctx, INIT_BATCH, per_lane=False, seed=6)
+    packed = pbkdf2_case(ctx, INIT_BATCH, per_lane=True, seed=8)
     ragged = pbkdf2_case(ctx, RAGGED_LANES, per_lane=True, seed=7)
+    keys = ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")
     for entry in ("expand", "finish"):
         ctx[f"pbkdf2_{entry}"] = dict(
-            main[entry], ragged={k: ragged[entry][k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")})
+            main[entry],
+            perlane={k: packed[entry][k] for k in keys},
+            ragged={k: ragged[entry][k] for k in keys})
 
 
 def scan_case(b: int, valid: int, start: int, thr: int, seed: int,
@@ -661,8 +690,6 @@ def window_medians(d: str, params) -> list:
     group, since G=4 saves disk passes only in the second case. G=1 and
     G=4 alternate, each order in turn; every proof must equal G=1's first.
     Returns one dict per challenge with the medians in seconds."""
-    import statistics
-
     from spacemesh_tpu_torch.post import prover
 
     provers = {g: prover.Prover(d, params, window_groups=g, device="cuda")
@@ -695,6 +722,330 @@ def window_medians(d: str, params) -> list:
                         g4_s=statistics.median(samples[4]),
                         g1=samples[1], g4=samples[4]))
     return out
+
+
+def tenant_ids(salt: bytes) -> list:
+    """(tenant id, node id, commitment) of the phase's identities."""
+    return [(f"id{i:02d}",
+             hashlib.sha256(b"chip-smoke-tenant-node-%d" % i + salt).digest(),
+             hashlib.sha256(b"chip-smoke-tenant-commit-%d" % i + salt).digest())
+            for i in range(TENANTS)]
+
+
+def submit_inits(sched, base: str, ids: list, labels: int) -> list:
+    """One packed init job per identity under ``base``; their handles."""
+    return [sched.submit_init(tid, os.path.join(base, tid), node_id=node,
+                              commitment=commit, num_units=1,
+                              labels_per_unit=labels, scrypt_n=N_MAIN)
+            for tid, node, commit in ids]
+
+
+def stamped(handles: list) -> list:
+    """Each handle's completion time (``time.perf_counter``), filled in by
+    a done-callback of its future."""
+    done = [None] * len(handles)
+    for i, h in enumerate(handles):
+        h.future.add_done_callback(
+            lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
+    return done
+
+
+def stored_labels(d: str, meta):
+    import numpy as np
+    from spacemesh_tpu_torch.post.data import LabelStore
+
+    store = LabelStore(d, meta)
+    try:
+        return np.frombuffer(store.read_labels(0, meta.total_labels),
+                             dtype=np.uint8).reshape(-1, 16)
+    finally:
+        store.close()
+
+
+def store_digests(d: str) -> dict:
+    return {name: hashlib.sha256(open(os.path.join(d, name), "rb").read())
+            .hexdigest() for name in sorted(os.listdir(d))
+            if name.startswith("postdata_") and name.endswith(".bin")}
+
+
+def check_hashlib(commitment: bytes, stored, picks) -> None:
+    """Stored labels at ``picks`` against hashlib.scrypt, in threads
+    (hashlib releases the interpreter lock while it hashes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def want(i):
+        return hashlib.scrypt(commitment, salt=int(i).to_bytes(8, "little"),
+                              n=N_MAIN, r=1, p=1, dklen=16)
+
+    with ThreadPoolExecutor(8) as pool:
+        for i, w in zip(picks, pool.map(want, picks)):
+            require(bytes(stored[i]) == w, f"tenant label {i} == hashlib")
+
+
+def first_min(stored) -> int:
+    """Index of the smallest LE-u128 label, the first one on ties."""
+    import numpy as np
+
+    lo = stored[:, :8].copy().view("<u8").ravel()
+    hi = stored[:, 8:].copy().view("<u8").ravel()
+    return int(np.lexsort((np.arange(lo.shape[0]), lo, hi))[0])
+
+
+def launch_counts() -> dict:
+    from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving_cuda, romix_cuda
+
+    return {"romix": romix_cuda.launches, "scan": proving_cuda.launches,
+            "pbkdf2_expand": pbkdf2_cuda.expand_launches,
+            "pbkdf2_finish": pbkdf2_cuda.finish_launches}
+
+
+def zero_launches() -> None:
+    from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving_cuda, romix_cuda
+
+    romix_cuda.launches = proving_cuda.launches = 0
+    pbkdf2_cuda.expand_launches = pbkdf2_cuda.finish_launches = 0
+
+
+def quantiles(xs: list) -> str:
+    return f"p50 {statistics.median(xs):.3f} s, max {max(xs):.3f} s"
+
+
+def phase_tenants(ctx: dict) -> None:
+    import numpy as np
+    import torch
+    from spacemesh_tpu_torch.ops import pow as k2pow
+    from spacemesh_tpu_torch.ops import proving
+    from spacemesh_tpu_torch.post import initializer, prover, verifier
+    from spacemesh_tpu_torch.runtime import TenantScheduler, scheduler
+    from spacemesh_tpu_torch.tools.measure import busy_us, device_intervals
+    from spacemesh_tpu_torch.utils import metrics
+
+    dev = DEVICE
+    on_card = dev == "cuda"
+
+    def settle():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    params = prover.ProofParams()  # mainnet k1/k2/k3, default k2pow
+    challenge = hashlib.sha256(b"chip-smoke-tenants-challenge").digest()
+    ids = tenant_ids(b"")
+    load_ids = tenant_ids(b"-load")
+    rep_ids = tenant_ids(b"-rep")
+    narrow_ids = tenant_ids(b"-narrow")
+    prof_ids = tenant_ids(b"-profiled")
+    total = TENANTS * TENANT_LABELS
+    solo_s, packed_s = [], []
+
+    def solo_init(d):
+        # a solo init of the phase's label count, as the yardstick
+        settle()
+        t0 = time.perf_counter()
+        initializer.initialize(
+            d, node_id=ids[0][1], commitment=ids[0][2], num_units=1,
+            labels_per_unit=total, scrypt_n=N_MAIN, batch_size=INIT_BATCH,
+            device=dev)
+        solo_s.append(time.perf_counter() - t0)
+        shutil.rmtree(d)
+        settle()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tenants-") as base:
+        solo_init(os.path.join(base, "solo"))
+        sched = TenantScheduler(device=dev)
+        try:
+            for tid, _, _ in ids + load_ids + rep_ids + prof_ids:
+                sched.register_tenant(tid)
+            tenants_sample = metrics.runtime_pack_tenants.sample().get(
+                (), ([], 0.0, 0))
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            # the tenants' path: packed init, proves idle and under load,
+            # one verify, k2pow
+            t0 = time.perf_counter()
+            metas = [h.result(timeout=600) for h in submit_inits(
+                sched, base, ids, TENANT_LABELS)]
+            packed_s.append(time.perf_counter() - t0)
+            ps = dataclasses.replace(sched.pack_stats)
+            tenants_after = metrics.runtime_pack_tenants.sample()[()]
+            lat = {}
+            for key, load_labels in (("idle", 0), ("load", LOAD_LABELS)):
+                t0 = time.perf_counter()
+                load = submit_inits(sched, os.path.join(base, "load"),
+                                    load_ids, load_labels) \
+                    if load_labels else []
+                load_done = stamped(load)
+                proves = [sched.submit_prove(tid, os.path.join(base, tid),
+                                             challenge, params)
+                          for tid, _, _ in ids]
+                done = stamped(proves)
+                lat[key] = [h.result(timeout=600) for h in proves]
+                load_metas = [h.result(timeout=600) for h in load]
+                lat[key] = (lat[key], [t - t0 for t in done])
+            (proofs, idle_lat), (again, load_lat) = lat["idle"], lat["load"]
+            load_s = max(load_done) - t0
+            peak = torch.cuda.max_memory_allocated() if on_card else 0
+            thr = proving.threshold_u32(params.k1, TENANT_LABELS)
+            items = [verifier.VerifyItem(
+                proof=p, challenge=challenge, node_id=node, commitment=commit,
+                scrypt_n=N_MAIN, total_labels=TENANT_LABELS)
+                for p, (_, node, commit) in zip(proofs, ids)]
+            bad = dataclasses.replace(proofs[0], indices=list(proofs[0].indices))
+            bad.indices[0] = replacement_index(proofs[0], ids[0][2], challenge,
+                                               thr, TENANT_LABELS)
+            items.append(dataclasses.replace(items[0], proof=bad))
+            t0 = time.perf_counter()
+            verdicts = sched.submit_verify("id00", items, params).result(
+                timeout=600)
+            verify_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pows = [h.result(timeout=600) for h in [
+                sched.submit_pow(tid, challenge, node, params.pow_difficulty)
+                for tid, node, _ in ids]]
+            pow_s = time.perf_counter() - t0
+            if on_card:
+                torch.cuda.synchronize()
+            launches = launch_counts()
+            # the second packed init of the comparison, then the second solo
+            t0 = time.perf_counter()
+            for h in submit_inits(sched, os.path.join(base, "rep"), rep_ids,
+                                  TENANT_LABELS):
+                h.result(timeout=600)
+            packed_s.append(time.perf_counter() - t0)
+            solo_init(os.path.join(base, "solo"))
+            # the JAX package's pack width, for the rate at both widths
+            with TenantScheduler(pack_lanes=scheduler.DEFAULT_PACK_LANES,
+                                 device=dev) as narrow:
+                for tid, _, _ in narrow_ids:
+                    narrow.register_tenant(tid)
+                t0 = time.perf_counter()
+                for h in submit_inits(narrow, os.path.join(base, "narrow"),
+                                      narrow_ids, TENANT_LABELS):
+                    h.result(timeout=600)
+                narrow_s = time.perf_counter() - t0
+            # the device's idle share during a packed init, profiled apart
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for h in submit_inits(sched, os.path.join(base, "prof"),
+                                      prof_ids, TENANT_LABELS // 2):
+                    h.result(timeout=600)
+                if on_card:
+                    torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        finally:
+            sched.close()
+        intervals = device_intervals(prof)
+
+        for key, n in launches.items():  # (a CPU rehearsal launches none)
+            require(n > 0 or not on_card, f"the tenants' path launched {key}")
+        for (tid, node, commit), meta in zip(ids, metas):
+            require(meta.labels_written == TENANT_LABELS,
+                    f"{tid}: packed init wrote every label")
+        rng = np.random.default_rng(9)
+        fold = []
+        for (tid, node, commit), meta in zip(ids, metas):
+            stored = stored_labels(os.path.join(base, tid), meta)
+            check_hashlib(commit, stored, sorted(rng.choice(
+                TENANT_LABELS, 64, replace=False).tolist()))
+            t0 = time.perf_counter()
+            vrf = first_min(stored)
+            fold.append(time.perf_counter() - t0)
+            require(meta.vrf_nonce == vrf, f"{tid}: VRF nonce is the stored "
+                    "first-occurrence minimum")
+            require(bytes.fromhex(meta.vrf_nonce_value) == bytes(stored[vrf]),
+                    f"{tid}: VRF nonce value is its label")
+        for (tid, node, commit), meta in zip(load_ids, load_metas):
+            require(meta.labels_written == LOAD_LABELS,
+                    f"{tid}: the concurrent packed init wrote every label")
+            stored = stored_labels(os.path.join(base, "load", tid), meta)
+            check_hashlib(commit, stored, sorted(rng.choice(
+                LOAD_LABELS, 8, replace=False).tolist()))
+        log(f"[tenants] {TENANTS} x {TENANT_LABELS} packed labels: 64 "
+            f"sampled per identity == hashlib.scrypt; every VRF nonce is "
+            f"its store's first minimum; the concurrent init's {TENANTS} x "
+            f"{LOAD_LABELS} labels: 8 sampled per identity == hashlib")
+        for tid, node, commit in ids[:2]:
+            d = os.path.join(base, f"solo-{tid}")
+            meta, _ = initializer.initialize(
+                d, node_id=node, commitment=commit, num_units=1,
+                labels_per_unit=TENANT_LABELS, scrypt_n=N_MAIN,
+                batch_size=INIT_BATCH, device=dev)
+            packed = metas[ids.index((tid, node, commit))]
+            require(store_digests(d) == store_digests(os.path.join(base, tid))
+                    and (meta.vrf_nonce, meta.vrf_nonce_value)
+                    == (packed.vrf_nonce, packed.vrf_nonce_value),
+                    f"{tid}: packed store sha256 == solo initialize()")
+        settle()
+        solo_proofs = []
+        t0 = time.perf_counter()
+        for tid, _, _ in ids:
+            solo_proofs.append(prover.Prover(
+                os.path.join(base, tid), params, device=dev).prove(challenge))
+        solo_prove_s = time.perf_counter() - t0
+        require(proofs == solo_proofs, "submit_prove == solo Prover, idle")
+        require(again == solo_proofs,
+                "submit_prove == solo Prover, under a packed init")
+        require(verdicts == [True] * TENANTS + [False],
+                f"submit_verify verdicts {verdicts} == 16 True + 1 False")
+        t0 = time.perf_counter()
+        want = [k2pow.search(challenge, node, params.pow_difficulty,
+                             device=dev) for _, node, _ in ids]
+        solo_pow_s = time.perf_counter() - t0
+        require(pows == want, "submit_pow == ops.pow.search")
+    solo_rate = [total / s for s in solo_s]
+    packed_rate = [total / s for s in packed_s]
+    ratio = statistics.mean(packed_rate) / statistics.mean(solo_rate)
+    packs = max(ps.packs, 1)
+    tenants_per_pack = ((tenants_after[1] - tenants_sample[1])
+                        / max(tenants_after[2] - tenants_sample[2], 1))
+    log(f"[tenants] in turns solo, packed, packed, solo: solo "
+        f"initialize() of {total} labels {solo_s[0]:.3f} and "
+        f"{solo_s[1]:.3f} s ({solo_rate[0]:.0f}, {solo_rate[1]:.0f} "
+        f"labels/s); packed init of {TENANTS} identities x {TENANT_LABELS} "
+        f"labels (pack width {sched.pack_lanes}) {packed_s[0]:.3f} and "
+        f"{packed_s[1]:.3f} s ({packed_rate[0]:.0f}, {packed_rate[1]:.0f} "
+        f"labels/s); packed/solo {ratio:.3f}x; at the JAX package's pack "
+        f"width of {scheduler.DEFAULT_PACK_LANES} lanes {narrow_s:.3f} s, "
+        f"{total / narrow_s:.0f} labels/s")
+    log(f"[tenants] packs: {ps.packs}, {ps.lanes / packs:.0f} lanes and "
+        f"{tenants_per_pack:.2f} tenants per pack; host per pack: VRF fold "
+        f"{ps.fold_s / packs * 1e3:.3f} ms, store writes "
+        f"{ps.write_s / packs * 1e3:.3f} ms, waiting on the copy "
+        f"{ps.fetch_s / packs * 1e3:.3f} ms; a numpy first-min over one "
+        f"identity's {TENANT_LABELS} stored labels "
+        f"{statistics.median(fold) * 1e3:.3f} ms; peak device memory "
+        f"allocated over the packed inits and proves {peak / 2**30:.2f} GiB")
+    if intervals:
+        busy = busy_us(intervals) / 1e6
+        span = (max(e for _, e in intervals)
+                - min(s for s, _ in intervals)) / 1e6
+        idle = (f"device busy {busy:.3f} s of a {span:.3f} s device span "
+                f"(idle share {1 - busy / span:.1%}), host wall "
+                f"{prof_s:.3f} s")
+    else:
+        idle = "idle share not measured (the profiler recorded no device " \
+               "activity)"
+    log(f"[tenants] profiled packed init of {TENANTS} x {TENANT_LABELS // 2} "
+        f"labels: {idle}")
+    log(f"[tenants] {TENANTS} submit_prove == solo Prover proofs; latency "
+        f"card idle: {quantiles(idle_lat)}; beside a packed init of "
+        f"{TENANTS} x {LOAD_LABELS} labels submitted with them (done after "
+        f"{load_s:.3f} s): {quantiles(load_lat)}; {TENANTS} solo proves in "
+        f"series {solo_prove_s:.3f} s")
+    log(f"[tenants] submit_verify of {TENANTS} proofs + 1 tampered -> "
+        f"{sum(verdicts)} True, {len(verdicts) - sum(verdicts)} False in "
+        f"{verify_s:.3f} s; {TENANTS} submit_pow == ops.pow.search: "
+        f"{pow_s:.3f} s scheduled, {solo_pow_s:.3f} s in series")
+    log(f"[tenants] launches: {json.dumps(launches)}")
+    log(f"[tenants] {ctx['smi']}")
+    ctx["tenants"] = dict(
+        launches=launches, solo_rate=solo_rate, packed_rate=packed_rate,
+        ratio=ratio, narrow_rate=total / narrow_s, peak_bytes=peak,
+        pack_stats=ps.as_dict(), tenants_per_pack=tenants_per_pack,
+        idle_lat=idle_lat, load_lat=load_lat)
 
 
 def v_alloc_ms() -> float:
@@ -774,12 +1125,17 @@ def main() -> int:
     phase_scan(ctx)
     phase_main_path(ctx)
     phase_worker(ctx)
+    phase_tenants(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
              "scan": {"full_width": {k: ctx["scan_full"][k] for k in (
                  "shape", "ms", "plain_ms", "bound_ms", "bound_by")}},
-             "pbkdf2_expand": {"ragged": ctx["pbkdf2_expand"]["ragged"]},
-             "pbkdf2_finish": {"ragged": ctx["pbkdf2_finish"]["ragged"]}}
+             "pbkdf2_expand": {k: ctx["pbkdf2_expand"][k] for k in (
+                 "kernel_ms", "perlane", "ragged")},
+             "pbkdf2_finish": {k: ctx["pbkdf2_finish"][k] for k in (
+                 "kernel_ms", "perlane", "ragged")}}
+    for key in extra:
+        extra[key]["tenants_launches"] = ctx["tenants"]["launches"][key]
     envelope = ("spacemesh_tpu/ops/scrypt.py:440 (XLA-fused envelope, no "
                 "Pallas kernel)")
     kernels = []

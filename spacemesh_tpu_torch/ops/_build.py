@@ -29,6 +29,9 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# guards the wrappers' launch counters: the scheduler's threads launch
+# concurrently, and `count += 1` is not atomic across threads
+count_lock = threading.Lock()
 
 
 def nvcc() -> str:

@@ -186,7 +186,8 @@ def expand(commitment_words: torch.Tensor, idx_lo: torch.Tensor,
         err = fn(cw.data_ptr(), *strides, idx_lo.data_ptr(),
                  idx_hi.data_ptr(), out.data_ptr(), b,
                  torch.cuda.current_stream(dev).cuda_stream)
-        expand_launches += 1
+        with _build.count_lock:
+            expand_launches += 1
         _build.check(err, "pbkdf2_expand_launch")
     return out
 
@@ -213,6 +214,7 @@ def finish(commitment_words: torch.Tensor, blk: torch.Tensor
     with torch.cuda.device(dev):
         err = fn(cw.data_ptr(), *strides, blk.data_ptr(), out.data_ptr(), b,
                  torch.cuda.current_stream(dev).cuda_stream)
-        finish_launches += 1
+        with _build.count_lock:
+            finish_launches += 1
         _build.check(err, "pbkdf2_finish_launch")
     return out

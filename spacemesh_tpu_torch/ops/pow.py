@@ -91,10 +91,11 @@ def _split(nonces: np.ndarray, dev) -> tuple[torch.Tensor, torch.Tensor]:
 def search(challenge: bytes, node_id: bytes, difficulty: bytes,
            *, batch: int = 1 << 16, start: int = 0,
            max_batches: int = 1 << 16, inflight: int = 2,
-           device="cuda") -> int | None:
+           tenant: str = "-", device="cuda") -> int | None:
     """Smallest nonce >= ``start`` whose pow_hash is below ``difficulty``
     (32-byte BE target), scanning ``batch`` nonces per device pass with
-    ``inflight`` passes enqueued; None when exhausted."""
+    ``inflight`` passes enqueued; None when exhausted. ``tenant`` labels
+    the runtime metrics (``runtime/engine.py``)."""
     from ..runtime import engine
 
     if len(difficulty) != 32:
@@ -115,7 +116,7 @@ def search(challenge: bytes, node_id: bytes, difficulty: bytes,
         hits = np.nonzero(ok.get().numpy())[0]
         return int(base + int(hits[0])) if hits.size else None
 
-    pipe = engine.Pipeline(inflight=inflight)
+    pipe = engine.Pipeline(kind="k2pow", tenant=tenant, inflight=inflight)
     return pipe.run((start + i * batch for i in range(max_batches)),
                     dispatch, retire)
 
@@ -143,7 +144,8 @@ def _verify_host(items: list) -> list[bool]:
 
 
 def verify_many(items: list, *, batch: int = 1 << 12, inflight: int = 2,
-                min_device: int = 8, device="cuda") -> list[bool]:
+                min_device: int = 8, tenant: str = "-",
+                device="cuda") -> list[bool]:
     """Batched k2pow verification of (challenge, node_id, difficulty,
     nonce) tuples; bit-identical to :func:`verify` on every item. Batches
     below ``min_device`` items skip the device (two hashlib blocks are
@@ -183,7 +185,8 @@ def verify_many(items: list, *, batch: int = 1 << 12, inflight: int = 2,
         results[lo_i:hi_i] = ok.get().numpy()
         return None
 
-    pipe = engine.Pipeline(inflight=inflight)
+    pipe = engine.Pipeline(kind="k2pow_verify", tenant=tenant,
+                           inflight=inflight)
     pipe.run(((i, min(i + batch, n)) for i in range(0, n, batch)),
              dispatch, retire)
     return results.tolist()

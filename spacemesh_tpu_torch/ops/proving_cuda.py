@@ -146,6 +146,7 @@ def scan(challenge_words, nonce_base: int, idx_lo: torch.Tensor,
                  max(int(valid), 0), idx_lo.data_ptr(), idx_hi.data_ptr(),
                  label_words.data_ptr(), mask.data_ptr(), seg.data_ptr(), b,
                  n_nonces, torch.cuda.current_stream(dev).cuda_stream)
-        launches += 1
+        with _build.count_lock:
+            launches += 1
         _build.check(err, "proving_scan_launch")
     return mask, seg

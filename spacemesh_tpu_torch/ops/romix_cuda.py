@@ -147,6 +147,7 @@ def romix(x: torch.Tensor, n: int, *, max_lanes: int | None = None,
             lanes = min(per, b - c0)
             err = fn(xp + 4 * c0, op + 4 * c0, vp, b, lanes, n,
                      int(mix_phase), stream)
-            launches += 1
+            with _build.count_lock:
+                launches += 1
             _build.check(err, "romix_r1_launch")
     return out

@@ -11,9 +11,10 @@ the card, each with its plain twin on the CPU: PBKDF2-HMAC-SHA256 expand
 (``ops/pbkdf2_cuda.py``), then optionally the VRF min-scan
 (:func:`_minscan`, tensor code).
 Block state is (32, B) int32 bit patterns, lanes trailing, as in the JAX
-package. The JAX package's shape buckets, autotune plan and chunked/row
-ROMix variants exist for XLA's per-shape compiles and the TPU race; this
-port has neither, and ragged batches run at their own size.
+package. The JAX package's autotune plan and chunked/row ROMix variants
+exist for XLA's per-shape compiles and the TPU race; this port has
+neither, and ragged batches run at their own size. :func:`shape_bucket`
+survives only as the multi-tenant scheduler's pack-width rounding.
 """
 
 from __future__ import annotations
@@ -31,6 +32,15 @@ from .u32 import flip, s32
 LABEL_BYTES = 16  # reference: 16-byte labels, 2^32 per 64 GiB unit
 
 
+def shape_bucket(b: int) -> int:
+    """The next power of two at or above ``b`` (``b`` itself when it is
+    one): the JAX package's lane bucket, which the scheduler's pack width
+    keeps. Labels do not depend on it."""
+    if b <= 1:
+        return max(b, 1)
+    return 1 << (b - 1).bit_length()
+
+
 def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *,
                         n: int) -> torch.Tensor:
     """Labels for (B,) index halves -> (4, B) int32 BE words (batch minor);
@@ -39,6 +49,19 @@ def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *,
     blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
     blk = romix_cuda.romix(blk, n)
     return pbkdf2_cuda.finish(commitment_words, blk)
+
+
+def scrypt_labels_packed(commitment_words, idx_lo, idx_hi, *,
+                         n: int) -> torch.Tensor:
+    """Labels of a multi-tenant pack: (8, B) per-lane commitment words and
+    (B,) index halves -> (4, B) int32 BE words, with no VRF min-scan (the
+    scheduler folds each tenant's minimum on the host). On the card: PBKDF2
+    expand with midstates per lane, ROMix, PBKDF2 finish."""
+    b = idx_lo.shape[0]
+    if tuple(commitment_words.shape) != (8, b):
+        raise ValueError(f"packed labels take (8, {b}) per-lane commitment "
+                         f"words, got {tuple(commitment_words.shape)}")
+    return scrypt_labels_words(commitment_words, idx_lo, idx_hi, n=n)
 
 
 # --- VRF-nonce scan ---------------------------------------------------------

@@ -8,14 +8,15 @@ per identity (:class:`RegisterSession`), answering
   GenProofRequest  -> GenProofResponse (OK without a proof while it is
                       being made; the node asks again on its interval)
 
-Proving runs off the stream in a plain thread, so the stream stays
-responsive while a proof is in flight. Sessions reconnect with backoff
-when the node restarts.
+Proving runs off the stream, so the stream stays responsive while a
+proof is in flight: through the multi-tenant runtime scheduler when one is
+attached (one tenant per identity, fair share across identities,
+gang-scheduled windows; ``runtime/scheduler.py``), else in a plain
+thread. Sessions reconnect with backoff when the node restarts.
 
 This module and ``api/gen/post_pb2.py`` are the port's only importers of
 ``grpc`` and ``google.protobuf``; they are imported only when the worker
-is served with ``--node-address``. Left out against the JAX package: the
-route through the multi-tenant runtime scheduler (the port has none).
+is served with ``--node-address``.
 """
 
 from __future__ import annotations
@@ -70,14 +71,19 @@ class _ProofJob:
 
 
 class RegisterSession:
-    """One identity's Register stream to the node."""
+    """One identity's Register stream to the node.
+
+    With a runtime ``scheduler`` attached, proofs run as jobs of tenant
+    ``tenant`` (the identity's hex prefix) instead of in a thread of their
+    own, so many identities' proves share one device fairly."""
 
     def __init__(self, node_address: str, node_id: bytes, client: PostClient,
-                 reconnect_backoff: float = 1.0):
+                 reconnect_backoff: float = 1.0, scheduler=None):
         self.node_address = node_address
         self.node_id = node_id
         self.client = client
         self.backoff = reconnect_backoff
+        self.scheduler = scheduler
         self.tenant = node_id.hex()[:16]
         self._job: _ProofJob | None = None
         self._stop = asyncio.Event()
@@ -131,6 +137,14 @@ class RegisterSession:
         return ppb.ServiceResponse(gen_proof=ppb.GenProofResponse(
             status=ppb.GEN_PROOF_STATUS_ERROR))
 
+    @staticmethod
+    async def _scheduled(handle) -> tuple:
+        """Await a scheduler prove job from the event loop, in the shape of
+        ``PostClient.proof``'s result (the stream answer ignores the
+        metadata half)."""
+        proof = await asyncio.wrap_future(handle.future)
+        return proof, None
+
     def _meta(self) -> ppb.Metadata:
         info = self.client.info()
         meta = ppb.Metadata(
@@ -149,8 +163,13 @@ class RegisterSession:
                     status=ppb.GEN_PROOF_STATUS_ERROR))
             self._job = job = None
         if job is None:
-            task = asyncio.ensure_future(
-                asyncio.to_thread(self.client.proof, challenge))
+            if self.scheduler is not None:
+                handle = self.client.submit_proof(self.scheduler,
+                                                  self.tenant, challenge)
+                task = asyncio.ensure_future(self._scheduled(handle))
+            else:
+                task = asyncio.ensure_future(
+                    asyncio.to_thread(self.client.proof, challenge))
             self._job = job = _ProofJob(challenge, task, tenant=self.tenant)
         if not job.task.done():
             # still being made: OK without a proof, the node asks again
@@ -172,21 +191,32 @@ class RegisterSession:
 
 
 class GrpcWorker:
-    """All discovered identities, each with its own Register session."""
+    """All discovered identities, each with its own Register session.
+
+    With ``scheduler`` (a runtime ``TenantScheduler``) every identity is a
+    registered tenant and its proofs run as fair-share jobs on the shared
+    device. The scheduler is borrowed: its owner closes it; this worker
+    only registers and unregisters its identities."""
 
     def __init__(self, service: PostService, node_address: str,
-                 reconnect_backoff: float = 1.0):
+                 reconnect_backoff: float = 1.0, scheduler=None):
         self.service = service
         self.node_address = node_address
         self.backoff = reconnect_backoff
+        self.scheduler = scheduler
         self.sessions: list[RegisterSession] = []
         self._tasks: list[asyncio.Task] = []
+        self._tenants: list[str] = []
 
     async def start(self) -> None:
         for node_id in self.service.registered():
             client = self.service.client(node_id)
             s = RegisterSession(self.node_address, node_id, client,
-                                reconnect_backoff=self.backoff)
+                                reconnect_backoff=self.backoff,
+                                scheduler=self.scheduler)
+            if self.scheduler is not None:
+                self.scheduler.register_tenant(s.tenant)
+                self._tenants.append(s.tenant)
             self.sessions.append(s)
             self._tasks.append(asyncio.ensure_future(s.run()))
 
@@ -205,3 +235,7 @@ class GrpcWorker:
         finally:
             for s in self.sessions:
                 _ProofJob.forget_tenant(s.tenant)
+            if self.scheduler is not None:
+                for tenant in self._tenants:
+                    self.scheduler.unregister_tenant(tenant)
+                self._tenants.clear()

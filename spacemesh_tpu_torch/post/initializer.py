@@ -23,8 +23,12 @@ anywhere in the storage plane (a label write, the checkpoint fsync, the
 metadata save) parks the session until space returns instead of failing
 it.
 
+``tenant`` labels the runtime metrics (``runtime/engine.py``); the
+multi-tenant scheduler's packed init (``runtime/scheduler.py``) shares
+:func:`open_or_create_meta` with this module.
+
 Left out against the JAX package: the device mesh, the autotuned kernel
-plan, the tenant label, the ``writer_queue`` option (no caller sets it:
+plan, the ``writer_queue`` option (no caller sets it:
 the queue depth is :data:`DEFAULT_WRITER_QUEUE`), and the health,
 remediation, pipeline-metrics and tracing hooks.
 """
@@ -111,8 +115,10 @@ class Initializer:
                  fs=None,
                  enospc_retry_s: float = 0.5,
                  save_barrier: bool = False,
+                 tenant: str = "-",
                  device="cuda"):
         self.device = resolve(device)
+        self.tenant = tenant
         self.store = LabelStore(data_dir, meta, fs=fs)
         self.meta = meta
         self.batch = batch_size
@@ -190,7 +196,8 @@ class Initializer:
             self._maybe_save(writer, stats)
             return None
 
-        pipe = engine.Pipeline(inflight=self.inflight,
+        pipe = engine.Pipeline(kind="init", tenant=self.tenant,
+                               inflight=self.inflight,
                                stop=lambda: self._stop)
         try:
             pipe.run(batches(), dispatch, retire)
@@ -332,7 +339,7 @@ def initialize(data_dir: str | Path, *, node_id: bytes, commitment: bytes,
                **pipeline_opts) -> tuple[PostMetadata, InitResult]:
     """Create-or-resume an init session. Returns final metadata + timing.
     ``pipeline_opts`` pass through to :class:`Initializer` (inflight,
-    writers, the metadata intervals, enospc_retry_s, save_barrier);
+    writers, the metadata intervals, enospc_retry_s, save_barrier, tenant);
     ``fs`` is the injectable I/O layer."""
     dev = resolve(device)
     dir_ = Path(data_dir)

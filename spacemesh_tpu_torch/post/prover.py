@@ -149,10 +149,14 @@ class Prover:
             return self._prove_pipelined(challenge, None)
         return self.prove_serial(challenge)
 
-    def session(self, challenge: bytes) -> "ProveSession":
+    def session(self, challenge: bytes, tenant: str = "-"
+                ) -> "ProveSession":
         """A resumable streaming prove: each ``step()`` is one quantum (the
-        k2pow gate first, then one disk pass per nonce window)."""
-        return ProveSession(self, challenge)
+        k2pow gate first, then one disk pass per nonce window), so the
+        multi-tenant scheduler can run other tenants' work between windows
+        (``runtime/scheduler.py``). ``tenant`` labels the runtime
+        metrics."""
+        return ProveSession(self, challenge, tenant=tenant)
 
     def _prove_pipelined(self, challenge: bytes,
                          pow_nonce: int | None) -> Proof:
@@ -220,7 +224,7 @@ class Prover:
     # -- streaming pipeline -------------------------------------------------
 
     def _scan_window(self, cw, thr: int, nonce_base: int, groups: int,
-                     stats: ProverStats):
+                     stats: ProverStats, tenant: str = "-"):
         """One disk pass over the store scanning the ``groups * 16`` nonces
         from ``nonce_base``, in one scan launch per batch. Returns
         (winner_nonce, indices) or (None, None)."""
@@ -267,7 +271,8 @@ class Prover:
                     return ticket[0]  # sound early exit: scanned_end
                 return None
 
-            pipe = engine.Pipeline(inflight=self.inflight)
+            pipe = engine.Pipeline(kind="prove", tenant=tenant,
+                                   inflight=self.inflight)
             rw0 = stats.read_wait_s
             res = pipe.run(ranges, dispatch, retire)
             exited = res is not None
@@ -315,9 +320,10 @@ class ProveSession:
     disk pass per nonce window) and returns the Proof once decided.
     ``close()`` is idempotent and drops the store's cached read fds."""
 
-    def __init__(self, prover: Prover, challenge: bytes):
+    def __init__(self, prover: Prover, challenge: bytes, tenant: str = "-"):
         self.prover = prover
         self.challenge = challenge
+        self.tenant = tenant
         self.stats = ProverStats()
         prover.last_stats = self.stats
         self.pow_nonce: int | None = None
@@ -345,7 +351,7 @@ class ProveSession:
         groups = min(p.window_groups,
                      (self._max_nonce - self._base) // NONCE_GROUP)
         winner, indices = p._scan_window(cw, thr, self._base, groups,
-                                         self.stats)
+                                         self.stats, tenant=self.tenant)
         self._base += groups * NONCE_GROUP
         if winner is None:
             return None

@@ -4,11 +4,9 @@ Port of ``spacemesh_tpu/post/service.py``. The contract is a small
 interface with an in-process implementation; the transports
 (``post/remote.py`` JSON-RPC, ``post/grpc_worker.py`` gRPC) wrap the same
 interface when the worker runs out of process, so the node side is the
-same either way.
-
-Left out against the JAX package: ``PostClient.submit_proof``, which
-routes a prove through the multi-tenant runtime scheduler; the port has
-no scheduler yet.
+same either way. :meth:`PostClient.submit_proof` routes an identity's
+prove through the multi-tenant runtime scheduler (``runtime/scheduler.py``)
+instead of a thread of its own.
 """
 
 from __future__ import annotations
@@ -74,6 +72,17 @@ class PostClient:
                             batch_labels=self._batch, device=self.device,
                             **self._prove_opts)
             return prover.prove(challenge), prover.meta
+
+    def submit_proof(self, scheduler, tenant: str, challenge: bytes):
+        """Submit this identity's prove to a runtime scheduler as tenant
+        ``tenant``; returns the JobHandle. Windows are gang-scheduled and
+        fair-shared with other tenants' work, and the scheduler's
+        per-tenant FIFO keeps one session per identity. The scheduler's
+        device runs it (a client's ``device`` is for :meth:`proof`)."""
+        return scheduler.submit_prove(tenant, self.data_dir, challenge,
+                                      self.params,
+                                      batch_labels=self._batch,
+                                      **self._prove_opts)
 
 
 class PostService:

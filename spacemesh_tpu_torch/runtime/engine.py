@@ -1,7 +1,7 @@
 """The device-job loop: a bounded dispatch -> retire window.
 
-Port of ``spacemesh_tpu/runtime/engine.py`` without its metrics, circuit
-breaker, sanitizer and span hooks. A host thread enqueues up to
+Port of ``spacemesh_tpu/runtime/engine.py`` without its circuit breaker,
+host fallback, sanitizer and span hooks. A host thread enqueues up to
 ``inflight`` batches of device work (``dispatch``), then pops the oldest
 and blocks on its results (``retire``), so device compute, copies and host
 work overlap.
@@ -13,14 +13,46 @@ work overlap.
     Block on the oldest in-flight ticket and consume it. A non-None return
     is an early exit: the pipeline stops pulling items, abandons the
     in-flight tickets and returns that value.
+
+Every run counts its batches in the ``runtime_*`` metrics under its
+``kind`` and ``tenant`` labels (``utils/metrics.py``), so a multi-tenant
+process decomposes per identity.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import deque
 from typing import Any, Callable, Iterable, Optional
+
+from ..utils import metrics
+
+# per-kind aggregate in-flight depth: concurrent pipelines of one kind (two
+# gang prove windows, parallel k2pow searches) each add their own delta,
+# so a finishing pipeline removes only its share of the gauge
+_inflight_lock = threading.Lock()
+_inflight_by_kind: dict[str, int] = {}
+
+
+def _inflight_adjust(kind: str, delta: int) -> int:
+    with _inflight_lock:
+        n = _inflight_by_kind.get(kind, 0) + delta
+        _inflight_by_kind[kind] = n
+        return n
+
+
+class JobStopped(RuntimeError):
+    """The job's stop predicate flipped while work was still queued."""
+
+
+# What a continuous item stream (the multi-tenant packer) yields when it
+# has no new work right now: the engine retires the oldest in-flight ticket
+# (if any) instead of dispatching, so results keep draining while the
+# stream decides whether to block for more work. A finite stream never
+# needs it: exhausting the iterator drains the window.
+IDLE = object()
 
 
 @dataclasses.dataclass
@@ -36,53 +68,101 @@ class PipelineStats:
 class Pipeline:
     """Bounded in-flight dispatch -> retire executor for one device job.
 
+    ``kind``      workload label of the metrics: "init", "prove", "k2pow",
+                  "k2pow_verify", "init_pack", ...
+    ``tenant``    identity label of the metrics; "-" for single-tenant
+                  callers.
     ``inflight``  device batches in flight before the oldest retires.
     ``stop``      checked before each dispatch and each drain step; True
                   discards the in-flight work (stop latency is one retire,
                   not a drain).
     """
 
-    def __init__(self, *, inflight: int = 3,
+    def __init__(self, *, kind: str = "-", tenant: str = "-",
+                 inflight: int = 3,
                  stop: Optional[Callable[[], bool]] = None):
+        self.kind = kind
+        self.tenant = tenant
         self.inflight = max(int(inflight), 1)
         self._stop = stop
         self.stats = PipelineStats()
+        self._pending: deque = deque()
+        self._last_depth = 0
 
-    def _retire(self, retire, ticket):
+    @property
+    def pending_count(self) -> int:
+        """Tickets in flight now (a continuous stream reads this to choose
+        between blocking for work and yielding :data:`IDLE`)."""
+        return len(self._pending)
+
+    def _set_inflight(self, n: int) -> None:
+        total = _inflight_adjust(self.kind, n - self._last_depth)
+        self._last_depth = n
+        metrics.runtime_inflight.set(total, kind=self.kind)
+
+    def _dispatch(self, dispatch, item):
+        stats = self.stats
+        t0 = time.perf_counter()
+        ticket = dispatch(item)
+        dt = time.perf_counter() - t0
+        stats.dispatch_s += dt
+        if not stats.batches:
+            stats.first_dispatch_s = dt
+        stats.batches += 1
+        metrics.runtime_dispatched.inc(kind=self.kind, tenant=self.tenant)
+        self._pending.append(ticket)
+        self._set_inflight(len(self._pending))
+
+    def _retire(self, retire):
         t0 = time.perf_counter()
         try:
-            return retire(ticket)
+            return retire(self._pending.popleft())
         finally:
             self.stats.retire_s += time.perf_counter() - t0
+            metrics.runtime_retired.inc(kind=self.kind, tenant=self.tenant)
+            self._set_inflight(len(self._pending))
+
+    def _stopped(self) -> bool:
+        if self._stop is not None and self._stop():
+            self.stats.stopped = True
+            self._pending.clear()
+            return True
+        return False
 
     def run(self, items: Iterable[Any], dispatch, retire):
         """Drive ``items`` through the window. Returns the first non-None
         retire result, or None when every item retired or the stop
         predicate ended the run (``stats.stopped`` tells them apart)."""
         stats = self.stats
-        pending: deque = deque()
-        for item in items:
-            if self._stop is not None and self._stop():
-                stats.stopped = True
-                return None
-            t0 = time.perf_counter()
-            pending.append(dispatch(item))
-            dt = time.perf_counter() - t0
-            stats.dispatch_s += dt
-            if not stats.batches:
-                stats.first_dispatch_s = dt
-            stats.batches += 1
-            if len(pending) >= self.inflight:
-                result = self._retire(retire, pending.popleft())
+        pending = self._pending
+        try:
+            for item in items:
+                if self._stopped():
+                    return None
+                if item is IDLE:
+                    if not pending:
+                        continue
+                else:
+                    self._dispatch(dispatch, item)
+                    if len(pending) < self.inflight:
+                        continue
+                result = self._retire(retire)
                 if result is not None:
                     stats.early_exited = True
+                    pending.clear()  # abandon: the result is final
                     return result
-        while pending:
-            if self._stop is not None and self._stop():
-                stats.stopped = True
-                return None
-            result = self._retire(retire, pending.popleft())
-            if result is not None:
-                stats.early_exited = True
-                return result
-        return None
+            while pending:
+                if self._stopped():
+                    return None
+                result = self._retire(retire)
+                if result is not None:
+                    stats.early_exited = True
+                    pending.clear()
+                    return result
+            return None
+        finally:
+            self._set_inflight(0)
+            for stage, secs in (("dispatch", stats.dispatch_s),
+                                ("retire", stats.retire_s)):
+                metrics.runtime_stage_seconds.inc(secs, kind=self.kind,
+                                                  stage=stage)

@@ -56,3 +56,44 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_intervals(prof) -> list[tuple[float, float]]:
+    """(start, end) microseconds of every device activity (kernels, copies)
+    a ``torch.profiler.profile`` recorded."""
+    from torch.autograd import DeviceType
+
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of ``intervals``: the time the device was busy,
+    counting overlapping activities on several streams once."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def kernel_ms(fn, name: str, reps: int) -> float | None:
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``name`` over ``reps`` calls of ``fn`` after one warm-up, from the
+    profiler's kernel times, without the host's call cost between them;
+    None when the profiler recorded no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(us) / len(us) / 1e3 if us else None

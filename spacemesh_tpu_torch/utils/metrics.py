@@ -1,10 +1,12 @@
-"""Metrics: counters and gauges with Prometheus text exposition.
+"""Metrics: counters, gauges and histograms with Prometheus text exposition.
 
 Port of ``spacemesh_tpu/utils/metrics.py``: the instrument types, the
-registry and the exposition format, with the same names and labels. Only
-the instruments the port records are defined here: the ``post_store_*``
-family (label-store reads, fsyncs, fault injections, recovery, ENOSPC
-parking) and ``post_prove_inflight`` (the gRPC worker's proving sessions).
+registry and the exposition format, with the same names, labels and
+buckets. Only the instruments the port records are defined here: the
+``post_store_*`` family (label-store reads, fsyncs, fault injections,
+recovery, ENOSPC parking), ``post_prove_inflight`` (the gRPC worker's
+proving sessions) and the ``runtime_*`` family (the device-job engine and
+the multi-tenant scheduler, ``runtime/``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,21 @@ class _Instrument:
         self.name = name
         self.help = help_
         self._lock = threading.Lock()
+
+    def _series_map(self) -> dict:
+        return self._values  # Histogram overrides (its map is _series)
+
+    def remove_matching(self, **labels) -> int:
+        """Drop every labelset containing these label items (all of a gone
+        tenant's series, whatever labels ride with it). Returns the number
+        of series removed."""
+        items = set(labels.items())
+        with self._lock:
+            m = self._series_map()
+            gone = [k for k in m if items.issubset(set(k))]
+            for k in gone:
+                del m[k]
+        return len(gone)
 
 
 class Counter(_Instrument):
@@ -85,6 +102,58 @@ class Gauge(_Instrument):
         return out
 
 
+class Histogram(_Instrument):
+    """Bucketed distribution; each labelset carries its own buckets, sum
+    and count series."""
+
+    DEFAULT_BUCKETS = (0.005, 0.05, 0.5, 5.0, 50.0, float("inf"))
+
+    def __init__(self, name, help_="", buckets=DEFAULT_BUCKETS):
+        super().__init__(name, help_)
+        self.buckets = tuple(buckets)
+        # labelset -> [per-bucket counts, sum, count]
+        self._series: dict[tuple, list] = {}
+
+    def _series_map(self) -> dict:
+        return self._series
+
+    def observe(self, value: float, **labels) -> None:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                s = self._series[key] = [[0] * len(self.buckets), 0.0, 0]
+            s[1] += value
+            s[2] += 1
+            for i, b in enumerate(self.buckets):
+                if value <= b:
+                    s[0][i] += 1
+
+    def sample(self) -> dict[tuple, tuple[list, float, int]]:
+        """{labelset: (cumulative bucket counts, sum, count)} snapshot."""
+        with self._lock:
+            return {k: (list(s[0]), s[1], s[2])
+                    for k, s in self._series.items()}
+
+    def expose(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}",
+               f"# TYPE {self.name} histogram"]
+        with self._lock:
+            series = [(k, [list(s[0]), s[1], s[2]])
+                      for k, s in self._series.items()]
+        for labels, (counts, sum_, n) in series:
+            base = _labelstr(labels)
+            sep = "," if base else ""
+            for b, c in zip(self.buckets, counts):
+                le = "+Inf" if b == float("inf") else b
+                out.append(f'{self.name}_bucket{{{base}{sep}le="{le}"}} {c}')
+            out.append(f"{self.name}_sum{{{base}}} {sum_}" if base
+                       else f"{self.name}_sum {sum_}")
+            out.append(f"{self.name}_count{{{base}}} {n}" if base
+                       else f"{self.name}_count {n}")
+        return out
+
+
 class Registry:
     def __init__(self) -> None:
         self._instruments: dict[str, _Instrument] = {}
@@ -95,6 +164,20 @@ class Registry:
 
     def gauge(self, name: str, help_: str = "") -> Gauge:
         return self._get(name, lambda: Gauge(name, help_), Gauge)
+
+    def histogram(self, name: str, help_: str = "", buckets=None) -> Histogram:
+        inst = self._get(
+            name, lambda: Histogram(name, help_,
+                                    buckets or Histogram.DEFAULT_BUCKETS),
+            Histogram)
+        # a re-registration with other buckets would record into a layout
+        # its caller never asked for
+        if buckets is not None and tuple(buckets) != inst.buckets:
+            raise ValueError(
+                f"histogram {name} already registered with buckets "
+                f"{inst.buckets}, re-registration asked for "
+                f"{tuple(buckets)}")
+        return inst
 
     def _get(self, name, factory, cls):
         with self._lock:
@@ -155,3 +238,44 @@ post_store_enospc_waits = REGISTRY.counter(
 # PoST proving sessions of the gRPC worker (post/grpc_worker.py)
 post_prove_inflight = REGISTRY.gauge(
     "post_prove_inflight", "proving sessions currently running (grpc worker)")
+
+# device-job runtime (runtime/): the dispatch -> retire engine every device
+# pipeline runs on, plus the multi-tenant scheduler on top. Every series
+# carries the workload `kind`; per-identity series carry `tenant` ("-" when
+# the embedder is single-tenant).
+runtime_dispatched = REGISTRY.counter(
+    "runtime_batches_dispatched_total",
+    "device batches dispatched through the runtime engine "
+    "(labels: kind, tenant)")
+runtime_retired = REGISTRY.counter(
+    "runtime_batches_retired_total",
+    "device batches retired (results consumed) (labels: kind, tenant)")
+runtime_inflight = REGISTRY.gauge(
+    "runtime_inflight_batches",
+    "device batches currently in flight (label: kind)")
+runtime_stage_seconds = REGISTRY.counter(
+    "runtime_stage_seconds_total",
+    "host seconds per engine stage (labels: kind, stage)")
+runtime_tenant_jobs = REGISTRY.counter(
+    "runtime_tenant_jobs_total",
+    "scheduler jobs by outcome (labels: tenant, kind, state)")
+runtime_tenant_queued = REGISTRY.gauge(
+    "runtime_tenant_queued_jobs",
+    "jobs queued per tenant in the scheduler (label: tenant)")
+runtime_tenant_labels = REGISTRY.counter(
+    "runtime_tenant_labels_total",
+    "init labels computed+written through the scheduler (label: tenant)")
+runtime_pack_occupancy = REGISTRY.histogram(
+    "runtime_pack_occupancy_lanes",
+    "lanes per packed multi-tenant init dispatch",
+    buckets=(64, 128, 256, 512, 1024, 2048, 4096, 8192, float("inf")))
+runtime_pack_tenants = REGISTRY.histogram(
+    "runtime_pack_tenants",
+    "distinct tenants per packed init dispatch",
+    buckets=(1, 2, 4, 8, 16, 32, float("inf")))
+runtime_quantum_seconds = REGISTRY.counter(
+    "runtime_quantum_seconds_total",
+    "worker seconds per scheduler quantum (labels: kind, tenant)")
+runtime_deadline_boosts = REGISTRY.counter(
+    "runtime_deadline_boosts_total",
+    "quanta admitted by deadline (EDF) ahead of fair-share order")

@@ -160,3 +160,38 @@ def test_card_store_equals_cpu_store(dev, tmp_path):
             hashlib.sha256(p.read_bytes()).hexdigest()
             for p in sorted(d.glob("postdata_*.bin"))]))
     assert digests[0] == digests[1]
+
+
+def test_packed_init_on_the_card_equals_the_cpu_twin(dev, tmp_path):
+    """Three identities at ragged totals through the multi-tenant scheduler:
+    the card's packs (per-lane commitments, each thread on a stream of its
+    own) write the CPU twin's stores, and every kernel of the path runs."""
+    from spacemesh_tpu_torch.runtime import TenantScheduler
+
+    totals = (100, 257, 700)
+    stores = []
+    before = (romix_cuda.launches, pbkdf2_cuda.expand_launches,
+              pbkdf2_cuda.finish_launches)
+    for where in ("cuda", "cpu"):
+        with TenantScheduler(pack_lanes=256, autostart=False,
+                             device=where) as sched:
+            handles = []
+            for i, total in enumerate(totals):
+                tid = f"t{i}"
+                sched.register_tenant(tid)
+                handles.append(sched.submit_init(
+                    tid, tmp_path / where / tid,
+                    node_id=hashlib.sha256(b"n%d" % i).digest(),
+                    commitment=hashlib.sha256(b"c%d" % i).digest(),
+                    num_units=1, labels_per_unit=total, scrypt_n=16,
+                    max_file_size=4096))
+            sched.start()
+            metas = [h.result(timeout=120) for h in handles]
+        stores.append([(m.labels_written, m.vrf_nonce, m.vrf_nonce_value, [
+            hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted((tmp_path / where / f"t{i}").glob(
+                "postdata_*.bin"))]) for i, m in enumerate(metas)])
+    assert stores[0] == stores[1]
+    after = (romix_cuda.launches, pbkdf2_cuda.expand_launches,
+             pbkdf2_cuda.finish_launches)
+    assert all(a >= b + 5 for a, b in zip(after, before))  # 1057 lanes / 256

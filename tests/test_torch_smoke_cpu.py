@@ -234,7 +234,9 @@ WORKER_MODULES = ("spacemesh_tpu_torch.post",
                   "spacemesh_tpu_torch.post.supervisor",
                   "spacemesh_tpu_torch.post.faultfs",
                   "spacemesh_tpu_torch.api.rpc",
-                  "spacemesh_tpu_torch.utils.metrics")
+                  "spacemesh_tpu_torch.utils.metrics",
+                  "spacemesh_tpu_torch.runtime.scheduler",
+                  "spacemesh_tpu_torch.runtime.workloads")
 
 
 def test_only_the_grpc_worker_imports_grpc_and_protobuf():
