@@ -98,8 +98,10 @@ WINDOW_CANDIDATES = 24  # challenges tried for each winner group
 TENANTS = 16          # identities of the [tenants] phase (BASELINE: 16)
 TENANT_LABELS = 1 << 16  # labels per identity there
 LOAD_LABELS = 1 << 18    # per identity of the init the proves run beside
+# per identity of the profiled packed init: not a multiple of the pack
+# width, so packs are cut across tenants at the main path's shape
+MIX_LABELS = TENANT_LABELS // 2 + TENANT_LABELS // 8
 REPO = os.path.dirname(os.path.abspath(__file__))
-DEVICE = "cuda"  # the [tenants] phase's device
 CLI = [sys.executable, "-m", "spacemesh_tpu_torch.post"]
 
 
@@ -820,13 +822,11 @@ def phase_tenants(ctx: dict) -> None:
     from spacemesh_tpu_torch.tools.measure import busy_us, device_intervals
     from spacemesh_tpu_torch.utils import metrics
 
-    dev = DEVICE
-    on_card = dev == "cuda"
+    dev = "cuda"
 
     def settle():
-        if on_card:
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
     params = prover.ProofParams()  # mainnet k1/k2/k3, default k2pow
     challenge = hashlib.sha256(b"chip-smoke-tenants-challenge").digest()
@@ -834,7 +834,7 @@ def phase_tenants(ctx: dict) -> None:
     load_ids = tenant_ids(b"-load")
     rep_ids = tenant_ids(b"-rep")
     narrow_ids = tenant_ids(b"-narrow")
-    prof_ids = tenant_ids(b"-profiled")
+    mix_ids = tenant_ids(b"-mixed")
     total = TENANTS * TENANT_LABELS
     solo_s, packed_s = [], []
 
@@ -854,12 +854,11 @@ def phase_tenants(ctx: dict) -> None:
         solo_init(os.path.join(base, "solo"))
         sched = TenantScheduler(device=dev)
         try:
-            for tid, _, _ in ids + load_ids + rep_ids + prof_ids:
+            for tid, _, _ in ids + load_ids + rep_ids + mix_ids:
                 sched.register_tenant(tid)
             tenants_sample = metrics.runtime_pack_tenants.sample().get(
                 (), ([], 0.0, 0))
-            if on_card:
-                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.reset_peak_memory_stats()
             zero_launches()
             # the tenants' path: packed init, proves idle and under load,
             # one verify, k2pow
@@ -885,7 +884,7 @@ def phase_tenants(ctx: dict) -> None:
                 lat[key] = (lat[key], [t - t0 for t in done])
             (proofs, idle_lat), (again, load_lat) = lat["idle"], lat["load"]
             load_s = max(load_done) - t0
-            peak = torch.cuda.max_memory_allocated() if on_card else 0
+            peak = torch.cuda.max_memory_allocated()
             thr = proving.threshold_u32(params.k1, TENANT_LABELS)
             items = [verifier.VerifyItem(
                 proof=p, challenge=challenge, node_id=node, commitment=commit,
@@ -904,8 +903,7 @@ def phase_tenants(ctx: dict) -> None:
                 sched.submit_pow(tid, challenge, node, params.pow_difficulty)
                 for tid, node, _ in ids]]
             pow_s = time.perf_counter() - t0
-            if on_card:
-                torch.cuda.synchronize()
+            torch.cuda.synchronize()
             launches = launch_counts()
             # the second packed init of the comparison, then the second solo
             t0 = time.perf_counter()
@@ -924,23 +922,24 @@ def phase_tenants(ctx: dict) -> None:
                                       narrow_ids, TENANT_LABELS):
                     h.result(timeout=600)
                 narrow_s = time.perf_counter() - t0
-            # the device's idle share during a packed init, profiled apart
-            t0 = time.perf_counter()
+            # packs cut across tenants, and the device's idle share
+            # during a packed init, profiled apart
+            mix_sample = metrics.runtime_pack_tenants.sample()[()]
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for h in submit_inits(sched, os.path.join(base, "prof"),
-                                      prof_ids, TENANT_LABELS // 2):
-                    h.result(timeout=600)
-                if on_card:
-                    torch.cuda.synchronize()
-            prof_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                mix_metas = [h.result(timeout=600) for h in submit_inits(
+                    sched, os.path.join(base, "mix"), mix_ids, MIX_LABELS)]
+                torch.cuda.synchronize()
+                mix_s = time.perf_counter() - t0
+            mix_after = metrics.runtime_pack_tenants.sample()[()]
         finally:
             sched.close()
         intervals = device_intervals(prof)
 
-        for key, n in launches.items():  # (a CPU rehearsal launches none)
-            require(n > 0 or not on_card, f"the tenants' path launched {key}")
+        for key, n in launches.items():
+            require(n > 0, f"the tenants' path launched {key}")
         for (tid, node, commit), meta in zip(ids, metas):
             require(meta.labels_written == TENANT_LABELS,
                     f"{tid}: packed init wrote every label")
@@ -963,21 +962,44 @@ def phase_tenants(ctx: dict) -> None:
             stored = stored_labels(os.path.join(base, "load", tid), meta)
             check_hashlib(commit, stored, sorted(rng.choice(
                 LOAD_LABELS, 8, replace=False).tolist()))
-        log(f"[tenants] {TENANTS} x {TENANT_LABELS} packed labels: 64 "
-            f"sampled per identity == hashlib.scrypt; every VRF nonce is "
-            f"its store's first minimum; the concurrent init's {TENANTS} x "
-            f"{LOAD_LABELS} labels: 8 sampled per identity == hashlib")
-        for tid, node, commit in ids[:2]:
-            d = os.path.join(base, f"solo-{tid}")
-            meta, _ = initializer.initialize(
-                d, node_id=node, commitment=commit, num_units=1,
-                labels_per_unit=TENANT_LABELS, scrypt_n=N_MAIN,
-                batch_size=INIT_BATCH, device=dev)
-            packed = metas[ids.index((tid, node, commit))]
-            require(store_digests(d) == store_digests(os.path.join(base, tid))
-                    and (meta.vrf_nonce, meta.vrf_nonce_value)
-                    == (packed.vrf_nonce, packed.vrf_nonce_value),
-                    f"{tid}: packed store sha256 == solo initialize()")
+        mix_tenants = ((mix_after[1] - mix_sample[1])
+                       / max(mix_after[2] - mix_sample[2], 1))
+        require(mix_tenants > 1, f"packs of {MIX_LABELS} labels per "
+                f"identity mix tenants ({mix_tenants:.2f} per pack)")
+        for (tid, node, commit), meta in zip(mix_ids, mix_metas):
+            require(meta.labels_written == MIX_LABELS,
+                    f"{tid}: the mixed packed init wrote every label")
+            stored = stored_labels(os.path.join(base, "mix", tid), meta)
+            check_hashlib(commit, stored, sorted(rng.choice(
+                MIX_LABELS, 64, replace=False).tolist()))
+            vrf = first_min(stored)
+            require(meta.vrf_nonce == vrf
+                    and bytes.fromhex(meta.vrf_nonce_value)
+                    == bytes(stored[vrf]),
+                    f"{tid}: mixed packs' VRF nonce is the stored first "
+                    "minimum")
+        log(f"[tenants] {TENANTS} x {TENANT_LABELS} packed labels and "
+            f"{TENANTS} x {MIX_LABELS} in packs of {mix_tenants:.2f} "
+            f"tenants: 64 sampled per identity == hashlib.scrypt; every VRF "
+            f"nonce is its store's first minimum; the concurrent init's "
+            f"{TENANTS} x {LOAD_LABELS} labels: 8 sampled per identity == "
+            f"hashlib")
+        for sub, pids, pmetas, labels in (("", ids, metas, TENANT_LABELS),
+                                          ("mix", mix_ids, mix_metas,
+                                           MIX_LABELS)):
+            for tid, node, commit in pids[:2]:
+                d = os.path.join(base, f"solo-{sub}{tid}")
+                meta, _ = initializer.initialize(
+                    d, node_id=node, commitment=commit, num_units=1,
+                    labels_per_unit=labels, scrypt_n=N_MAIN,
+                    batch_size=INIT_BATCH, device=dev)
+                packed = pmetas[pids.index((tid, node, commit))]
+                require(store_digests(d)
+                        == store_digests(os.path.join(base, sub, tid))
+                        and (meta.vrf_nonce, meta.vrf_nonce_value)
+                        == (packed.vrf_nonce, packed.vrf_nonce_value),
+                        f"{tid}: packed store ({labels} labels) sha256 == "
+                        "solo initialize()")
         settle()
         solo_proofs = []
         t0 = time.perf_counter()
@@ -1022,14 +1044,16 @@ def phase_tenants(ctx: dict) -> None:
         busy = busy_us(intervals) / 1e6
         span = (max(e for _, e in intervals)
                 - min(s for s, _ in intervals)) / 1e6
-        idle = (f"device busy {busy:.3f} s of a {span:.3f} s device span "
-                f"(idle share {1 - busy / span:.1%}), host wall "
-                f"{prof_s:.3f} s")
+        idle = (f"device busy {busy:.3f} s; idle share {1 - busy / mix_s:.1%} "
+                f"of the init's {mix_s:.3f} s wall (submit to the last "
+                f"store and a synchronize), {1 - busy / span:.1%} of the "
+                f"{span:.3f} s from the first device activity to the last")
     else:
         idle = "idle share not measured (the profiler recorded no device " \
                "activity)"
-    log(f"[tenants] profiled packed init of {TENANTS} x {TENANT_LABELS // 2} "
-        f"labels: {idle}")
+    log(f"[tenants] profiled packed init of {TENANTS} x {MIX_LABELS} "
+        f"labels ({mix_tenants:.2f} tenants per pack), "
+        f"{TENANTS * MIX_LABELS / mix_s:.0f} labels/s: {idle}")
     log(f"[tenants] {TENANTS} submit_prove == solo Prover proofs; latency "
         f"card idle: {quantiles(idle_lat)}; beside a packed init of "
         f"{TENANTS} x {LOAD_LABELS} labels submitted with them (done after "

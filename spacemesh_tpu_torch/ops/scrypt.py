@@ -13,8 +13,7 @@ the card, each with its plain twin on the CPU: PBKDF2-HMAC-SHA256 expand
 Block state is (32, B) int32 bit patterns, lanes trailing, as in the JAX
 package. The JAX package's autotune plan and chunked/row ROMix variants
 exist for XLA's per-shape compiles and the TPU race; this port has
-neither, and ragged batches run at their own size. :func:`shape_bucket`
-survives only as the multi-tenant scheduler's pack-width rounding.
+neither, and ragged batches run at their own size.
 """
 
 from __future__ import annotations
@@ -30,15 +29,6 @@ from .sha256 import byteswap32
 from .u32 import flip, s32
 
 LABEL_BYTES = 16  # reference: 16-byte labels, 2^32 per 64 GiB unit
-
-
-def shape_bucket(b: int) -> int:
-    """The next power of two at or above ``b`` (``b`` itself when it is
-    one): the JAX package's lane bucket, which the scheduler's pack width
-    keeps. Labels do not depend on it."""
-    if b <= 1:
-        return max(b, 1)
-    return 1 << (b - 1).bit_length()
 
 
 def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *,

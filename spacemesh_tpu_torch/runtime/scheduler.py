@@ -64,7 +64,6 @@ from . import engine, workloads
 
 DEFAULT_PACK_LANES = 4096  # the JAX package's pack width, kept on the CPU
 _DEADLINE_SLACK_S = 0.05   # jobs due within this window jump fair share
-_FIT_N = 8192              # the scrypt N the card's pack width is sized for
 
 
 class SchedulerClosed(RuntimeError):
@@ -211,12 +210,11 @@ class TenantScheduler:
     """Many identities, one device (module docstring).
 
     ``workers``        worker threads for prove/verify/pow/call quanta.
-    ``pack_lanes``     target lanes per packed init dispatch, rounded up to
-                       a power of two. Default: :data:`DEFAULT_PACK_LANES`
-                       on the CPU; on the card the Initializer's batch
-                       (32768), where ROMix runs at its full rate. On the
-                       card it is capped by the lanes whose V scratch fits
-                       the free memory at N=8192.
+    ``pack_lanes``     target lanes per packed init dispatch. Default:
+                       :data:`DEFAULT_PACK_LANES` on the CPU; on the card
+                       the Initializer's batch (32768), where ROMix runs at
+                       its full rate (ROMix splits a pack whose V scratch
+                       does not fit the free memory).
     ``inflight``       packed init dispatches in flight (engine window).
     ``gang_windows``   prove windows allowed on the device at once.
     ``writer_threads`` background writer threads per init job (0 = writes
@@ -239,20 +237,14 @@ class TenantScheduler:
                  autostart: bool = True,
                  time_source=time.monotonic,
                  device="cuda"):
-        from ..ops import scrypt
         from ..post import initializer
 
         self.device = resolve(device)
-        on_card = self.device.type == "cuda"
         if pack_lanes is None:
-            pack_lanes = (initializer.DEFAULT_BATCH if on_card
+            pack_lanes = (initializer.DEFAULT_BATCH
+                          if self.device.type == "cuda"
                           else DEFAULT_PACK_LANES)
-        self.pack_lanes = max(scrypt.shape_bucket(int(pack_lanes)), 1)
-        if on_card:
-            from ..ops import romix_cuda
-
-            self.pack_lanes = min(self.pack_lanes, romix_cuda.lanes_that_fit(
-                _FIT_N, self.device))
+        self.pack_lanes = max(int(pack_lanes), 1)
         self.inflight = max(int(inflight), 1)
         self.writer_threads = int(writer_threads)
         self.pack_linger_s = max(float(pack_linger_s), 0.0)
@@ -404,8 +396,8 @@ class TenantScheduler:
             # through finalize: the job's writer and store close with it
             job.error = job.error or exc
             self._finalize_init(job)
-        # after the resolutions, which count into these series (the JAX
-        # package removes them first, and the failed jobs add them back)
+        # the resolutions above count nothing into these series (the JAX
+        # package's failed jobs add them back after it removes them)
         metrics.runtime_tenant_queued.remove(tenant=tid)
         for inst in (metrics.runtime_tenant_jobs,
                      metrics.runtime_tenant_labels,
@@ -595,16 +587,17 @@ class TenantScheduler:
             # unregistered and registered again is a fresh count (the JAX
             # package decrements whatever holds the id now, taking the new
             # tenant's count below zero)
-            t = self._tenants.get(handle.tenant)
-            if t is job.tenant:
-                t.queued_jobs -= 1
-                metrics.runtime_tenant_queued.set(t.queued_jobs,
-                                                  tenant=t.id)
+            live = self._tenants.get(handle.tenant) is job.tenant
+            if live:
+                job.tenant.queued_jobs -= 1
+                metrics.runtime_tenant_queued.set(job.tenant.queued_jobs,
+                                                  tenant=handle.tenant)
             self._idle.notify_all()
         state = ("cancelled" if cancelled
                  else "failed" if error is not None else "done")
-        metrics.runtime_tenant_jobs.inc(tenant=handle.tenant,
-                                        kind=handle.kind, state=state)
+        if live:  # an unregistered tenant's series stay removed
+            metrics.runtime_tenant_jobs.inc(tenant=handle.tenant,
+                                            kind=handle.kind, state=state)
         if state != "done" and isinstance(job, _Job) \
                 and job.abort is not None:
             try:
@@ -677,13 +670,19 @@ class TenantScheduler:
             if job.gang:
                 self._gang.release()
             dt = time.perf_counter() - t0
-            metrics.runtime_quantum_seconds.inc(dt, kind=job.kind,
-                                                tenant=job.tenant.id)
             with self._lock:
+                # unregistered while this quantum ran: the detached tenant
+                # is never picked again (the JAX package requeues onto it,
+                # stranding the handle and a prove job's open session)
+                live = self._tenants.get(job.tenant.id) is job.tenant
+                if live:
+                    metrics.runtime_quantum_seconds.inc(
+                        dt, kind=job.kind, tenant=job.tenant.id)
                 job.tenant.charge(dt)
                 job.tenant.running -= 1
                 requeue = (outcome == "continue" and error is None
-                           and not job.cancelled and not self._closed)
+                           and not job.cancelled and not self._closed
+                           and live)
                 if requeue:
                     # a multi-quantum job goes on ahead of its tenant's
                     # later jobs; fair share decides across tenants
@@ -696,9 +695,11 @@ class TenantScheduler:
             elif outcome == "done":
                 self._resolve(job, result=result)
             elif not requeue:
-                # dropped at close mid-job: the handle must not strand
+                # dropped at close or unregister mid-job: the handle must
+                # not strand, and abort() closes what the job holds
                 self._resolve(job, error=SchedulerClosed(
-                    "scheduler closed"))
+                    "scheduler closed" if self._closed
+                    else f"tenant {job.tenant.id} unregistered"))
 
     # -- the init packer ------------------------------------------------
 
@@ -840,8 +841,9 @@ class TenantScheduler:
                     st.write_s += tm - tw
                     st.fold_s += time.perf_counter() - tm
                     job.written = max(job.written, s.start + s.count)
-                    metrics.runtime_tenant_labels.inc(
-                        s.count, tenant=job.tenant.id)
+                    if self._tenants.get(job.tenant.id) is job.tenant:
+                        metrics.runtime_tenant_labels.inc(
+                            s.count, tenant=job.tenant.id)
                     if job.progress is not None:
                         job.progress(job.written, job.total)
             except Exception as exc:  # noqa: BLE001 — fail this job, not the pack
