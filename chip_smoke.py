@@ -57,10 +57,25 @@ package. Phases, each printed as it runs:
    ``submit_verify`` of the 16 proofs and a tampered one; 16 ``submit_pow``
    equal to ``ops.pow.search``. The kernels' launch counts are zeroed
    before the packed init and proves and read after;
-8. a JSON line of per-kernel launches, times and bounds, each time taken
+8. [verifyd] verification as a service, BASELINE's "batch of 10k NIPoST
+   proofs" at N=8192 and mainnet k1/k2/k3: 10240 POST requests over the
+   ``[tenants]`` identities (each proof with another valid k2pow witness
+   per request, one in 8 with an index swapped for a non-qualifying one)
+   and 152 sig/vrf/membership/pow items, from 4 clients through
+   ``VerifydService.verify`` on the card with the service's defaults;
+   every verdict held to ``post.verifier.verify`` one item per call on
+   the card, honest True and tampered False, 32 sampled labels of the
+   farm's recomputes against hashlib; proofs verified/s beside the serial
+   rate of a 256-proof sample, request latency p50/p99, batches and
+   occupancy, each POST dispatch's split (host stages, the three kernels'
+   device time, the eager proving hash, the pow kind), the device's idle
+   share over a profiled repeat of the load, peak memory. The kernels'
+   launch counts are zeroed before the bare run and read after it;
+9. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``, the PBKDF2 pair's packed-init
-   shape under ``perlane``).
+   shape under ``perlane``), with each later path's launches beside the
+   main path's (``tenants_launches``, ``verifyd_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Labels per unit are cut from mainnet's 2^32 to 2^20
@@ -70,6 +85,7 @@ limit; N, the label width and k1/k2/k3 are not cut.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -101,6 +117,13 @@ LOAD_LABELS = 1 << 18    # per identity of the init the proves run beside
 # per identity of the profiled packed init: not a multiple of the pack
 # width, so packs are cut across tenants at the main path's shape
 MIX_LABELS = TENANT_LABELS // 2 + TENANT_LABELS // 8
+# [verifyd]: BASELINE's "batch of 10k NIPoST proofs" through the service
+VERIFYD_POSTS = 10240     # POST requests (at least 10,000), 640 per identity
+VERIFYD_CLIENTS = 4
+VERIFYD_REQUEST = 256     # POST items per request (one full farm batch)
+VERIFYD_TAMPERED = 8      # one request in 8 carries a swapped index
+VERIFYD_SEED = hashlib.sha256(b"chip-smoke-verifyd-k3-seed").digest()
+SERIAL_SAMPLE = 256       # inline verifies timed for the serial rate
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLI = [sys.executable, "-m", "spacemesh_tpu_torch.post"]
 
@@ -1069,7 +1092,348 @@ def phase_tenants(ctx: dict) -> None:
         launches=launches, solo_rate=solo_rate, packed_rate=packed_rate,
         ratio=ratio, narrow_rate=total / narrow_s, peak_bytes=peak,
         pack_stats=ps.as_dict(), tenants_per_pack=tenants_per_pack,
-        idle_lat=idle_lat, load_lat=load_lat)
+        idle_lat=idle_lat, load_lat=load_lat,
+        # the identities and their proofs, which [verifyd] verifies
+        ids=ids, proofs=proofs, challenge=challenge)
+
+
+def pow_witnesses(challenge: bytes, node: bytes, difficulty: bytes,
+                  count: int) -> list:
+    """The ``count`` smallest valid k2pow nonces of (challenge, node): one
+    batched hash over the first 2^18 nonces on the card, each hit checked
+    with hashlib. A proof with another valid witness is another honest,
+    distinct request with the same device work."""
+    import numpy as np
+    from spacemesh_tpu_torch.ops import pow as k2pow
+    from spacemesh_tpu_torch.ops import u32
+
+    dev = "cuda"
+    nonces = np.arange(1 << 18, dtype=np.uint64)
+    lo = u32.from_numpy((nonces & 0xFFFFFFFF).astype(np.uint32), dev)
+    hi = u32.from_numpy((nonces >> 32).astype(np.uint32), dev)
+    st = u32.from_numpy(k2pow.prefix_state(challenge, node), dev)
+    tgt = u32.from_numpy(np.frombuffer(difficulty, dtype=">u4")
+                         .astype(np.uint32), dev)
+    hits = np.nonzero(k2pow.below_targets(
+        k2pow.pow_hash_batch(st, lo, hi), tgt).cpu().numpy())[0]
+    found = [int(n) for n in hits[:count]]
+    require(len(found) == count, f"{count} k2pow witnesses in 2^18 nonces")
+    for n in found:
+        require(k2pow.verify(challenge, node, difficulty, n),
+                f"witness {n} passes hashlib")
+    return found
+
+
+def verifyd_load(ctx: dict) -> tuple:
+    """The phase's requests: ``VERIFYD_POSTS`` POST requests over the
+    ``[tenants]`` identities (each honest proof with another valid k2pow
+    witness per request; one in ``VERIFYD_TAMPERED`` with an index swapped
+    for a non-qualifying one), shuffled; and a mixed workload of the other
+    kinds. Returns (posts, tampered flags, mixed workload)."""
+    import random
+
+    from spacemesh_tpu_torch.ops import proving
+    from spacemesh_tpu_torch.post import prover, verifier
+    from spacemesh_tpu_torch.verify import workload
+    from spacemesh_tpu_torch.verify.farm import PostRequest
+
+    t = ctx["tenants"]
+    params = prover.ProofParams()
+    per_id = VERIFYD_POSTS // len(t["ids"])
+    honest_per_id = per_id - per_id // VERIFYD_TAMPERED
+    thr = proving.threshold_u32(params.k1, TENANT_LABELS)
+    posts, flags = [], []
+    for (_, node, commit), proof in zip(t["ids"], t["proofs"]):
+        witnesses = pow_witnesses(t["challenge"], node, params.pow_difficulty,
+                                  honest_per_id)
+        require(proof.pow_nonce in witnesses, "the proof's own witness is "
+                "among the smallest valid ones")
+        bad = dataclasses.replace(proof, indices=list(proof.indices))
+        bad.indices[0] = replacement_index(proof, commit, t["challenge"], thr,
+                                           TENANT_LABELS)
+        for j in range(per_id):
+            tampered = j >= honest_per_id
+            pr = dataclasses.replace(bad if tampered else proof,
+                                     pow_nonce=witnesses[j % honest_per_id])
+            posts.append(PostRequest(verifier.VerifyItem(
+                proof=pr, challenge=t["challenge"], node_id=node,
+                commitment=commit, scrypt_n=N_MAIN,
+                total_labels=TENANT_LABELS)))
+            flags.append(tampered)
+    order = list(range(len(posts)))
+    random.Random(11).shuffle(order)
+    posts = [posts[i] for i in order]
+    flags = [flags[i] for i in order]
+    require(len({r.key() for r in posts}) == len(posts),
+            "every POST request is distinct (no dedup)")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mix-") as d:
+        mix = workload.build(d, sigs=64, vrfs=8, posts=0, memberships=16,
+                             pows=64)
+    return posts, flags, mix
+
+
+async def drive_verifyd(svc, posts: list, mix) -> tuple:
+    """Every request through ``VerifydService.verify`` from
+    ``VERIFYD_CLIENTS`` clients at once: the POST load in requests of
+    ``VERIFYD_REQUEST`` items round-robin over the clients, and one
+    request per other kind. Returns (POST verdicts, mixed verdicts, each
+    request's latency in seconds, wall seconds)."""
+    import asyncio
+
+    from spacemesh_tpu_torch.verify.farm import Lane
+
+    clients = [f"node{c}" for c in range(VERIFYD_CLIENTS)]
+    chunks = [posts[i:i + VERIFYD_REQUEST]
+              for i in range(0, len(posts), VERIFYD_REQUEST)]
+    by_kind: dict = {}
+    for i, r in enumerate(mix.requests):
+        by_kind.setdefault(r.kind, []).append(i)
+    lat = []
+
+    async def one(cid, reqs):
+        t0 = time.perf_counter()
+        got = await svc.verify(cid, reqs, lane=Lane.GOSSIP)
+        lat.append(time.perf_counter() - t0)
+        return got
+
+    t0 = time.perf_counter()
+    post_out = asyncio.gather(*(one(clients[k % len(clients)], c)
+                                for k, c in enumerate(chunks)))
+    mix_out = asyncio.gather(*(one(clients[k % len(clients)],
+                                   [mix.requests[i] for i in idx])
+                               for k, idx in enumerate(by_kind.values())))
+    post_v, mix_v = await asyncio.gather(post_out, mix_out)
+    wall = time.perf_counter() - t0
+    verdicts = [v for part in post_v for v in part]
+    mixed = [None] * len(mix.requests)
+    for idx, part in zip(by_kind.values(), mix_v):
+        for i, v in zip(idx, part):
+            mixed[i] = v
+    return verdicts, mixed, lat, wall
+
+
+def run_verifyd(posts: list, mix, profile: bool) -> dict:
+    """One fresh ``VerifydService`` on the card with its defaults (the
+    farm's batches of 256, 4 in flight, 4 scheduler workers) serving the
+    load; each client registered with a rate above the load. With
+    ``profile``, under ``torch.profiler`` (the device split and idle
+    share); else timed bare. Returns the verdicts and measurements."""
+    import asyncio
+
+    import torch
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.utils import metrics
+    from spacemesh_tpu_torch.verifyd import VerifydService
+
+    async def go():
+        svc = VerifydService(post_params=prover.ProofParams(),
+                             post_seed=VERIFYD_SEED)
+        try:
+            await svc.start()
+            for c in range(VERIFYD_CLIENTS):
+                svc.register_client(f"node{c}", rate=1e9, burst=1e9)
+            out = await drive_verifyd(svc, posts, mix)
+            return out, svc.farm
+        finally:
+            await svc.aclose()
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile else None
+    d0 = metrics.verify_farm_dispatch_seconds.sample()
+    with prof or contextlib.nullcontext():
+        (verdicts, mixed, lat, wall), farm = asyncio.run(go())
+        torch.cuda.synchronize()
+    per_kind = {}
+    for key, (_, total_s, n) in metrics.verify_farm_dispatch_seconds \
+            .sample().items():
+        _, s0, n0 = d0.get(key, (None, 0.0, 0))
+        if n - n0:
+            per_kind[dict(key)["kind"]] = dict(batches=n - n0,
+                                               dispatch_s=total_s - s0)
+    return dict(verdicts=verdicts, mixed=mixed, lat=lat, wall=wall,
+                post_timing=dict(farm.post_timing), per_kind=per_kind,
+                farm=dict(farm.stats), prof=prof)
+
+
+def serial_verdicts(posts: list) -> tuple:
+    """``post.verifier.verify`` one item per call on the card with the
+    service's K3 seed, in one thread (the eager proving hash holds the
+    interpreter lock, so threads do not overlap these calls). Returns
+    (verdicts, seconds of the first ``SERIAL_SAMPLE``)."""
+    import torch
+    from spacemesh_tpu_torch.post import prover, verifier
+
+    params = prover.ProofParams()
+    out = []
+    t0 = time.perf_counter()
+    for i, r in enumerate(posts):
+        if i == SERIAL_SAMPLE:
+            torch.cuda.synchronize()
+            sample_s = time.perf_counter() - t0
+        out.append(verifier.verify(r.item, params, seed=VERIFYD_SEED))
+    return out, sample_s
+
+
+def phase_verifyd(ctx: dict) -> None:
+    import importlib.util
+
+    import torch
+    from spacemesh_tpu_torch.core import signing
+    from spacemesh_tpu_torch.ops import scrypt as tscrypt
+    from spacemesh_tpu_torch.tools.measure import busy_us, device_intervals
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_setup = time.perf_counter()
+    posts, flags, mix = verifyd_load(ctx)
+    setup_s = time.perf_counter() - t_setup
+    # the labels of the farm's recomputes, sampled where the verifier
+    # calls the label pipeline: the first and last lane of each call
+    real_multi = tscrypt.scrypt_labels_multi
+    taps = []
+
+    def tap(commitments, indices, *, n=8192, device="cuda"):
+        out = real_multi(commitments, indices, n=n, device=device)
+        for i in (0, len(indices) - 1):
+            taps.append((bytes(commitments[i]), int(indices[i]), n,
+                         bytes(out[i])))
+        return out
+
+    tscrypt.scrypt_labels_multi = tap
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        # a fresh service each time: the first pays each stream's first
+        # scratch allocations, the second runs warm
+        cold = run_verifyd(posts, mix, profile=False)
+        bare = run_verifyd(posts, mix, profile=False)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
+        profiled = run_verifyd(posts, mix, profile=True)
+    finally:
+        tscrypt.scrypt_labels_multi = real_multi
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serial, sample_s = serial_verdicts(posts)
+    serial_s = time.perf_counter() - t0
+    mix_inline = mix.inline_all()
+
+    for name, run in (("cold", cold), ("warm", bare),
+                      ("profiled", profiled)):
+        require(run["verdicts"] == serial, f"{name} run: every POST verdict "
+                "== the serial inline verdict on the card")
+        require(run["mixed"] == mix_inline, f"{name} run: sig/vrf/membership"
+                "/pow verdicts == inline")
+    require(serial == [not f for f in flags],
+            "honest requests True, tampered ones False")
+    require(0 < sum(mix_inline) < len(mix_inline), "the mix is mixed")
+    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish"):
+        require(launches[key] > 0, f"the verifyd path launched {key}")
+    picks = taps[::max(len(taps) // 32, 1)][:32]
+    check_taps(picks)
+
+    branch = ("OpenSSL" if signing._HAVE_CRYPTOGRAPHY else "the "
+              "pure-Python path (no cryptography here): the sig kind runs "
+              "the Pippenger batch check")
+    wire = ", ".join(
+        f"{m} {'imports' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("aiohttp", "grpc"))
+    n_posts = len(posts)
+    lat = sorted(bare["lat"])
+    rate = n_posts / bare["wall"]
+    serial_rate = SERIAL_SAMPLE / sample_s
+    pk = bare["per_kind"]
+    post_b = pk["post"]["batches"]
+    n_ids = len(ctx["tenants"]["ids"])
+    log(f"[verifyd] load: {n_posts} POST requests over {n_ids}"
+        f" identities ({sum(flags)} tampered), N={N_MAIN}, k1/k2/k3 "
+        f"mainnet, from {VERIFYD_CLIENTS} clients in requests of "
+        f"{VERIFYD_REQUEST}, plus {len(mix.requests)} sig/vrf/membership/"
+        f"pow items; made in {setup_s:.2f} s; ed25519 through {branch}; "
+        f"for the server: {wire}")
+    log(f"[verifyd] {rate:.0f} proofs verified/s through VerifydService "
+        f"({n_posts} in {bare['wall']:.3f} s, warm run; the cold run before "
+        f"it {n_posts / cold['wall']:.0f}/s, the profiled run after it "
+        f"{n_posts / profiled['wall']:.0f}/s); serial inline "
+        f"post.verifier.verify of a {SERIAL_SAMPLE}-proof sample "
+        f"{serial_rate:.1f} proofs/s ({rate / serial_rate:.1f}x); all "
+        f"{n_posts} serial verdicts in {serial_s:.1f} s")
+    log(f"[verifyd] request latency (admission to verdicts, "
+        f"{len(lat)} requests): p50 {statistics.median(lat):.3f} s, p99 "
+        f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.3f} s, max "
+        f"{lat[-1]:.3f} s")
+    log(f"[verifyd] batches per kind: " + ", ".join(
+        f"{k} {v['batches']}" for k, v in sorted(pk.items()))
+        + f"; POST mean occupancy {n_posts / post_b:.1f} of 256; all kinds "
+        f"{bare['farm']['items']} items in {bare['farm']['batches']} batches,"
+        f" max occupancy {bare['farm']['max_occupancy']}")
+    whole = pk["post"]["dispatch_s"] / post_b * 1e3
+    log(f"[verifyd] POST dispatch split, host ms per batch (warm run; "
+        f"batches overlap, up to 4 at once): " + ", ".join(
+            f"{k} {v / post_b * 1e3:.2f} ({v / post_b * 1e3 / whole:.0%})"
+            for k, v in bare["post_timing"].items())
+        + f"; whole dispatch {whole:.2f} ms. prep: structure, k2pow, K3 and "
+        f"the per-lane arrays; labels: the three kernels and the labels' "
+        f"copy to the host; hash: the eager proving hash with its copies")
+    n_pow = sum(r.kind == "pow" for r in mix.requests)
+    log("[verifyd] pow kind: " + ", ".join(
+        f"{name} run {r['per_kind']['pow']['dispatch_s'] * 1e3:.1f} ms in "
+        f"{r['per_kind']['pow']['batches']} batch(es)" for name, r in (
+            ("cold", cold), ("warm", bare), ("profiled", profiled))
+        if "pow" in r["per_kind"]) + f" for {n_pow} witnesses (eager "
+        f"SHA-256 beside the POST batches)")
+    prof = profiled["prof"]
+    intervals = device_intervals(prof)
+    kern = {"romix": 0.0, "expand_kernel": 0.0, "finish_kernel": 0.0}
+    total_us = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        total_us += e.time_range.elapsed_us()
+        for k in kern:
+            if k in e.name:
+                kern[k] += e.time_range.elapsed_us()
+    pb = profiled["per_kind"]["post"]["batches"]
+    log(f"[verifyd] device time per POST batch (profiled run, {pb} "
+        f"batches): ROMix {kern['romix'] / pb / 1e3:.2f} ms, PBKDF2 expand "
+        f"{kern['expand_kernel'] / pb / 1e3:.3f} ms, finish "
+        f"{kern['finish_kernel'] / pb / 1e3:.3f} ms; every other device "
+        f"activity (the proving hash's and the pow kind's eager kernels, "
+        f"copies) {(total_us - sum(kern.values())) / 1e3:.1f} ms in all")
+    if intervals:
+        busy = busy_us(intervals) / 1e6
+        idle = (f"device busy {busy:.3f} s, idle share "
+                f"{1 - busy / profiled['wall']:.1%} of the profiled run's "
+                f"{profiled['wall']:.3f} s wall")
+    else:
+        idle = "idle share not measured (no device activity recorded)"
+    log(f"[verifyd] {idle}; peak device memory over the cold and warm "
+        f"runs: allocated {peak / 2**30:.2f} GiB, reserved by the caching "
+        f"allocator {peak_reserved / 2**30:.2f} GiB")
+    log(f"[verifyd] {len(picks)} sampled labels of the farm's recomputes == "
+        f"hashlib.scrypt; every verdict == serial inline; launches "
+        f"{json.dumps(launches)}")
+    log(f"[verifyd] {ctx['smi']}")
+    ctx["verifyd"] = dict(launches=launches)
+
+
+def check_taps(picks: list) -> None:
+    """Sampled (commitment, index, N, label) of the farm's recomputes
+    against hashlib.scrypt, in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def want(p):
+        commit, idx, n, _ = p
+        return hashlib.scrypt(commit, salt=idx.to_bytes(8, "little"), n=n,
+                              r=1, p=1, dklen=16)
+
+    require(len(picks) >= 8, f"sampled {len(picks)} recomputed labels")
+    with ThreadPoolExecutor(8) as pool:
+        for p, w in zip(picks, pool.map(want, picks)):
+            require(p[3] == w, f"recomputed label {p[1]} == hashlib.scrypt")
 
 
 def v_alloc_ms() -> float:
@@ -1150,6 +1514,7 @@ def main() -> int:
     phase_main_path(ctx)
     phase_worker(ctx)
     phase_tenants(ctx)
+    phase_verifyd(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
              "scan": {"full_width": {k: ctx["scan_full"][k] for k in (
@@ -1160,6 +1525,7 @@ def main() -> int:
                  "kernel_ms", "perlane", "ragged")}}
     for key in extra:
         extra[key]["tenants_launches"] = ctx["tenants"]["launches"][key]
+        extra[key]["verifyd_launches"] = ctx["verifyd"]["launches"][key]
     envelope = ("spacemesh_tpu/ops/scrypt.py:440 (XLA-fused envelope, no "
                 "Pallas kernel)")
     kernels = []

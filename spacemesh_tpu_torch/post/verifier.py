@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import time
 
 import numpy as np
 
@@ -47,12 +48,19 @@ def _k3_subset(item: VerifyItem, k3: int, seed: bytes) -> list[int]:
 
 
 def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
-                seed: bytes | None = None, device="cuda") -> list[bool]:
+                seed: bytes | None = None, device="cuda",
+                timing: dict | None = None) -> list[bool]:
     """Verify a batch of proofs; returns per-proof validity.
 
     ``seed`` keys the K3 spot-check subset; by default a fresh random seed
-    is drawn per call. Pass one only for reproducible verification."""
+    is drawn per call. Pass one only for reproducible verification.
+    ``timing``, when given, gains the host seconds of each stage: ``prep``
+    (structure, k2pow and K3 checks, the per-lane arrays), ``labels`` (the
+    label recompute: three kernel launches on the card, and the labels'
+    copy to the host), ``hash`` (the eager proving hash, its copies in and
+    out) and ``check`` (the thresholds)."""
     dev = resolve(device)
+    t0 = time.perf_counter()
     p = params or ProofParams()
     if seed is None:
         seed = os.urandom(32)
@@ -74,6 +82,7 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
             flat_idx.append(j)
             flat_owner.append(i)
     if not flat_idx:
+        _lap(timing, "prep", t0)
         return results
 
     # 2) one label recompute + proving-hash pass per scrypt N (usually 1)
@@ -86,10 +95,12 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
     nonces = np.array([items[o].proof.nonce for o in flat_owner],
                       dtype=np.uint32)
     values = np.empty(len(idx), dtype=np.uint32)
+    t0 = _lap(timing, "prep", t0)
     for n in sorted({items[o].scrypt_n for o in flat_owner}):
         sel = np.array([items[o].scrypt_n == n for o in flat_owner])
         labels = scrypt.scrypt_labels_multi(commits[sel], idx[sel], n=n,
                                             device=dev)
+        t0 = _lap(timing, "labels", t0)
         lo, hi = scrypt.split_indices(idx[sel])
         vals = proving.proving_hash(
             u32.from_numpy(chals[:, sel], dev),
@@ -97,13 +108,23 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
             u32.from_numpy(hi, dev),
             u32.from_numpy(scrypt.labels_to_words(labels), dev))
         values[sel] = u32.to_numpy(vals)
+        t0 = _lap(timing, "hash", t0)
 
     # 3) threshold check per item
     thr = np.array([proving.threshold_u32(p.k1, items[o].total_labels)
                     for o in flat_owner], dtype=np.uint64)
     for o in set(owners[values >= thr].tolist()):
         results[o] = False
+    _lap(timing, "check", t0)
     return results
+
+
+def _lap(timing: dict | None, stage: str, t0: float) -> float:
+    """Add the seconds since ``t0`` to ``timing[stage]``; the time now."""
+    now = time.perf_counter()
+    if timing is not None:
+        timing[stage] = timing.get(stage, 0.0) + (now - t0)
+    return now
 
 
 def verify(item: VerifyItem, params: ProofParams | None = None,

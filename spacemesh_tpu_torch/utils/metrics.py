@@ -279,3 +279,62 @@ runtime_quantum_seconds = REGISTRY.counter(
 runtime_deadline_boosts = REGISTRY.counter(
     "runtime_deadline_boosts_total",
     "quanta admitted by deadline (EDF) ahead of fair-share order")
+
+# verification farm (verify/farm.py): the micro-batching admission service
+# for signatures / VRFs / POST proofs / poet membership / k2pow witnesses.
+verify_farm_requests = REGISTRY.counter(
+    "verify_farm_requests_total",
+    "verification requests submitted (labels: kind, lane)")
+verify_farm_dedup_hits = REGISTRY.counter(
+    "verify_farm_dedup_hits_total",
+    "requests coalesced onto an identical in-flight request")
+verify_farm_batches = REGISTRY.counter(
+    "verify_farm_batches_total", "batches dispatched (label: kind)")
+verify_farm_batch_occupancy = REGISTRY.histogram(
+    "verify_farm_batch_occupancy", "requests per dispatched batch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, float("inf")))
+verify_farm_dispatch_seconds = REGISTRY.histogram(
+    "verify_farm_dispatch_seconds",
+    "backend seconds per batch (label: kind)",
+    buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, float("inf")))
+verify_farm_queue_depth = REGISTRY.gauge(
+    "verify_farm_queue_depth", "pending requests (label: lane)")
+verify_farm_queue_wait_seconds = REGISTRY.histogram(
+    "verify_farm_queue_wait_seconds",
+    "submit -> batch-take queue wait seconds (label: kind)",
+    buckets=(0.001, 0.003, 0.01, 0.05, 0.25, 1.0, 10.0, float("inf")))
+
+# verifyd (verifyd/): every per-client series is REMOVED on unregister and
+# the client population is bounded by the service's max_clients, so a
+# connect-flood cannot grow the registry without bound.
+verifyd_clients = REGISTRY.gauge(
+    "verifyd_clients", "registered verifyd clients")
+verifyd_client_pending = REGISTRY.gauge(
+    "verifyd_client_pending_items",
+    "admitted items in flight per client (label: client)")
+verifyd_pending = REGISTRY.gauge(
+    "verifyd_pending_items", "admitted items in flight, all clients")
+verifyd_requests = REGISTRY.counter(
+    "verifyd_requests_total",
+    "verification requests by outcome (labels: client, outcome)")
+verifyd_items = REGISTRY.counter(
+    "verifyd_items_total",
+    "verification items admitted (labels: client, kind)")
+verifyd_shed = REGISTRY.counter(
+    "verifyd_shed_total",
+    "requests shed with a typed reason (labels: client, reason)")
+verifyd_request_seconds = REGISTRY.histogram(
+    "verifyd_request_seconds",
+    "admitted request latency, admission to verdicts (label: lane)",
+    buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0, float("inf")))
+verifyd_batchtune_races = REGISTRY.counter(
+    "verifyd_batchtune_races_total",
+    "batch-size calibration races run (persisted-rates cache misses)")
+
+# circuit breakers (obs/remediate.py) around the farm's per-kind backends
+remediation_breaker_state = REGISTRY.gauge(
+    "remediation_breaker_state",
+    "0 closed, 1 open, 2 half-open, 3 quarantined (label: component)")
+remediation_breaker_transitions = REGISTRY.counter(
+    "remediation_breaker_transitions_total",
+    "breaker state transitions (labels: component, to)")

@@ -1,0 +1,315 @@
+"""verifyd network front-end: JSON-over-HTTP + gRPC admission surface
+(port of ``spacemesh_tpu/verifyd/server.py``, the same routes and docs).
+
+aiohttp routes (hex-encoded bytes, typed 4xx bodies, /metrics +
+/healthz + /readyz) and a hand-wired grpc.aio service: the four methods
+are registered with ``method_handlers_generic_handler`` and carry the
+SAME JSON docs as message bytes — one codec, two transports
+(verifyd/protocol.py). aiohttp is imported here and only here; grpc only
+when the gRPC surface starts, so nothing else of the port needs either.
+
+Routes:
+
+  POST /v1/client/register    {"client", "weight"?, "rate"?, "burst"?,
+                               "max_queued"?, "max_inflight"?}
+  POST /v1/client/unregister  {"client"}
+  POST /v1/verify             {"client", "lane"?, "deadline_s"?,
+                               "items": [request docs]}
+                              -> {"status": "OK", "verdicts": [bool]}
+                              |  429/503 {"status": "SHED", ...}
+  GET  /v1/stats              service + farm + tuner counters
+  GET  /v1/tune               measured batch-rate model rows
+  GET  /metrics               Prometheus exposition
+  GET  /healthz, /readyz      liveness / per-component readiness
+                              (the HEALTH registry's probes)
+
+Shed mapping: admission rejections are HTTP 429 (overload family) or
+503 (``shutting_down``) with the typed doc — a client always learns WHY
+and when to retry.  gRPC returns the same doc with 200-style status
+(the doc's ``status`` field discriminates), so both transports shed
+loudly and identically.
+
+Left out against the JAX package, for the instrumentation item of the
+port: the ``/debug/trace/*`` capture routes, the SLO health engine behind
+``/readyz`` (readiness here is every registered probe healthy), and the
+federated series of ``/metrics``; a ``trace_parent`` field in a verify
+body is ignored.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+
+from aiohttp import web
+
+from ..utils.metrics import REGISTRY
+from . import protocol
+from .service import Shed, VerifydClosed, VerifydService
+
+_GRPC_SERVICE = "spacemesh.verifyd.Verifyd"
+
+# HTTP status per shed reason: 503 only for a terminal condition the
+# client should fail over from; everything else is retryable 429
+_SHED_STATUS = {
+    protocol.SHED_SHUTTING_DOWN: 503,
+    protocol.SHED_UNREGISTERED: 403,
+    protocol.SHED_REGISTRY_FULL: 429,
+}
+
+
+def _shed_response(exc: Shed) -> web.Response:
+    return web.json_response(exc.to_doc(),
+                             status=_SHED_STATUS.get(exc.reason, 429))
+
+
+class VerifydServer:
+    """Sockets around a :class:`VerifydService`.
+
+    ``listen`` is the HTTP bind ("host:port", port 0 picks); pass
+    ``grpc_listen`` to also serve the gRPC surface (None disables, and
+    a missing grpcio disables it with a log line rather than an import
+    error).  Always close in a ``finally`` — ``close()`` drains the
+    service before the sockets go away.
+    """
+
+    def __init__(self, service: VerifydService | None = None,
+                 listen: str = "127.0.0.1:0",
+                 grpc_listen: str | None = None, **service_kw):
+        self.service = service if service is not None \
+            else VerifydService(**service_kw)
+        host, _, port = listen.rpartition(":")
+        self.host = host or "127.0.0.1"
+        self.port = int(port or 0)
+        self.grpc_listen = grpc_listen
+        self.web_app = web.Application()
+        self._routes()
+        self.runner: web.AppRunner | None = None
+        self.actual_port: int | None = None
+        self.grpc_port: int | None = None
+        self._grpc_server = None
+        self._closed = False
+
+    def _routes(self) -> None:
+        r = self.web_app.router
+        r.add_post("/v1/client/register", self.client_register)
+        r.add_post("/v1/client/unregister", self.client_unregister)
+        r.add_post("/v1/verify", self.verify)
+        r.add_get("/v1/stats", self.stats)
+        r.add_get("/v1/tune", self.tune)
+        r.add_get("/metrics", self.metrics)
+        r.add_get("/healthz", self.healthz)
+        r.add_get("/readyz", self.readyz)
+
+    # -- lifecycle ------------------------------------------------------
+
+    async def start(self) -> int:
+        """Start the service and both listeners; returns the HTTP port
+        (``grpc_port`` is set when gRPC is enabled)."""
+        await self.service.start()
+        self.runner = web.AppRunner(self.web_app)
+        await self.runner.setup()
+        site = web.TCPSite(self.runner, self.host, self.port)
+        await site.start()
+        self.actual_port = site._server.sockets[0].getsockname()[1]
+        if self.grpc_listen is not None:
+            await self._start_grpc()
+        return self.actual_port
+
+    async def _start_grpc(self) -> None:
+        try:
+            import grpc
+        except ImportError:
+            import sys
+
+            print("verifyd: grpcio unavailable; gRPC surface disabled",
+                  file=sys.stderr)
+            return
+
+        def handler(method):
+            async def unary(request_doc, context):
+                del context
+                return await method(request_doc)
+
+            return grpc.unary_unary_rpc_method_handler(
+                unary,
+                request_deserializer=lambda b: json.loads(b or b"{}"),
+                response_serializer=lambda d: json.dumps(d).encode())
+
+        generic = grpc.method_handlers_generic_handler(_GRPC_SERVICE, {
+            "Register": handler(self._grpc_register),
+            "Unregister": handler(self._grpc_unregister),
+            "Verify": handler(self._grpc_verify),
+            "Stats": handler(self._grpc_stats),
+        })
+        server = grpc.aio.server()
+        server.add_generic_rpc_handlers((generic,))
+        self.grpc_port = server.add_insecure_port(self.grpc_listen)
+        await server.start()
+        self._grpc_server = server
+
+    async def close(self) -> None:
+        """Drain the service, then tear the sockets down. Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        await self.service.aclose()
+        if self._grpc_server is not None:
+            await self._grpc_server.stop(grace=1.0)
+            self._grpc_server = None
+        if self.runner is not None:
+            await self.runner.cleanup()
+            self.runner = None
+
+    # -- shared handler bodies ------------------------------------------
+
+    def _do_register(self, body: dict) -> dict:
+        if not isinstance(body, dict) or "client" not in body:
+            raise protocol.ProtocolError('expected {"client": id, ...}')
+        kwargs = {}
+        for field, conv in (("weight", float), ("rate", float),
+                            ("burst", float), ("max_queued", int),
+                            ("max_inflight", int)):
+            if body.get(field) is not None:
+                try:
+                    kwargs[field] = conv(body[field])
+                except (TypeError, ValueError):
+                    raise protocol.ProtocolError(
+                        f"{field}: expected a number") from None
+        return self.service.register_client(str(body["client"]), **kwargs)
+
+    async def _do_verify(self, body: dict) -> dict:
+        if not isinstance(body, dict):
+            raise protocol.ProtocolError("expected a JSON object")
+        cid = body.get("client")
+        if cid is None:
+            raise protocol.ProtocolError('expected {"client": id, ...}')
+        items = body.get("items")
+        if not isinstance(items, list):
+            raise protocol.ProtocolError('items: expected a list')
+        reqs = [protocol.request_from_doc(doc) for doc in items]
+        lane = protocol.parse_lane(body.get("lane"))
+        deadline = body.get("deadline_s")
+        if deadline is not None:
+            try:
+                deadline = float(deadline)
+            except (TypeError, ValueError):
+                raise protocol.ProtocolError(
+                    "deadline_s: expected a number") from None
+        verdicts = await self.service.verify(
+            str(cid), reqs, lane=lane, deadline_s=deadline)
+        return {"status": "OK", "verdicts": [bool(v) for v in verdicts]}
+
+    # -- HTTP handlers --------------------------------------------------
+
+    @staticmethod
+    async def _body(req) -> dict:
+        try:
+            return await req.json()
+        except json.JSONDecodeError:
+            raise web.HTTPBadRequest(text="body must be JSON")
+
+    async def client_register(self, req) -> web.Response:
+        body = await self._body(req)
+        try:
+            return web.json_response(self._do_register(body))
+        except protocol.ProtocolError as e:
+            raise web.HTTPBadRequest(text=str(e))
+        except Shed as e:
+            return _shed_response(e)
+        except VerifydClosed as e:
+            return web.json_response(
+                Shed(protocol.SHED_SHUTTING_DOWN, str(e)).to_doc(),
+                status=503)
+
+    async def client_unregister(self, req) -> web.Response:
+        body = await self._body(req)
+        if not isinstance(body, dict) or "client" not in body:
+            raise web.HTTPBadRequest(text='expected {"client": id}')
+        gone = self.service.unregister_client(str(body["client"]))
+        return web.json_response({"client": str(body["client"]),
+                                  "unregistered": bool(gone)})
+
+    async def verify(self, req) -> web.Response:
+        body = await self._body(req)
+        try:
+            return web.json_response(await self._do_verify(body))
+        except protocol.ProtocolError as e:
+            raise web.HTTPBadRequest(text=str(e))
+        except Shed as e:
+            return _shed_response(e)
+        except VerifydClosed as e:
+            return web.json_response(
+                Shed(protocol.SHED_SHUTTING_DOWN, str(e)).to_doc(),
+                status=503)
+
+    async def stats(self, req) -> web.Response:
+        del req
+        return web.json_response(self.service.stats_doc())
+
+    async def tune(self, req) -> web.Response:
+        del req
+        tuner = self.service.tuner
+        kinds = ("sig", "vrf", "membership", "post", "pow")
+        return web.json_response({
+            "targets": {k: tuner.target_batch(k) for k in kinds},
+            "rates": {k: {str(b): round(r, 1)
+                          for b, r in tuner.rates(k).items()}
+                      for k in kinds},
+            "stats": dict(tuner.stats),
+        })
+
+    async def metrics(self, req) -> web.Response:
+        del req
+        return web.Response(text=REGISTRY.expose(),
+                            content_type="text/plain")
+
+    async def healthz(self, req) -> web.Response:
+        del req
+        # liveness: the process serves; stalls are /readyz's job
+        return web.json_response({"status": "ok",
+                                  "closed": self.service._closed})
+
+    async def readyz(self, req) -> web.Response:
+        del req
+        from ..obs import health as health_mod
+
+        components = health_mod.HEALTH.report()
+        ready = (all(e["healthy"] for e in components.values())
+                 and not self.service._closed)
+        report = {"ready": ready, "components": components,
+                  "service": self.service.stats_doc()}
+        return web.json_response(report, status=200 if ready else 503)
+
+    # -- gRPC handlers (same docs, same semantics) ----------------------
+
+    async def _grpc_register(self, doc: dict) -> dict:
+        try:
+            return {"status": "OK", **self._do_register(doc)}
+        except protocol.ProtocolError as e:
+            return {"status": "ERROR", "error": str(e)}
+        except Shed as e:
+            return e.to_doc()
+        except VerifydClosed as e:
+            return Shed(protocol.SHED_SHUTTING_DOWN, str(e)).to_doc()
+
+    async def _grpc_unregister(self, doc: dict) -> dict:
+        cid = doc.get("client")
+        if cid is None:
+            return {"status": "ERROR", "error": 'expected {"client": id}'}
+        return {"status": "OK", "client": str(cid),
+                "unregistered": self.service.unregister_client(str(cid))}
+
+    async def _grpc_verify(self, doc: dict) -> dict:
+        try:
+            return await self._do_verify(doc)
+        except protocol.ProtocolError as e:
+            return {"status": "ERROR", "error": str(e)}
+        except Shed as e:
+            return e.to_doc()
+        except VerifydClosed as e:
+            return Shed(protocol.SHED_SHUTTING_DOWN, str(e)).to_doc()
+
+    async def _grpc_stats(self, doc: dict) -> dict:
+        del doc
+        return {"status": "OK", **self.service.stats_doc()}

@@ -195,3 +195,67 @@ def test_packed_init_on_the_card_equals_the_cpu_twin(dev, tmp_path):
     after = (romix_cuda.launches, pbkdf2_cuda.expand_launches,
              pbkdf2_cuda.finish_launches)
     assert all(a >= b + 5 for a, b in zip(after, before))  # 1057 lanes / 256
+
+
+@pytest.fixture(scope="module")
+def verify_wl(tmp_path_factory):
+    """A small mixed verification workload (scrypt N=2, malformed items
+    included), made on the CPU: the card path is held to it."""
+    from spacemesh_tpu_torch.verify import workload
+
+    if not torch.cuda.is_available():  # module scope runs before ``dev``
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return workload.build(str(tmp_path_factory.mktemp("cuda-verify-wl")),
+                          sigs=8, vrfs=2, posts=12, memberships=4, pows=16,
+                          post_challenges=3, device="cpu")
+
+
+def _farm_verdicts(wl, device, reqs, **kw):
+    import asyncio
+
+    from spacemesh_tpu_torch.verify.farm import VerificationFarm
+
+    async def go():
+        farm = VerificationFarm(ed_verifier=wl.ed, vrf_verifier=wl.vrf,
+                                post_params=wl.post_params,
+                                post_seed=wl.post_seed, device=device, **kw)
+        try:
+            return list(await asyncio.gather(
+                *(farm.submit(r) for r in reqs))), farm
+        finally:
+            await farm.aclose()
+
+    return asyncio.run(go())
+
+
+def test_farm_batch_on_the_card_equals_the_cpu_twin(dev, verify_wl):
+    """Every kind through the farm on the card (POST and k2pow batches on
+    streams of the farm's pool) and on the CPU: equal verdicts, equal to
+    inline verification; the POST batches launch all three kernels, every
+    stream is back in the pool afterwards, and the closed farm keeps no
+    cached memory."""
+    before = (romix_cuda.launches, pbkdf2_cuda.expand_launches,
+              pbkdf2_cuda.finish_launches)
+    reserved = torch.cuda.memory_reserved(dev)
+    card, farm = _farm_verdicts(verify_wl, dev, verify_wl.requests,
+                                max_batch=4)
+    # the closed farm handed its streams' cached scratch back
+    assert torch.cuda.memory_reserved(dev) <= reserved
+    after = (romix_cuda.launches, pbkdf2_cuda.expand_launches,
+             pbkdf2_cuda.finish_launches)
+    cpu, _ = _farm_verdicts(verify_wl, "cpu", verify_wl.requests)
+    assert card == cpu == verify_wl.inline_all()
+    assert all(a > b for a, b in zip(after, before))
+    assert farm._streams.qsize() == farm.max_inflight
+    assert set(farm.post_timing) == {"prep", "labels", "hash", "check"}
+
+
+def test_farm_pow_batch_on_the_card_equals_the_cpu_twin(dev, verify_wl):
+    from spacemesh_tpu_torch.verify.farm import PowRequest
+
+    pows = [r for r in verify_wl.requests if isinstance(r, PowRequest)]
+    pows += [PowRequest(r.challenge, r.node_id, r.difficulty, r.nonce + k)
+             for k in range(1, 40) for r in pows[:4]]
+    card, _ = _farm_verdicts(verify_wl, dev, pows)
+    cpu, _ = _farm_verdicts(verify_wl, "cpu", pows)
+    assert card == cpu == [verify_wl.inline_verify(r) for r in pows]

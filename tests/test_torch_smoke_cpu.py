@@ -239,17 +239,46 @@ WORKER_MODULES = ("spacemesh_tpu_torch.post",
                   "spacemesh_tpu_torch.runtime.workloads")
 
 
-def test_only_the_grpc_worker_imports_grpc_and_protobuf():
-    """grpc and google.protobuf are imported by ``post/grpc_worker.py`` and
-    ``api/gen/post_pb2.py`` alone; everything else of the worker imports
-    with both blocked, as on a card host that has neither."""
-    importers = set()
+def _importers(pred) -> dict:
+    """{file: sorted enclosing function names ("" at module level)} of
+    every import of a module name matching ``pred`` in the port."""
+    found: dict = {}
     for path in _port_files():
-        for name in _imported(ast.parse(path.read_text(), str(path))):
-            if name == "grpc" or name.startswith(("grpc.", "google.protobuf")):
-                importers.add(path.relative_to(REPO).as_posix())
-    assert importers == {"spacemesh_tpu_torch/post/grpc_worker.py",
-                         "spacemesh_tpu_torch/api/gen/post_pb2.py"}
+        tree = ast.parse(path.read_text(), str(path))
+        for fn in [tree] + [n for n in ast.walk(tree) if isinstance(
+                n, (ast.FunctionDef, ast.AsyncFunctionDef))]:
+            body = ast.Module(body=fn.body, type_ignores=[])
+            own = {id(n) for inner in ast.walk(body) if inner is not body
+                   and isinstance(inner, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))
+                   for n in ast.walk(inner) if n is not inner}
+            for node in ast.walk(body):
+                if id(node) in own:
+                    continue
+                if any(pred(name) for name in _imported(
+                        ast.Module(body=[node], type_ignores=[]))
+                       if isinstance(node, (ast.Import, ast.ImportFrom))):
+                    rel = path.relative_to(REPO).as_posix()
+                    found.setdefault(rel, set()).add(getattr(fn, "name", ""))
+    return {k: sorted(v) for k, v in found.items()}
+
+
+def _is_grpc(name: str) -> bool:
+    return name == "grpc" or name.startswith(("grpc.", "google.protobuf"))
+
+
+def test_only_the_grpc_worker_imports_grpc_and_protobuf():
+    """grpc and google.protobuf are imported at module level by
+    ``post/grpc_worker.py`` and ``api/gen/post_pb2.py`` alone, and by
+    verifyd only inside the functions that open its gRPC surface (the
+    server's ``_start_grpc``, the client's ``grpc_verify``); everything
+    else of the worker imports with both blocked, as on a card host that
+    has neither."""
+    assert _importers(_is_grpc) == {
+        "spacemesh_tpu_torch/post/grpc_worker.py": [""],
+        "spacemesh_tpu_torch/api/gen/post_pb2.py": [""],
+        "spacemesh_tpu_torch/verifyd/server.py": ["_start_grpc"],
+        "spacemesh_tpu_torch/verifyd/client.py": ["grpc_verify"]}
     code = (
         "import importlib, sys\n"
         "class Block:\n"
@@ -262,6 +291,57 @@ def test_only_the_grpc_worker_imports_grpc_and_protobuf():
         "    importlib.import_module(m)\n"
         "assert not [m for m in sys.modules\n"
         "            if m == 'grpc' or m.startswith('google.protobuf')]\n"
+        "print('imported')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "imported"
+
+
+VERIFY_MODULES = ("spacemesh_tpu_torch.verify",
+                  "spacemesh_tpu_torch.verify.workload",
+                  "spacemesh_tpu_torch.verifyd",
+                  "spacemesh_tpu_torch.verifyd.service",
+                  "spacemesh_tpu_torch.verifyd.client",
+                  "spacemesh_tpu_torch.verifyd.__main__",
+                  "spacemesh_tpu_torch.core.signing")
+
+
+def test_aiohttp_only_in_the_verifyd_server_and_client_session():
+    """aiohttp is imported by ``verifyd/server.py`` and, lazily, by the
+    client's session; the farm, the service, signing and the verifyd
+    package import and verify a signature with aiohttp, grpc, protobuf
+    and cryptography all blocked, as on a host that has none of them
+    (signing then takes its pure-Python branch)."""
+    assert _importers(lambda n: n.split(".")[0] == "aiohttp") == {
+        "spacemesh_tpu_torch/verifyd/server.py": [""],
+        "spacemesh_tpu_torch/verifyd/client.py": ["_sess"]}
+    code = (
+        "import asyncio, importlib, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('aiohttp', 'grpc',\n"
+        "                                  'cryptography') or\\\n"
+        "                name.startswith('google.protobuf'):\n"
+        "            raise ModuleNotFoundError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {VERIFY_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from spacemesh_tpu_torch.core import signing\n"
+        "from spacemesh_tpu_torch.verify.farm import (SigRequest,\n"
+        "                                             VerificationFarm)\n"
+        "assert not signing._HAVE_CRYPTOGRAPHY\n"
+        "s = signing.EdSigner(seed=bytes(32))\n"
+        "req = SigRequest(3, s.public_key, b'm', s.sign(3, b'm'))\n"
+        "async def go():\n"
+        "    farm = VerificationFarm(device='cpu')\n"
+        "    try:\n"
+        "        return await farm.submit(req)\n"
+        "    finally:\n"
+        "        await farm.aclose()\n"
+        "assert asyncio.run(go()) is True\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('aiohttp', 'grpc', 'cryptography')]\n"
         "print('imported')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
