@@ -70,7 +70,10 @@ package. Phases, each printed as it runs:
    occupancy, each POST dispatch's split (host stages, the three kernels'
    device time, the eager proving hash, the pow kind), the device's idle
    share over a profiled repeat of the load, peak memory. The kernels'
-   launch counts are zeroed before the bare run and read after it;
+   launch counts are zeroed before the warm run and read after it (one
+   launch each per POST batch); the three kernels are held to their plain
+   twins on the widest recompute's real inputs and on its first proof's
+   37 lanes, a serial verify's shape;
 9. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``, the PBKDF2 pair's packed-init
@@ -1244,6 +1247,9 @@ def run_verifyd(posts: list, mix, profile: bool) -> dict:
     with prof or contextlib.nullcontext():
         (verdicts, mixed, lat, wall), farm = asyncio.run(go())
         torch.cuda.synchronize()
+    # the closed farm's streams leave a batch's ROMix scratch each in the
+    # allocator's cache: hand it back before the next service is made
+    torch.cuda.empty_cache()
     per_kind = {}
     for key, (_, total_s, n) in metrics.verify_farm_dispatch_seconds \
             .sample().items():
@@ -1278,6 +1284,7 @@ def serial_verdicts(posts: list) -> tuple:
 def phase_verifyd(ctx: dict) -> None:
     import importlib.util
 
+    import numpy as np
     import torch
     from spacemesh_tpu_torch.core import signing
     from spacemesh_tpu_torch.ops import scrypt as tscrypt
@@ -1293,9 +1300,13 @@ def phase_verifyd(ctx: dict) -> None:
     # calls the label pipeline: the first and last lane of each call
     real_multi = tscrypt.scrypt_labels_multi
     taps = []
+    widest: dict = {}  # the inputs of the widest recompute, for path_twins
 
     def tap(commitments, indices, *, n=8192, device="cuda"):
         out = real_multi(commitments, indices, n=n, device=device)
+        if len(indices) > len(widest.get("indices", ())):
+            widest.update(commitments=np.array(commitments),
+                          indices=np.array(indices))
         for i in (0, len(indices) - 1):
             taps.append((bytes(commitments[i]), int(indices[i]), n,
                          bytes(out[i])))
@@ -1303,11 +1314,11 @@ def phase_verifyd(ctx: dict) -> None:
 
     tscrypt.scrypt_labels_multi = tap
     try:
+        # a fresh service each time: the first pays each stream's first
+        # scratch allocations, the second runs warm and is the one read
+        cold = run_verifyd(posts, mix, profile=False)
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
-        # a fresh service each time: the first pays each stream's first
-        # scratch allocations, the second runs warm
-        cold = run_verifyd(posts, mix, profile=False)
         bare = run_verifyd(posts, mix, profile=False)
         launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -1315,6 +1326,9 @@ def phase_verifyd(ctx: dict) -> None:
         profiled = run_verifyd(posts, mix, profile=True)
     finally:
         tscrypt.scrypt_labels_multi = real_multi
+    t0 = time.perf_counter()
+    twins = path_twins(widest["commitments"], widest["indices"])
+    twins_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     serial, sample_s = serial_verdicts(posts)
@@ -1330,8 +1344,15 @@ def phase_verifyd(ctx: dict) -> None:
     require(serial == [not f for f in flags],
             "honest requests True, tampered ones False")
     require(0 < sum(mix_inline) < len(mix_inline), "the mix is mixed")
+    post_b = bare["per_kind"]["post"]["batches"]
     for key in ("romix", "pbkdf2_expand", "pbkdf2_finish"):
-        require(launches[key] > 0, f"the verifyd path launched {key}")
+        require(launches[key] == post_b, f"the warm run launched {key} once "
+                f"per POST batch ({launches[key]} launches, {post_b} "
+                "batches)")
+    for shape, errs in twins.items():
+        for key, err in errs.items():
+            require(err == 0, f"{key} kernel == plain at the verifyd path's "
+                              f"{shape}")
     picks = taps[::max(len(taps) // 32, 1)][:32]
     check_taps(picks)
 
@@ -1346,7 +1367,6 @@ def phase_verifyd(ctx: dict) -> None:
     rate = n_posts / bare["wall"]
     serial_rate = SERIAL_SAMPLE / sample_s
     pk = bare["per_kind"]
-    post_b = pk["post"]["batches"]
     n_ids = len(ctx["tenants"]["ids"])
     log(f"[verifyd] load: {n_posts} POST requests over {n_ids}"
         f" identities ({sum(flags)} tampered), N={N_MAIN}, k1/k2/k3 "
@@ -1410,14 +1430,59 @@ def phase_verifyd(ctx: dict) -> None:
                 f"{profiled['wall']:.3f} s wall")
     else:
         idle = "idle share not measured (no device activity recorded)"
-    log(f"[verifyd] {idle}; peak device memory over the cold and warm "
-        f"runs: allocated {peak / 2**30:.2f} GiB, reserved by the caching "
+    log(f"[verifyd] {idle}; peak device memory over the warm run: "
+        f"allocated {peak / 2**30:.2f} GiB, reserved by the caching "
         f"allocator {peak_reserved / 2**30:.2f} GiB")
     log(f"[verifyd] {len(picks)} sampled labels of the farm's recomputes == "
-        f"hashlib.scrypt; every verdict == serial inline; launches "
-        f"{json.dumps(launches)}")
+        f"hashlib.scrypt; every verdict == serial inline; launches in the "
+        f"warm run {json.dumps(launches)}, one each per POST batch")
+    log(f"[verifyd] kernels == plain on the widest recompute's inputs "
+        f"({len(widest['indices'])} lanes, per-lane commitments) and on its "
+        f"first proof's lanes (a serial verify's shape), max_abs_err "
+        f"{json.dumps(twins)}, in {twins_s:.1f} s")
     log(f"[verifyd] {ctx['smi']}")
-    ctx["verifyd"] = dict(launches=launches)
+    ctx["verifyd"] = dict(launches=launches, twins=twins)
+
+
+def path_twins(commits, indices) -> dict:
+    """The three kernels against their plain twins at the ``[verifyd]``
+    path's two shapes, on one farm recompute's real inputs: the whole
+    recompute (per-lane commitments, k3 lanes per proof) and its first
+    proof's k3 lanes (the shape of a serial verify). One plain ROMix call
+    covers both shapes' lanes (ROMix is lane-wise: each lane's output
+    depends on that lane's input alone). Returns max_abs_err by shape and
+    kernel."""
+    import numpy as np
+    import torch
+    from spacemesh_tpu_torch.ops import pbkdf2_cuda, romix_cuda, u32
+    from spacemesh_tpu_torch.ops.scrypt import split_indices
+    from spacemesh_tpu_torch.post import prover
+
+    k3 = prover.ProofParams().k3
+    errs, blocks = {}, []
+    for shape, sl in ((f"(32, {len(indices)})", slice(None)),
+                      (f"(32, {k3})", slice(0, k3))):
+        cw = u32.from_numpy(np.ascontiguousarray(
+            commits[sl].view(">u4").astype(np.uint32).T), "cuda")
+        lo, hi = (u32.from_numpy(a, "cuda") for a in split_indices(
+            indices[sl]))
+        blk = pbkdf2_cuda.expand(cw, lo, hi)
+        inner, outer, want = pbkdf2_cuda._expand(cw, lo, hi)
+        mixed = romix_cuda.romix(blk, N_MAIN)
+        words = pbkdf2_cuda.finish(cw, mixed)
+        errs[shape] = {
+            "pbkdf2_expand": max_abs_err(blk, want),
+            "pbkdf2_finish": max_abs_err(
+                words, pbkdf2_cuda._pbkdf2_second(inner, outer, mixed)[:4])}
+        blocks.append((shape, blk, mixed))
+    plain = romix_cuda.romix_r1(torch.cat([b for _, b, _ in blocks], dim=1),
+                                N_MAIN)
+    c0 = 0
+    for shape, blk, mixed in blocks:
+        c1 = c0 + blk.shape[1]
+        errs[shape]["romix"] = max_abs_err(mixed, plain[:, c0:c1])
+        c0 = c1
+    return errs
 
 
 def check_taps(picks: list) -> None:
@@ -1526,6 +1591,10 @@ def main() -> int:
     for key in extra:
         extra[key]["tenants_launches"] = ctx["tenants"]["launches"][key]
         extra[key]["verifyd_launches"] = ctx["verifyd"]["launches"][key]
+        if key != "scan":
+            extra[key]["verifyd_max_abs_err"] = {
+                shape: errs[key] for shape, errs
+                in ctx["verifyd"]["twins"].items()}
     envelope = ("spacemesh_tpu/ops/scrypt.py:440 (XLA-fused envelope, no "
                 "Pallas kernel)")
     kernels = []

@@ -90,10 +90,6 @@ class HealthRegistry:
             if probe is None or self._probes.get(name) == probe:
                 self._probes.pop(name, None)
 
-    def names(self) -> list[str]:
-        with self._lock:
-            return sorted(self._probes)
-
     def report(self, now: float | None = None) -> dict[str, dict]:
         """{component: {"healthy": bool, "reason": str}} for every
         registered probe. A raising probe reports unhealthy, never

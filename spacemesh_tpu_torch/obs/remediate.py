@@ -1,20 +1,23 @@
 """Remediation primitives (the part of ``spacemesh_tpu/obs/remediate.py``
 the verification farm, verifyd and its client use).
 
-* :class:`CircuitBreaker`: the closed -> open -> half-open -> closed (or
-  quarantined) state machine around the farm's per-kind backends, on an
-  injectable clock with zero sleeps.
+* :class:`CircuitBreaker`: the closed -> open -> half-open -> closed state
+  machine around the farm's per-kind backends, on an injectable clock
+  with zero sleeps.
 * :func:`backoff_delay`: ONE capped, seeded-jitter backoff shared by the
   breaker's half-open probe timing and the verifyd client's
   ``retry_after_s`` honoring.
 * :data:`BREAKERS` / :data:`ACTIONS`: process-global registries of every
-  live breaker and of the components' recovery hooks (the farm registers
-  ``reset_farm_lanes``). Unregistering a breaker removes its metric
-  series.
+  live breaker and of the components' recovery hooks (the farm and
+  verifyd register ``reset_farm_lanes``). Unregistering a breaker removes
+  its metric series.
 
 Left out against the JAX package, for the instrumentation item of the
-port: the declarative recovery policy and the ``RemediationEngine`` that
-executes it (no engine consumes the hooks yet).
+port, together with the ``RemediationEngine`` and declarative recovery
+policy that would use them: the QUARANTINED state and its escalation,
+the breaker's transition callback, probe abort and manual reset, its
+state documents and the registries' readers, and the other recovery
+action kinds.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import random
 import threading
 import time
 from collections import deque
-from typing import Callable, Optional
+from typing import Callable
 
 from ..utils import metrics
 
@@ -35,21 +38,11 @@ _log = logging.getLogger("spacemesh_tpu_torch.remediate")
 CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half_open"
-QUARANTINED = "quarantined"
 
-STATE_CODES = {CLOSED: 0.0, OPEN: 1.0, HALF_OPEN: 2.0, QUARANTINED: 3.0}
+STATE_CODES = {CLOSED: 0.0, OPEN: 1.0, HALF_OPEN: 2.0}
 
-# --- the typed action vocabulary ----------------------------------------
-
-RESTART_COMPONENT = "restart_component"
+# the recovery action the farm and verifyd register
 RESET_FARM_LANES = "reset_farm_lanes"
-QUARANTINE_TENANT = "quarantine_tenant"
-FAILOVER_REMOTE = "failover_remote"
-SHED_AND_ALERT = "shed_and_alert"
-QUARANTINE_COMPONENT = "quarantine_component"
-
-ACTION_KINDS = (RESTART_COMPONENT, RESET_FARM_LANES, QUARANTINE_TENANT,
-                FAILOVER_REMOTE, SHED_AND_ALERT, QUARANTINE_COMPONENT)
 
 
 class BreakerOpen(RuntimeError):
@@ -93,19 +86,15 @@ def backoff_delay(attempt: int, *, base_s: float, cap_s: float,
 class CircuitBreaker:
     """closed → open after ``failure_budget`` typed failures within
     ``window_s`` → half-open single probe after a cooldown → closed on
-    probe success (or re-open with an escalated cooldown on failure);
-    ``quarantine_after`` consecutive opens without a stable close
-    escalate to QUARANTINED, which only :meth:`reset` leaves.
+    probe success (or re-open with an escalated cooldown on failure).
 
     Zero sleeps: ``time_source`` injects the clock and every transition
     happens inside :meth:`allow` / :meth:`record_failure` /
-    :meth:`record_success`.  Thread-safe — the runtime engine consults
-    it from pipeline threads while the event loop reads state docs.
+    :meth:`record_success`.  Thread-safe — the farm's backend threads
+    record outcomes while the event loop asks :meth:`allow`.
 
     The reopen cooldown is :func:`backoff_delay` over the consecutive
-    open count, floored at the peer's ``retry_after_s`` when the
-    failure carried one (a shedding verifyd's hint drives exactly when
-    the half-open probe goes out).
+    open count.
     """
 
     def __init__(self, component: str, *,
@@ -113,27 +102,18 @@ class CircuitBreaker:
                  window_s: float = 30.0,
                  cooldown_s: float = 5.0,
                  cooldown_cap_s: float = 120.0,
-                 quarantine_after: int = 0,
-                 seed: int = 0,
-                 time_source: Callable[[], float] = time.monotonic,
-                 on_transition: Optional[Callable[[str, str], None]] = None):
+                 time_source: Callable[[], float] = time.monotonic):
         self.component = str(component)
         self.failure_budget = max(int(failure_budget), 1)
         self.window_s = float(window_s)
         self.cooldown_s = float(cooldown_s)
         self.cooldown_cap_s = float(cooldown_cap_s)
-        self.quarantine_after = max(int(quarantine_after), 0)
-        self.seed = int(seed)
         self._now = time_source
-        self._on_transition = on_transition
         self.state = CLOSED
         self._failures: deque[float] = deque()
-        self._opened_at: float | None = None
         self._retry_at: float | None = None
         self._open_streak = 0        # consecutive opens, reset on close
         self._probing = False
-        self.opens = 0               # lifetime transitions into OPEN
-        self.probes = 0              # half-open probes granted
         self._registered = False
         self._lock = threading.Lock()
 
@@ -143,41 +123,34 @@ class CircuitBreaker:
         # guarded by: self._lock — every caller holds it
         if to == self.state:
             return
-        frm, self.state = self.state, to
+        self.state = to
         if self._registered:
             metrics.remediation_breaker_state.set(
                 STATE_CODES[to], component=self.component)
             metrics.remediation_breaker_transitions.inc(
                 component=self.component, to=to)
-        if self._on_transition is not None:
-            self._on_transition(frm, to)
 
-    def allow(self, now: float | None = None) -> bool:
+    def allow(self) -> bool:
         """May an attempt go out right now?  CLOSED: yes.  OPEN: no
         until the cooldown elapses, then exactly ONE half-open probe.
-        HALF_OPEN: no while that probe is unresolved.  QUARANTINED:
-        never (manual :meth:`reset` only)."""
-        t = self._now() if now is None else float(now)
+        HALF_OPEN: no while that probe is unresolved."""
+        t = self._now()
         with self._lock:
             if self.state == CLOSED:
                 return True
-            if self.state == QUARANTINED:
-                return False
             if self.state == OPEN:
                 if self._retry_at is not None and t >= self._retry_at:
                     self._transition(HALF_OPEN)
                     self._probing = True
-                    self.probes += 1
                     return True
                 return False
             # HALF_OPEN: the single probe is out; a second caller waits
             if not self._probing:
                 self._probing = True
-                self.probes += 1
                 return True
             return False
 
-    def record_success(self, now: float | None = None) -> None:
+    def record_success(self) -> None:
         with self._lock:
             if self.state in (HALF_OPEN, OPEN):
                 _log.info("breaker %s: probe ok, closing", self.component)
@@ -187,98 +160,40 @@ class CircuitBreaker:
             self._retry_at = None
             self._transition(CLOSED)
 
-    def record_failure(self, now: float | None = None,
-                       retry_after_s: float | None = None) -> None:
-        t = self._now() if now is None else float(now)
+    def record_failure(self) -> None:
+        t = self._now()
         with self._lock:
-            if self.state == QUARANTINED:
-                return
             if self.state in (HALF_OPEN, OPEN):
                 # failed probe (or a straggler failing while open):
                 # reopen with an ESCALATED cooldown
                 self._probing = False
-                self._open(t, retry_after_s)
+                self._open(t)
                 return
             self._failures.append(t)
             while self._failures and self._failures[0] < t - self.window_s:
                 self._failures.popleft()
             if len(self._failures) >= self.failure_budget:
-                self._open(t, retry_after_s)
+                self._open(t)
 
-    def _open(self, t: float, retry_after_s: float | None) -> None:
+    def _open(self, t: float) -> None:
         # guarded by: self._lock — record_failure is the only caller
-        self.opens += 1
         self._open_streak += 1
-        if (self.quarantine_after
-                and self._open_streak >= self.quarantine_after):
-            _log.warning("breaker %s: %d consecutive opens, quarantining",
-                         self.component, self._open_streak)
-            self._transition(QUARANTINED)
-            self._retry_at = None
-            return
         cooldown = backoff_delay(self._open_streak - 1,
                                  base_s=self.cooldown_s,
-                                 cap_s=self.cooldown_cap_s,
-                                 retry_after_s=retry_after_s,
-                                 seed=self.seed)
-        self._opened_at = t
+                                 cap_s=self.cooldown_cap_s)
         self._retry_at = t + cooldown
         self._failures.clear()
         _log.warning("breaker %s: open (streak %d), half-open probe in "
                      "%.3fs", self.component, self._open_streak, cooldown)
         self._transition(OPEN)
 
-    def abort_probe(self) -> None:
-        """Release a granted probe slot WITHOUT a verdict — the attempt
-        resolved in a way that says nothing about the peer's health (a
-        config-class shed, a cancelled caller).  Every ``allow() ==
-        True`` in HALF_OPEN must reach exactly one of
-        record_success/record_failure/abort_probe, or the breaker wedges
-        with the probe slot held and fast-fails forever."""
-        with self._lock:
-            self._probing = False
-
-    def quarantine(self) -> None:
-        """Force QUARANTINED (the engine's budget-exhausted escalation)."""
-        with self._lock:
-            self._retry_at = None
-            self._probing = False
-            self._transition(QUARANTINED)
-
-    def reset(self) -> None:
-        """Manual all-clear: back to CLOSED with a clean window."""
-        with self._lock:
-            self._failures.clear()
-            self._open_streak = 0
-            self._probing = False
-            self._retry_at = None
-            self._transition(CLOSED)
-
-    # -- introspection --------------------------------------------------
-
-    def retry_in(self, now: float | None = None) -> float | None:
-        t = self._now() if now is None else float(now)
+    def retry_in(self) -> float | None:
+        """Seconds until the half-open probe while OPEN, else None."""
+        t = self._now()
         with self._lock:
             if self.state != OPEN or self._retry_at is None:
                 return None
             return max(self._retry_at - t, 0.0)
-
-    def state_doc(self, now: float | None = None) -> dict:
-        t = self._now() if now is None else float(now)
-        with self._lock:
-            return {
-                "component": self.component,
-                "state": self.state,
-                "failures_in_window": len(self._failures),
-                "failure_budget": self.failure_budget,
-                "window_s": self.window_s,
-                "open_streak": self._open_streak,
-                "opens": self.opens,
-                "probes": self.probes,
-                "retry_in_s": (round(max(self._retry_at - t, 0.0), 6)
-                               if self.state == OPEN
-                               and self._retry_at is not None else None),
-            }
 
 
 class BreakerRegistry:
@@ -322,33 +237,15 @@ class BreakerRegistry:
         metrics.remediation_breaker_transitions.remove_matching(
             component=breaker.component)
 
-    def get(self, component: str) -> CircuitBreaker | None:
-        with self._lock:
-            return self._breakers.get(component)
-
-    def names(self) -> list[str]:
-        with self._lock:
-            return sorted(self._breakers)
-
-    def states(self) -> dict[str, str]:
-        with self._lock:
-            items = list(self._breakers.items())
-        return {name: br.state for name, br in sorted(items)}
-
-    def snapshot(self) -> dict[str, dict]:
-        with self._lock:
-            items = list(self._breakers.items())
-        return {name: br.state_doc() for name, br in sorted(items)}
-
 
 BREAKERS = BreakerRegistry()
 
 
 class HookRegistry:
     """Per-component recovery hooks, registered beside the component's
-    watchdog (post pipelines, the farm, the syncer, verifyd) and
-    consumed by a remediation engine when a policy rule fires.
-    ``register`` / ``unregister`` pair like health probes."""
+    watchdog (the farm, verifyd) for a remediation engine to call when a
+    policy rule fires. ``register`` / ``unregister`` pair like health
+    probes."""
 
     def __init__(self) -> None:
         self._hooks: dict[tuple[str, str], Callable[[], object]] = {}
@@ -367,15 +264,6 @@ class HookRegistry:
             key = (str(component), str(action))
             if hook is None or self._hooks.get(key) == hook:
                 self._hooks.pop(key, None)
-
-    def get(self, component: str,
-            action: str) -> Callable[[], object] | None:
-        with self._lock:
-            return self._hooks.get((str(component), str(action)))
-
-    def names(self) -> list[tuple[str, str]]:
-        with self._lock:
-            return sorted(self._hooks)
 
 
 ACTIONS = HookRegistry()

@@ -334,7 +334,7 @@ verifyd_batchtune_races = REGISTRY.counter(
 # circuit breakers (obs/remediate.py) around the farm's per-kind backends
 remediation_breaker_state = REGISTRY.gauge(
     "remediation_breaker_state",
-    "0 closed, 1 open, 2 half-open, 3 quarantined (label: component)")
+    "0 closed, 1 open, 2 half-open (label: component)")
 remediation_breaker_transitions = REGISTRY.counter(
     "remediation_breaker_transitions_total",
     "breaker state transitions (labels: component, to)")

@@ -33,8 +33,9 @@ never queue behind another batch's kernels. The pool also caps the
 memory in flight: each stream's caching allocator keeps at most one
 batch's ROMix scratch, ``max_batch * k3 * 128 * N`` bytes (9.25 GiB at
 256 proofs, k3=37, N=8192), so the default four streams hold at most
-37 GiB of the card's 80 GB, and ``shutdown`` hands the cache back. A
-batch wider than the free memory is split into several ROMix launches
+37 GiB of the card's 80 GB. The cached blocks belong to the process's
+allocator, not the farm: a closed farm leaves them there for the next
+user of the card. A batch wider than the free memory is split into several ROMix launches
 by ``ops/romix_cuda.py``.
 
 Left out against the JAX package: the tracing spans (the instrumentation
@@ -192,6 +193,8 @@ DEFAULT_MAX_WAIT_S = {Lane.BLOCK: 0.002, Lane.GOSSIP: 0.005,
                       Lane.SYNC: 0.010}
 DEFAULT_LANE_BOUNDS = {Lane.BLOCK: 4096, Lane.GOSSIP: 8192,
                        Lane.SYNC: 16384}
+# threads a wide sig/vrf batch fans out over
+SIG_THREADS = min(8, os.cpu_count() or 1)
 
 
 class VerificationFarm:
@@ -213,7 +216,6 @@ class VerificationFarm:
                  max_inflight: int = 4,
                  max_wait_s: dict[Lane, float] | None = None,
                  lane_bounds: dict[Lane, int] | None = None,
-                 sig_threads: int | None = None,
                  stall_deadline_s: float = 30.0,
                  tuner=None,
                  device="cuda"):
@@ -233,7 +235,6 @@ class VerificationFarm:
         self.lane_bounds = dict(DEFAULT_LANE_BOUNDS)
         if lane_bounds:
             self.lane_bounds.update(lane_bounds)
-        self._sig_threads = sig_threads
         # optional speculative batch-sizing policy (verifyd/batchtune.py
         # BatchTuner, or anything with note_arrival/observe/target_batch/
         # dispatch_now). None keeps the static max_batch + deadline policy.
@@ -274,7 +275,8 @@ class VerificationFarm:
         self._breakers: dict[str, remediate_mod.CircuitBreaker] = {}
         self._breaker_cfg = {"failure_budget": 5, "window_s": 30.0,
                              "cooldown_s": 5.0, "cooldown_cap_s": 60.0}
-        remediate_mod.ACTIONS.register("verify.farm", "reset_farm_lanes",
+        remediate_mod.ACTIONS.register("verify.farm",
+                                       remediate_mod.RESET_FARM_LANES,
                                        self.reset_lanes)
 
     def _on_depth(self, lane: Lane, depth: int) -> None:
@@ -342,20 +344,12 @@ class VerificationFarm:
         if self._pool is not None:
             self._pool.shutdown(wait=False, cancel_futures=True)
             self._pool = None
-        if self._streams is not None:
-            # each of the pool's streams keeps a batch's ROMix scratch in
-            # the caching allocator; a closed farm hands it back, or farms
-            # made in turn in one process would each keep their own
-            # (empty_cache frees only blocks no tensor holds)
-            import torch
-
-            torch.cuda.empty_cache()
         from ..obs import health as health_mod
         from ..obs import remediate as remediate_mod
 
         health_mod.HEALTH.unregister("verify.farm", self._watchdog.check)
         remediate_mod.ACTIONS.unregister("verify.farm",
-                                         "reset_farm_lanes",
+                                         remediate_mod.RESET_FARM_LANES,
                                          self.reset_lanes)
         for br in self._breakers.values():
             remediate_mod.BREAKERS.unregister(br)
@@ -663,9 +657,7 @@ class VerificationFarm:
     def _fanout(self, fn, reqs: list) -> list[bool]:
         """Chunk a big batch across the worker pool (OpenSSL ed25519
         releases the GIL, so wide batches verify on every core)."""
-        threads = self._sig_threads
-        if threads is None:
-            threads = min(8, os.cpu_count() or 1)
+        threads = SIG_THREADS
         if threads <= 1 or len(reqs) < 2 * threads:
             return [fn(r) for r in reqs]
         if self._pool is None:

@@ -245,7 +245,7 @@ class VerifydService:
         # requests fail typed and re-submit instead of pinning the
         # service until an operator restart
         remediate_mod.ACTIONS.register("verifyd",
-                                       "reset_farm_lanes",
+                                       remediate_mod.RESET_FARM_LANES,
                                        self.farm.reset_lanes)
         await asyncio.to_thread(self.tuner.ensure_raced)
 
@@ -272,7 +272,7 @@ class VerifydService:
             health_mod.HEALTH.unregister("verifyd",
                                          self._watchdog.check)
             remediate_mod.ACTIONS.unregister(
-                "verifyd", "reset_farm_lanes",
+                "verifyd", remediate_mod.RESET_FARM_LANES,
                 self.farm.reset_lanes)
 
     # -- clients --------------------------------------------------------

@@ -479,7 +479,8 @@ def test_failing_backend_opens_the_kind_breaker():
 
 def test_breaker_backoff_and_watchdog_equal_the_jax_package():
     """The same scripted failures, probes and clock through both
-    packages' CircuitBreaker, backoff_delay, Watchdog and health
+    packages' CircuitBreaker (closed, open, half-open, an escalated
+    reopen, the failure window), backoff_delay, Watchdog and health
     registry: identical states, delays and verdicts at every step."""
     from spacemesh_tpu.obs import health as jhealth
     from spacemesh_tpu.obs import remediate as jrem
@@ -487,15 +488,14 @@ def test_breaker_backoff_and_watchdog_equal_the_jax_package():
     from spacemesh_tpu_torch.obs import remediate as trem
 
     steps = [(0, "f"), (1, "f"), (0.5, "a"), (2, "a"), (0, "a"), (0, "f"),
-             (10, "a"), (0, "s"), (0, "f"), (0, "f"), (5, "a"), (0, "x"),
-             (0, "a"), (0, "f"), (20, "a"), (0, "f"), (50, "a"), (0, "f"),
-             (0, "r"), (0, "a")]
+             (10, "a"), (0, "s"), (0, "f"), (0, "f"), (5, "a"), (0, "f"),
+             (0, "a"), (20, "a"), (0, "f"), (50, "a"), (0, "f"), (0, "a"),
+             (30, "a"), (0, "s"), (0, "f"), (11, "f"), (0, "a")]
 
     def breaker(rem):
         t = [0.0]
         br = rem.CircuitBreaker("x", failure_budget=2, window_s=10,
                                 cooldown_s=1, cooldown_cap_s=8,
-                                quarantine_after=3, seed=5,
                                 time_source=lambda: t[0])
         log = []
         for dt, op in steps:
@@ -503,9 +503,8 @@ def test_breaker_backoff_and_watchdog_equal_the_jax_package():
             if op == "a":
                 log.append(br.allow())
             else:
-                {"f": br.record_failure, "s": br.record_success,
-                 "x": br.abort_probe, "r": br.reset}[op]()
-            log.append(br.state_doc())
+                {"f": br.record_failure, "s": br.record_success}[op]()
+            log.append((br.state, br.retry_in()))
         return log
 
     def watchdog(health):
@@ -526,12 +525,12 @@ def test_breaker_backoff_and_watchdog_equal_the_jax_package():
         out.append(sorted(reg.report(40.0).items()))
         reg.unregister("w", lambda now: (True, ""))  # not the same probe
         reg.unregister("bad")
-        out.append(reg.names())
+        out.append(sorted(reg.report(41.0)))
         return out
 
     assert breaker(jrem) == breaker(trem)
-    assert any(d["state"] == "quarantined" for d in breaker(trem)
-               if isinstance(d, dict))
+    states = {s for s in breaker(trem) if isinstance(s, tuple)}
+    assert {s for s, _ in states} == {"closed", "open", "half_open"}
     assert watchdog(jhealth) == watchdog(thealth)
     for attempt in range(6):
         for hint in (None, 0.01, 3.0):
