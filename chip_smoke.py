@@ -74,11 +74,29 @@ package. Phases, each printed as it runs:
    launch each per POST batch); the three kernels are held to their plain
    twins on the widest recompute's real inputs and on its first proof's
    37 lanes, a serial verify's shape;
-9. a JSON line of per-kernel launches, times and bounds, each time taken
+9. [fleet] the verifyd fleet: three ``VerifydService`` replicas (shards
+   r0-r2, each over a farm of 2 POST batches in flight) served by the
+   port's HTTP server on their own 127.0.0.1 ports, behind one
+   ``FleetVerifier`` from ``fleet_from_urls`` over the sockets with a
+   local farm of 1; ``[verifyd]``'s load reused as requests of 256 from 4
+   concurrent callers under the 16 identities. A clean run (proofs/s
+   beside ``[verifyd]``'s, request p50/p99, requests per replica,
+   ``fleet_desired_replicas`` from the windowed ``fleet_slis``) and a
+   drill: r1's listener stopped at a quarter of the requests and back on
+   its port at half, then all three stopped from 5/8 to 3/4 (the
+   blackout). Every verdict of both runs held to ``[verifyd]``'s serial
+   inline verdicts; r1's attempts while down bounded by its breaker; the
+   blackout served wholly by the local farm; remote serving back after
+   the restore. The kernels' launch counts are zeroed before the clean run
+   and read after it: one launch each per POST batch of all farms. Then
+   the port's verifyd-outage, fleet and byzantine-verifyd drills, twice
+   on the card (``ok``, the same digest) and once on the host CPU;
+10. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``, the PBKDF2 pair's packed-init
    shape under ``perlane``), with each later path's launches beside the
-   main path's (``tenants_launches``, ``verifyd_launches``).
+   main path's (``tenants_launches``, ``verifyd_launches``,
+   ``fleet_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Labels per unit are cut from mainnet's 2^32 to 2^20
@@ -127,6 +145,12 @@ VERIFYD_REQUEST = 256     # POST items per request (one full farm batch)
 VERIFYD_TAMPERED = 8      # one request in 8 carries a swapped index
 VERIFYD_SEED = hashlib.sha256(b"chip-smoke-verifyd-k3-seed").digest()
 SERIAL_SAMPLE = 256       # inline verifies timed for the serial rate
+# [fleet]: three verifyd replicas over HTTP behind one FleetVerifier
+FLEET_REPLICAS = 3
+FLEET_INFLIGHT = 2        # POST batches in flight per replica's farm
+FLEET_LOCAL_INFLIGHT = 1  # the node's local farm
+FLEET_CALLERS = 4         # concurrent callers of the fleet
+FLEET_DRILLS = ("verifyd-outage", "fleet", "byzantine-verifyd")
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLI = [sys.executable, "-m", "spacemesh_tpu_torch.post"]
 
@@ -1441,7 +1465,346 @@ def phase_verifyd(ctx: dict) -> None:
         f"first proof's lanes (a serial verify's shape), max_abs_err "
         f"{json.dumps(twins)}, in {twins_s:.1f} s")
     log(f"[verifyd] {ctx['smi']}")
-    ctx["verifyd"] = dict(launches=launches, twins=twins)
+    # the load and its serial inline verdicts, reused by [fleet]
+    ctx["verifyd"] = dict(launches=launches, twins=twins, posts=posts,
+                          mix=mix, serial=serial, mix_inline=mix_inline,
+                          rate=rate)
+
+
+def fleet_requests(posts: list, mix, clients: list) -> list:
+    """The ``[verifyd]`` load as the fleet's requests: the POST list in
+    requests of ``VERIFYD_REQUEST`` and one request per other kind spread
+    among them, each under one of ``clients`` in turn. Each entry is
+    (client id, items, index of its first POST or None, mixed indices)."""
+    out = []
+    for k, i in enumerate(range(0, len(posts), VERIFYD_REQUEST)):
+        out.append((clients[k % len(clients)], posts[i:i + VERIFYD_REQUEST],
+                    i, None))
+    by_kind: dict = {}
+    for i, r in enumerate(mix.requests):
+        by_kind.setdefault(r.kind, []).append(i)
+    step = max(len(out) // max(len(by_kind), 1), 1)
+    for j, idx in enumerate(by_kind.values()):
+        out.insert(j * (step + 1) + step // 2,
+                   (clients[j % len(clients)],
+                    [mix.requests[i] for i in idx], None, idx))
+    return out
+
+
+class WatchedEndpoint:
+    """A replica endpoint that counts the attempts made on it while its
+    listener is down (each attempt registers or verifies, and fails
+    there)."""
+
+    def __init__(self, endpoint):
+        self.endpoint = endpoint
+        self.down = False
+        self.calls_down = 0
+
+    def __getattr__(self, name):
+        return getattr(self.endpoint, name)
+
+    async def register(self, client, **kwargs):
+        self.calls_down += self.down
+        return await self.endpoint.register(client, **kwargs)
+
+    async def verify(self, reqs, **kwargs):
+        self.calls_down += self.down
+        return await self.endpoint.verify(reqs, **kwargs)
+
+
+async def drive_fleet(requests: list, n_posts: int, n_mix: int, *,
+                      params, seed: bytes, drill: bool,
+                      device="cuda") -> dict:
+    """``FLEET_REPLICAS`` in-process ``VerifydService`` replicas (shards
+    r0.., each over an injected farm of ``FLEET_INFLIGHT`` POST batches in
+    flight) served by the port's HTTP server on their own 127.0.0.1
+    ports, behind one ``FleetVerifier`` from ``fleet_from_urls`` over the
+    sockets with a local farm of ``FLEET_LOCAL_INFLIGHT``; ``requests``
+    sent by ``FLEET_CALLERS`` concurrent callers. With ``drill``: r1's
+    listener stops at a quarter of the requests and comes back on its
+    port at half; all three stop from 5/8 to 3/4 (the blackout), and the
+    next request waits until every replica's breaker lets its half-open
+    probe out. Returns the verdicts, a record per request and the
+    fleet's counters."""
+    import asyncio
+    import contextvars
+
+    from spacemesh_tpu_torch.obs import sli
+    from spacemesh_tpu_torch.utils import metrics
+    from spacemesh_tpu_torch.verify.farm import Lane, VerificationFarm
+    from spacemesh_tpu_torch.verifyd import (VerifydServer, VerifydService,
+                                             fleet_from_urls)
+
+    def farm(inflight):
+        return VerificationFarm(post_params=params, post_seed=seed,
+                                max_inflight=inflight, device=device)
+
+    names = [f"r{i}" for i in range(FLEET_REPLICAS)]
+    farms = [farm(FLEET_INFLIGHT) for _ in names]
+    local = farm(FLEET_LOCAL_INFLIGHT)
+    servers = [VerifydServer(service=VerifydService(
+        farm=f, shard=name, default_rate=1e9, default_burst=1e9,
+        device=device)) for f, name in zip(farms, names)]
+    served = contextvars.ContextVar("served")
+    fv = None
+    try:
+        ports = [await s.start() for s in servers]
+        fv = fleet_from_urls([f"http://127.0.0.1:{p}" for p in ports],
+                             farm=local)
+        fv.observer = lambda kind, **kw: (served.get().update(kw)
+                                          if kind == "served" else None)
+        fv.start()
+        router = fv.router
+        r1 = router.replicas["r1"]
+        watched = r1.endpoint = WatchedEndpoint(r1.endpoint)
+        sampler = sli.SliSampler(metrics.REGISTRY, window_s=3600.0)
+        sampler.sample()
+        n = len(requests)
+        state = {"phase": "clean", "next": 0}
+        marks: dict = {}
+        lock = asyncio.Lock()
+
+        async def fault(i: int) -> None:
+            if i == n // 4:
+                await servers[1].stop_listening()
+                watched.down = True
+                marks["r1_down"] = (r1.breaker.probes, i)
+                state["phase"] = "r1_down"
+            elif i == n // 2:
+                await servers[1].resume_listening()
+                watched.down = False
+                marks["r1_up"] = (r1.breaker.probes, i)
+                state["phase"] = "r1_back"
+            elif i == 5 * n // 8:
+                for srv in servers:
+                    await srv.stop_listening()
+                state["phase"] = "blackout"
+            elif i == 3 * n // 4:
+                for srv in servers:
+                    await srv.resume_listening()
+                wait = max(rep.breaker.retry_in() or 0.0
+                           for rep in router.replicas.values())
+                marks["probe_wait_s"] = wait
+                await asyncio.sleep(wait + 0.01)
+                state["phase"] = "restored"
+
+        records = [None] * n
+
+        async def caller() -> None:
+            while True:
+                async with lock:
+                    i = state["next"]
+                    if i >= n:
+                        return
+                    state["next"] += 1
+                    if drill:
+                        await fault(i)
+                    phase = state["phase"]
+                cid, reqs, _, _ = requests[i]
+                holder: dict = {}
+                served.set(holder)
+                t0 = time.perf_counter()
+                got = await fv.verify_batch(reqs, Lane.GOSSIP, client_id=cid)
+                records[i] = dict(verdicts=got, phase=phase,
+                                  lat=time.perf_counter() - t0,
+                                  path=holder.get("path"),
+                                  served_by=holder.get("served_by"))
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(caller() for _ in range(FLEET_CALLERS)))
+        wall = time.perf_counter() - t0
+        sampler.sample()
+        signals = router.update_signals(sampler.values(sli.fleet_slis(names)))
+        post_v, mix_v = [None] * n_posts, [None] * n_mix
+        for (_, reqs, at, idx), rec in zip(requests, records):
+            if at is not None:
+                post_v[at:at + len(reqs)] = rec["verdicts"]
+            else:
+                for i, v in zip(idx, rec["verdicts"]):
+                    mix_v[i] = v
+        return dict(post=post_v, mixed=mix_v, records=records, wall=wall,
+                    signals=signals, marks=marks, calls_down=watched.calls_down,
+                    failure_budget=r1.breaker.failure_budget,
+                    transitions=breaker_transitions(),
+                    stats=dict(fv.stats),
+                    batches={name: f.stats["batches"]
+                             for name, f in zip(names + ["local"],
+                                                farms + [local])})
+    finally:
+        if fv is not None:
+            await fv.aclose()
+        for srv in servers:
+            await srv.close()
+        for f in farms + [local]:
+            await f.aclose()
+
+
+def post_batches() -> int:
+    """POST batches dispatched so far by every farm in the process."""
+    from spacemesh_tpu_torch.utils import metrics
+
+    return sum(n for key, (_, _, n) in
+               metrics.verify_farm_dispatch_seconds.sample().items()
+               if dict(key).get("kind") == "post")
+
+
+def breaker_transitions() -> dict:
+    """{replica: {state: transitions}} from the breakers' counter (its
+    series go when the fleet closes: read it before)."""
+    from spacemesh_tpu_torch.utils import metrics
+
+    out: dict = {}
+    for key, v in metrics.remediation_breaker_transitions.sample().items():
+        lb = dict(key)
+        comp = lb.get("component", "")
+        if comp.startswith("verifyd.replica."):
+            out.setdefault(comp.rsplit(".", 1)[1], {})[lb["to"]] = int(v)
+    return out
+
+
+def run_drills(device) -> dict:
+    """The port's fleet drills on ``device``: {name: (ok, digest, s)}."""
+    from spacemesh_tpu_torch.sim import scenarios
+
+    out = {}
+    for name in FLEET_DRILLS:
+        t0 = time.perf_counter()
+        r = scenarios.run(scenarios.builtin(name), device=device)
+        out[name] = (r.ok, r.digest, time.perf_counter() - t0,
+                     [a for a in r.asserts if not a["ok"]])
+    return out
+
+
+def phase_fleet(ctx: dict) -> None:
+    import asyncio
+
+    import torch
+    from spacemesh_tpu_torch.post import prover
+
+    v = ctx["verifyd"]
+    posts, mix, serial, mix_inline = (v["posts"], v["mix"], v["serial"],
+                                      v["mix_inline"])
+    clients = [tid for tid, _, _ in ctx["tenants"]["ids"]]
+    requests = fleet_requests(posts, mix, clients)
+    params = prover.ProofParams()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    zero_launches()
+    b0 = post_batches()
+    clean = asyncio.run(drive_fleet(requests, len(posts), len(mix.requests),
+                                    params=params, seed=VERIFYD_SEED,
+                                    drill=False))
+    launches = launch_counts()
+    batches = post_batches() - b0
+    # the closed farms' streams leave their V scratch in the allocator's
+    # cache: hand it back before the drill's farms are made
+    torch.cuda.empty_cache()
+    drill = asyncio.run(drive_fleet(requests, len(posts), len(mix.requests),
+                                    params=params, seed=VERIFYD_SEED,
+                                    drill=True))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    mem = torch.cuda.memory_stats()
+    torch.cuda.empty_cache()
+    fleet_s = time.perf_counter() - t_phase
+    transitions = drill["transitions"]
+
+    for name, run in (("clean", clean), ("drill", drill)):
+        require(run["post"] == serial, f"{name} run: every POST verdict "
+                "through the fleet == the serial inline verdict on the card")
+        require(run["mixed"] == mix_inline, f"{name} run: sig/vrf/membership"
+                "/pow verdicts through the fleet == inline")
+    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish"):
+        require(launches[key] == batches, f"the clean run launched {key} "
+                f"once per POST batch of all farms ({launches[key]} "
+                f"launches, {batches} batches): no ROMix launch was split")
+    require(launches["scan"] == 0, "verification launches no scan")
+    recs = drill["records"]
+    down = drill["marks"]
+    probes = down["r1_up"][0] - down["r1_down"][0]
+    require(drill["calls_down"] <= drill["failure_budget"] + probes,
+            f"attempts on r1 while it was down ({drill['calls_down']}) <= "
+            f"its failure budget ({drill['failure_budget']}) + the half-open "
+            f"probes ({probes})")
+    black = [r for r in recs if r["phase"] == "blackout"]
+    require(black and all(r["path"] in ("local", "local_fastfail")
+                          for r in black),
+            f"the local farm served every request of the blackout "
+            f"({[r['path'] for r in black]})")
+    after = [r for r in recs if r["phase"] == "restored"]
+    require(any(r["path"] == "remote" for r in after),
+            f"remote serving came back after the restore "
+            f"({[r['path'] for r in after]})")
+    require(clean["stats"]["local"] + clean["stats"]["local_fastfail"] == 0,
+            "the clean run was served by the replicas alone")
+
+    t0 = time.perf_counter()
+    card = [run_drills("cuda"), run_drills("cuda")]
+    cpu = run_drills("cpu")
+    drills_s = time.perf_counter() - t0
+    for name in FLEET_DRILLS:
+        for run in card:
+            require(run[name][0], f"drill {name} ok on the card "
+                                  f"({run[name][3]})")
+        require(card[0][name][1] == card[1][name][1],
+                f"drill {name}: the same digest twice on the card")
+        require(cpu[name][0], f"drill {name} ok on the host CPU")
+
+    n_posts = len(posts)
+    lat = sorted(r["lat"] for r in clean["records"])
+    rate = n_posts / clean["wall"]
+    by_rep: dict = {}
+    for r in clean["records"]:
+        by_rep[r["served_by"]] = by_rep.get(r["served_by"], 0) + 1
+    log(f"[fleet] {FLEET_REPLICAS} VerifydService replicas (shards "
+        f"r0..r{FLEET_REPLICAS - 1}, farms of {FLEET_INFLIGHT} POST batches "
+        f"in flight) each on its own 127.0.0.1 HTTP port, behind "
+        f"fleet_from_urls with a local farm of {FLEET_LOCAL_INFLIGHT}; the "
+        f"[verifyd] load ({n_posts} POST requests, {len(mix.requests)} other "
+        f"items) as {len(requests)} requests of up to {VERIFYD_REQUEST} from "
+        f"{FLEET_CALLERS} callers under the {len(clients)} identities")
+    log(f"[fleet] clean: {rate:.0f} proofs verified/s through the fleet "
+        f"({n_posts} in {clean['wall']:.3f} s; [verifyd] in-process "
+        f"{v['rate']:.0f}/s in this call); request latency p50 "
+        f"{statistics.median(lat):.3f} s, p99 "
+        f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.3f} s; requests per "
+        f"replica {json.dumps(dict(sorted(by_rep.items())))}; farm batches "
+        f"{json.dumps(clean['batches'])}; fleet_desired_replicas "
+        f"{clean['signals']['desired_replicas']} (load scores "
+        f"{json.dumps({k: round(x, 4) for k, x in clean['signals']['scores'].items()})})")
+    paths: dict = {}
+    for r in recs:
+        key = f"{r['phase']}:{r['path']}"
+        paths[key] = paths.get(key, 0) + 1
+    log(f"[fleet] drill: served by phase and path {json.dumps(paths)}; "
+        f"attempts on r1 while down {drill['calls_down']} (budget "
+        f"{drill['failure_budget']} + {probes} probes); breaker transitions "
+        f"{json.dumps(transitions, sort_keys=True)}; blackout "
+        f"{len(black)} requests, all on the local farm; after the restore "
+        f"(next request held {down['probe_wait_s']:.2f} s for the probes) "
+        f"{sum(r['path'] == 'remote' for r in after)} of {len(after)} remote; "
+        f"fleet stats {json.dumps(drill['stats'])}; proofs/s "
+        f"{n_posts / drill['wall']:.0f}")
+    log(f"[fleet] launches in the clean run {json.dumps(launches)} == "
+        f"{batches} POST batches over the {FLEET_REPLICAS + 1} farms; peak "
+        f"device memory over both runs: allocated {peak / 2**30:.2f} GiB, "
+        f"reserved {peak_reserved / 2**30:.2f} GiB (V cap "
+        f"{FLEET_REPLICAS * FLEET_INFLIGHT + FLEET_LOCAL_INFLIGHT} x 9.25 "
+        f"GiB); allocator retries {mem.get('num_alloc_retries', 0)}, OOMs "
+        f"{mem.get('num_ooms', 0)}")
+    log("[fleet] drills on the card, twice: " + ", ".join(
+        f"{n} ok {card[0][n][1]} == {card[1][n][1]} "
+        f"({card[0][n][2]:.1f} s, {card[1][n][2]:.1f} s); host CPU digest "
+        f"{cpu[n][1]} ({'equal' if cpu[n][1] == card[0][n][1] else 'DIFFERS'})"
+        for n in FLEET_DRILLS) + f"; {drills_s:.1f} s")
+    log(f"[fleet] phase {time.perf_counter() - t_phase:.1f} s (both fleet "
+        f"runs {fleet_s:.1f} s, drills {drills_s:.1f} s)")
+    log(f"[fleet] {ctx['smi']}")
+    ctx["fleet"] = dict(launches=launches)
 
 
 def path_twins(commits, indices) -> dict:
@@ -1580,6 +1943,7 @@ def main() -> int:
     phase_worker(ctx)
     phase_tenants(ctx)
     phase_verifyd(ctx)
+    phase_fleet(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
              "scan": {"full_width": {k: ctx["scan_full"][k] for k in (
@@ -1591,6 +1955,7 @@ def main() -> int:
     for key in extra:
         extra[key]["tenants_launches"] = ctx["tenants"]["launches"][key]
         extra[key]["verifyd_launches"] = ctx["verifyd"]["launches"][key]
+        extra[key]["fleet_launches"] = ctx["fleet"]["launches"][key]
         if key != "scan":
             extra[key]["verifyd_max_abs_err"] = {
                 shape: errs[key] for shape, errs

@@ -12,12 +12,18 @@ the verification farm, verifyd and its client use).
   verifyd register ``reset_farm_lanes``). Unregistering a breaker removes
   its metric series.
 
+The breaker has the JAX package's semantics for everything the verifyd
+fleet and failover client call (``fleet.py``, ``failover.py``): the
+seeded reopen jitter, the transition callback, the ``retry_after_s``
+floor on the reopen delay, probe abort, ``retry_in`` and the state
+documents, and the registries' readers (``get``, ``names``, ``states``,
+``snapshot``).
+
 Left out against the JAX package, for the instrumentation item of the
 port, together with the ``RemediationEngine`` and declarative recovery
-policy that would use them: the QUARANTINED state and its escalation,
-the breaker's transition callback, probe abort and manual reset, its
-state documents and the registries' readers, and the other recovery
-action kinds.
+policy that would use them: the QUARANTINED state and its escalation
+(``quarantine_after``, ``quarantine()``), manual ``reset()``, and the
+other recovery action kinds.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import random
 import threading
 import time
 from collections import deque
-from typing import Callable
+from typing import Callable, Optional
 
 from ..utils import metrics
 
@@ -94,7 +100,9 @@ class CircuitBreaker:
     record outcomes while the event loop asks :meth:`allow`.
 
     The reopen cooldown is :func:`backoff_delay` over the consecutive
-    open count.
+    open count, floored at the peer's ``retry_after_s`` when the
+    failure carried one (a shedding verifyd's hint drives exactly when
+    the half-open probe goes out).
     """
 
     def __init__(self, component: str, *,
@@ -102,18 +110,24 @@ class CircuitBreaker:
                  window_s: float = 30.0,
                  cooldown_s: float = 5.0,
                  cooldown_cap_s: float = 120.0,
-                 time_source: Callable[[], float] = time.monotonic):
+                 seed: int = 0,
+                 time_source: Callable[[], float] = time.monotonic,
+                 on_transition: Optional[Callable[[str, str], None]] = None):
         self.component = str(component)
         self.failure_budget = max(int(failure_budget), 1)
         self.window_s = float(window_s)
         self.cooldown_s = float(cooldown_s)
         self.cooldown_cap_s = float(cooldown_cap_s)
+        self.seed = int(seed)
         self._now = time_source
+        self._on_transition = on_transition
         self.state = CLOSED
         self._failures: deque[float] = deque()
         self._retry_at: float | None = None
         self._open_streak = 0        # consecutive opens, reset on close
         self._probing = False
+        self.opens = 0               # lifetime transitions into OPEN
+        self.probes = 0              # half-open probes granted
         self._registered = False
         self._lock = threading.Lock()
 
@@ -123,18 +137,20 @@ class CircuitBreaker:
         # guarded by: self._lock — every caller holds it
         if to == self.state:
             return
-        self.state = to
+        frm, self.state = self.state, to
         if self._registered:
             metrics.remediation_breaker_state.set(
                 STATE_CODES[to], component=self.component)
             metrics.remediation_breaker_transitions.inc(
                 component=self.component, to=to)
+        if self._on_transition is not None:
+            self._on_transition(frm, to)
 
-    def allow(self) -> bool:
+    def allow(self, now: float | None = None) -> bool:
         """May an attempt go out right now?  CLOSED: yes.  OPEN: no
         until the cooldown elapses, then exactly ONE half-open probe.
         HALF_OPEN: no while that probe is unresolved."""
-        t = self._now()
+        t = self._now() if now is None else float(now)
         with self._lock:
             if self.state == CLOSED:
                 return True
@@ -142,15 +158,17 @@ class CircuitBreaker:
                 if self._retry_at is not None and t >= self._retry_at:
                     self._transition(HALF_OPEN)
                     self._probing = True
+                    self.probes += 1
                     return True
                 return False
             # HALF_OPEN: the single probe is out; a second caller waits
             if not self._probing:
                 self._probing = True
+                self.probes += 1
                 return True
             return False
 
-    def record_success(self) -> None:
+    def record_success(self, now: float | None = None) -> None:
         with self._lock:
             if self.state in (HALF_OPEN, OPEN):
                 _log.info("breaker %s: probe ok, closing", self.component)
@@ -160,40 +178,73 @@ class CircuitBreaker:
             self._retry_at = None
             self._transition(CLOSED)
 
-    def record_failure(self) -> None:
-        t = self._now()
+    def record_failure(self, now: float | None = None,
+                       retry_after_s: float | None = None) -> None:
+        t = self._now() if now is None else float(now)
         with self._lock:
             if self.state in (HALF_OPEN, OPEN):
                 # failed probe (or a straggler failing while open):
                 # reopen with an ESCALATED cooldown
                 self._probing = False
-                self._open(t)
+                self._open(t, retry_after_s)
                 return
             self._failures.append(t)
             while self._failures and self._failures[0] < t - self.window_s:
                 self._failures.popleft()
             if len(self._failures) >= self.failure_budget:
-                self._open(t)
+                self._open(t, retry_after_s)
 
-    def _open(self, t: float) -> None:
+    def _open(self, t: float, retry_after_s: float | None) -> None:
         # guarded by: self._lock — record_failure is the only caller
+        self.opens += 1
         self._open_streak += 1
         cooldown = backoff_delay(self._open_streak - 1,
                                  base_s=self.cooldown_s,
-                                 cap_s=self.cooldown_cap_s)
+                                 cap_s=self.cooldown_cap_s,
+                                 retry_after_s=retry_after_s,
+                                 seed=self.seed)
         self._retry_at = t + cooldown
         self._failures.clear()
         _log.warning("breaker %s: open (streak %d), half-open probe in "
                      "%.3fs", self.component, self._open_streak, cooldown)
         self._transition(OPEN)
 
-    def retry_in(self) -> float | None:
+    def abort_probe(self) -> None:
+        """Release a granted probe slot WITHOUT a verdict — the attempt
+        resolved in a way that says nothing about the peer's health (a
+        config-class shed, a cancelled caller).  Every ``allow() ==
+        True`` in HALF_OPEN must reach exactly one of
+        record_success/record_failure/abort_probe, or the breaker wedges
+        with the probe slot held and fast-fails forever."""
+        with self._lock:
+            self._probing = False
+
+    # -- introspection --------------------------------------------------
+
+    def retry_in(self, now: float | None = None) -> float | None:
         """Seconds until the half-open probe while OPEN, else None."""
-        t = self._now()
+        t = self._now() if now is None else float(now)
         with self._lock:
             if self.state != OPEN or self._retry_at is None:
                 return None
             return max(self._retry_at - t, 0.0)
+
+    def state_doc(self, now: float | None = None) -> dict:
+        t = self._now() if now is None else float(now)
+        with self._lock:
+            return {
+                "component": self.component,
+                "state": self.state,
+                "failures_in_window": len(self._failures),
+                "failure_budget": self.failure_budget,
+                "window_s": self.window_s,
+                "open_streak": self._open_streak,
+                "opens": self.opens,
+                "probes": self.probes,
+                "retry_in_s": (round(max(self._retry_at - t, 0.0), 6)
+                               if self.state == OPEN
+                               and self._retry_at is not None else None),
+            }
 
 
 class BreakerRegistry:
@@ -237,6 +288,24 @@ class BreakerRegistry:
         metrics.remediation_breaker_transitions.remove_matching(
             component=breaker.component)
 
+    def get(self, component: str) -> CircuitBreaker | None:
+        with self._lock:
+            return self._breakers.get(component)
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._breakers)
+
+    def states(self) -> dict[str, str]:
+        with self._lock:
+            items = list(self._breakers.items())
+        return {name: br.state for name, br in sorted(items)}
+
+    def snapshot(self) -> dict[str, dict]:
+        with self._lock:
+            items = list(self._breakers.items())
+        return {name: br.state_doc() for name, br in sorted(items)}
+
 
 BREAKERS = BreakerRegistry()
 
@@ -255,6 +324,10 @@ class HookRegistry:
                  hook: Callable[[], object]) -> None:
         with self._lock:
             self._hooks[(str(component), str(action))] = hook
+
+    def get(self, component: str, action: str):
+        with self._lock:
+            return self._hooks.get((str(component), str(action)))
 
     def unregister(self, component: str, action: str,
                    hook: Callable[[], object] | None = None) -> None:

@@ -5,8 +5,11 @@ registry and the exposition format, with the same names, labels and
 buckets. Only the instruments the port records are defined here: the
 ``post_store_*`` family (label-store reads, fsyncs, fault injections,
 recovery, ENOSPC parking), ``post_prove_inflight`` (the gRPC worker's
-proving sessions) and the ``runtime_*`` family (the device-job engine and
-the multi-tenant scheduler, ``runtime/``).
+proving sessions), the ``runtime_*`` family (the device-job engine and
+the multi-tenant scheduler, ``runtime/``), the verification farm's and
+verifyd's, the breakers' and the verifyd fleet's (``failover_*``,
+``fleet_*``, ``federated_procs``). ``Registry.sample()`` and scrape-time
+collectors feed the windowed SLIs (``obs/sli.py``).
 """
 
 from __future__ import annotations
@@ -157,6 +160,7 @@ class Histogram(_Instrument):
 class Registry:
     def __init__(self) -> None:
         self._instruments: dict[str, _Instrument] = {}
+        self._collectors: list = []
         self._lock = threading.Lock()
 
     def counter(self, name: str, help_: str = "") -> Counter:
@@ -189,8 +193,46 @@ class Registry:
                                 f"{type(inst).__name__}")
             return inst
 
+    # --- scrape-time collectors ---------------------------------------
+
+    def add_collector(self, fn) -> None:
+        """Register a zero-arg hook run before every scrape/sample: it
+        recomputes gauges whose truth lives elsewhere (process RSS, open
+        fds) at observation time instead of trusting the last write."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def run_collectors(self) -> None:
+        with self._lock:
+            fns = list(self._collectors)
+        for fn in fns:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — one bad hook ≠ dead scrape
+                pass
+
+    def sample(self) -> dict[str, tuple[str, object]]:
+        """Run collectors, then snapshot every instrument:
+        {name: (kind, data)} where kind is counter/gauge/histogram and
+        data is the instrument's ``sample()`` (histograms additionally
+        carry their bucket bounds). The SLI sampler diffs two of these."""
+        self.run_collectors()
+        with self._lock:
+            instruments = list(self._instruments.items())
+        out: dict[str, tuple[str, object]] = {}
+        for name, inst in instruments:
+            if isinstance(inst, Histogram):
+                out[name] = ("histogram", {"buckets": inst.buckets,
+                                           "series": inst.sample()})
+            elif isinstance(inst, Counter):
+                out[name] = ("counter", inst.sample())
+            else:
+                out[name] = ("gauge", inst.sample())
+        return out
+
     def expose(self) -> str:
         """Every instrument in the text exposition format."""
+        self.run_collectors()
         with self._lock:
             instruments = list(self._instruments.values())
         lines: list[str] = []
@@ -331,10 +373,84 @@ verifyd_batchtune_races = REGISTRY.counter(
     "verifyd_batchtune_races_total",
     "batch-size calibration races run (persisted-rates cache misses)")
 
-# circuit breakers (obs/remediate.py) around the farm's per-kind backends
+# runtime collectors (obs/sli.py register_runtime_collectors): recomputed
+# by scrape-time hooks, not trusted last writes
+process_rss_bytes = REGISTRY.gauge(
+    "process_resident_memory_bytes", "resident set size")
+process_open_fds = REGISTRY.gauge(
+    "process_open_fds", "open file descriptors")
+
+# circuit breakers (obs/remediate.py) around the farm's per-kind backends,
+# the failover client and each fleet replica. Per-component breaker series
+# are REMOVED when the breaker unregisters.
+remediation_actions = REGISTRY.counter(
+    "remediation_actions_total",
+    "recovery actions decided by the remediation engine "
+    "(labels: component, action, outcome)")
 remediation_breaker_state = REGISTRY.gauge(
     "remediation_breaker_state",
     "0 closed, 1 open, 2 half-open (label: component)")
 remediation_breaker_transitions = REGISTRY.counter(
     "remediation_breaker_transitions_total",
     "breaker state transitions (labels: component, to)")
+
+# verifyd failover client (verifyd/failover.py): requests by serving
+# path, and the latency the node actually saw regardless of path — the
+# signal that proves a verifyd outage never dented the BLOCK lane.
+failover_requests = REGISTRY.counter(
+    "failover_requests_total",
+    "failover verifier batches by serving path "
+    "(labels: path=remote|local|local_fastfail, lane)")
+failover_verify_seconds = REGISTRY.histogram(
+    "failover_verify_seconds",
+    "failover verifier batch latency by serving path "
+    "(labels: path, lane)",
+    buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0, float("inf")))
+
+# verifyd fleet (verifyd/fleet.py + routing.py): the replica-sharded
+# service plane.  Per-replica series are REMOVED when the replica
+# unregisters from the router, so fleet membership churn cannot grow the
+# registry without bound.
+fleet_replicas = REGISTRY.gauge(
+    "fleet_replicas", "verifyd replicas registered on the router")
+fleet_desired_replicas = REGISTRY.gauge(
+    "fleet_desired_replicas",
+    "autoscaling signal: replicas the fleet's windowed load wants")
+fleet_replica_load = REGISTRY.gauge(
+    "fleet_replica_load_score",
+    "windowed load score per replica, ~1.0 = at target (label: replica)")
+fleet_clients = REGISTRY.gauge(
+    "fleet_clients", "clients placed by the fleet router")
+fleet_requests = REGISTRY.counter(
+    "fleet_requests_total",
+    "fleet verifier batches by serving path "
+    "(labels: path=<replica>|local|local_fastfail, lane)")
+fleet_verify_seconds = REGISTRY.histogram(
+    "fleet_verify_seconds",
+    "fleet verifier batch latency by origin "
+    "(labels: path=remote|local|local_fastfail, lane)",
+    buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0, float("inf")))
+fleet_replica_verify_seconds = REGISTRY.histogram(
+    "fleet_replica_verify_seconds",
+    "per-replica remote verify latency — the steal/autoscale queue-wait "
+    "signal (labels: replica, lane)",
+    buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0, float("inf")))
+fleet_replica_sheds = REGISTRY.counter(
+    "fleet_replica_sheds_total",
+    "typed sheds seen per replica — the steal/autoscale pressure "
+    "signal (labels: replica, reason)")
+fleet_reroutes = REGISTRY.counter(
+    "fleet_reroutes_total",
+    "clients moved between replicas (labels: reason)")
+fleet_steals = REGISTRY.counter(
+    "fleet_steals_total",
+    "batches stolen from a hot replica (labels: src, dst)")
+fleet_audit_divergence = REGISTRY.counter(
+    "fleet_audit_divergence_total",
+    "remote batches whose spot-checked verdicts diverged from the "
+    "local farm — byzantine replica detections (label: replica)")
+federated_procs = REGISTRY.gauge(
+    "federated_procs",
+    "processes with a live federated snapshot in obs.federate "
+    "(labels: state=live|crashed); crashed snapshots are retained "
+    "for forensics until explicitly dropped")

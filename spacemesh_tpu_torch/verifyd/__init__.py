@@ -12,20 +12,30 @@ into the farm's device batchers, on one card.
     python -m spacemesh_tpu_torch.verifyd --listen 127.0.0.1:9443
 
 Layout: service.py (admission core), server.py (sockets; the only
-module that imports aiohttp), client.py (client library), batchtune.py
-(measured batch-size model), protocol.py (wire codec). ``VerifydServer``
-is imported on first use, so importing this package needs no aiohttp.
-Not ported yet: the multi-replica fleet (routing.py, fleet.py,
-failover.py).
+module that imports aiohttp at module level), client.py (client
+library), batchtune.py (measured batch-size model), protocol.py (wire
+codec), routing.py (consistent-hash placement), fleet.py (multi-replica
+router/verifier), failover.py (remote→local). ``VerifydServer`` is
+imported on first use, so importing this package needs no aiohttp.
 """
 
 from .batchtune import BatchTuner
 from .client import RetryPolicy, VerifydClient
+from .failover import FailoverVerifier
+from .fleet import (FleetRouter, FleetVerifier, HttpReplicaEndpoint,
+                    fleet_from_urls)
 from .protocol import ProtocolError, request_from_doc, request_to_doc
+from .routing import HashRing, Placement
 from .service import Shed, VerifydClosed, VerifydService
 
 __all__ = [
     "BatchTuner",
+    "FailoverVerifier",
+    "FleetRouter",
+    "FleetVerifier",
+    "HashRing",
+    "HttpReplicaEndpoint",
+    "Placement",
     "ProtocolError",
     "RetryPolicy",
     "Shed",
@@ -33,6 +43,7 @@ __all__ = [
     "VerifydClosed",
     "VerifydServer",
     "VerifydService",
+    "fleet_from_urls",
     "request_from_doc",
     "request_to_doc",
 ]

@@ -29,11 +29,13 @@ and when to retry.  gRPC returns the same doc with 200-style status
 (the doc's ``status`` field discriminates), so both transports shed
 loudly and identically.
 
-Left out against the JAX package, for the instrumentation item of the
-port: the ``/debug/trace/*`` capture routes, the SLO health engine behind
-``/readyz`` (readiness here is every registered probe healthy), and the
-federated series of ``/metrics``; a ``trace_parent`` field in a verify
-body is ignored.
+``/metrics`` appends the federated series (``obs/federate.py``) after the
+local registry's. A service that is one fleet replica (``shard=``) names
+its ``replica_hint`` in every ``shutting_down`` shed this front-end
+makes. Left out against the JAX package, for the instrumentation item of
+the port: the ``/debug/trace/*`` capture routes and the SLO health engine
+behind ``/readyz`` (readiness here is every registered probe healthy); a
+``trace_parent`` field in a verify body is ignored.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import json
 
 from aiohttp import web
 
+from ..obs.federate import FEDERATION
 from ..utils.metrics import REGISTRY
 from . import protocol
 from .service import Shed, VerifydClosed, VerifydService
@@ -85,6 +88,7 @@ class VerifydServer:
         self.web_app = web.Application()
         self._routes()
         self.runner: web.AppRunner | None = None
+        self._site: web.TCPSite | None = None
         self.actual_port: int | None = None
         self.grpc_port: int | None = None
         self._grpc_server = None
@@ -109,11 +113,32 @@ class VerifydServer:
         await self.service.start()
         self.runner = web.AppRunner(self.web_app)
         await self.runner.setup()
-        site = web.TCPSite(self.runner, self.host, self.port)
-        await site.start()
-        self.actual_port = site._server.sockets[0].getsockname()[1]
+        self._site = web.TCPSite(self.runner, self.host, self.port,
+                                 reuse_address=True)
+        await self._site.start()
+        self.actual_port = self._site._server.sockets[0].getsockname()[1]
         if self.grpc_listen is not None:
             await self._start_grpc()
+        return self.actual_port
+
+    async def stop_listening(self, grace_s: float = 0.1) -> None:
+        """Close the HTTP listener and its open connections (requests
+        still running after ``grace_s`` are cancelled) while the service,
+        its clients' registrations and its farm keep running: to a
+        caller the replica is gone until :meth:`resume_listening` binds
+        the same port again."""
+        if self._site is None:
+            return
+        await self._site.stop()
+        self._site = None
+        await self.runner.server.shutdown(grace_s)
+
+    async def resume_listening(self) -> int:
+        """Bind the HTTP listener again on the port it had."""
+        if self._site is None:
+            self._site = web.TCPSite(self.runner, self.host,
+                                     self.actual_port, reuse_address=True)
+            await self._site.start()
         return self.actual_port
 
     async def _start_grpc(self) -> None:
@@ -160,8 +185,13 @@ class VerifydServer:
         if self.runner is not None:
             await self.runner.cleanup()
             self.runner = None
+            self._site = None
 
     # -- shared handler bodies ------------------------------------------
+
+    def _closed_shed(self, exc: VerifydClosed) -> dict:
+        return Shed(protocol.SHED_SHUTTING_DOWN, str(exc),
+                    replica_hint=self.service.replica_hint).to_doc()
 
     def _do_register(self, body: dict) -> dict:
         if not isinstance(body, dict) or "client" not in body:
@@ -219,7 +249,7 @@ class VerifydServer:
             return _shed_response(e)
         except VerifydClosed as e:
             return web.json_response(
-                Shed(protocol.SHED_SHUTTING_DOWN, str(e)).to_doc(),
+                self._closed_shed(e),
                 status=503)
 
     async def client_unregister(self, req) -> web.Response:
@@ -240,7 +270,7 @@ class VerifydServer:
             return _shed_response(e)
         except VerifydClosed as e:
             return web.json_response(
-                Shed(protocol.SHED_SHUTTING_DOWN, str(e)).to_doc(),
+                self._closed_shed(e),
                 status=503)
 
     async def stats(self, req) -> web.Response:
@@ -261,7 +291,7 @@ class VerifydServer:
 
     async def metrics(self, req) -> web.Response:
         del req
-        return web.Response(text=REGISTRY.expose(),
+        return web.Response(text=REGISTRY.expose() + FEDERATION.expose(),
                             content_type="text/plain")
 
     async def healthz(self, req) -> web.Response:
@@ -291,7 +321,7 @@ class VerifydServer:
         except Shed as e:
             return e.to_doc()
         except VerifydClosed as e:
-            return Shed(protocol.SHED_SHUTTING_DOWN, str(e)).to_doc()
+            return self._closed_shed(e)
 
     async def _grpc_unregister(self, doc: dict) -> dict:
         cid = doc.get("client")
@@ -308,7 +338,7 @@ class VerifydServer:
         except Shed as e:
             return e.to_doc()
         except VerifydClosed as e:
-            return Shed(protocol.SHED_SHUTTING_DOWN, str(e)).to_doc()
+            return self._closed_shed(e)
 
     async def _grpc_stats(self, doc: dict) -> dict:
         del doc

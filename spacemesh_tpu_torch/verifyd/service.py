@@ -30,11 +30,14 @@ Verdicts are bit-identical to inline verification — admission and
 batching are scheduling, never semantics (the farm contract).
 
 The service takes ``device=`` (default ``"cuda"``; it raises without a
-card) and hands it to its own farm, scheduler and batch tuner. Left out
-against the JAX package: the spans and the ``trace_parent`` link of
-``verify`` (the instrumentation item of the port), and the fleet's
-``shard`` namespacing and ``replica_hint`` (no fleet yet; a ``Shed``
-still carries a hint a JAX replica sends, for the client).
+card) and hands it to its own farm, scheduler and batch tuner. ``shard=``
+makes it one replica of a verifyd fleet in a process shared with others
+(``verifyd/fleet.py``): tenant ids, the health component, the recovery
+hook and the per-client metric identities are shard-namespaced, and
+``replica_hint`` names a peer in the ``registry_full`` and
+``shutting_down`` sheds. Left out against the JAX package: the spans and
+the ``trace_parent`` link of ``verify`` (the instrumentation item of the
+port).
 
 Shutdown (``aclose``) stops admission (``shutting_down`` sheds), drains
 admitted work, then closes the scheduler and farm — zero stranded
@@ -170,10 +173,22 @@ class VerifydService:
                  genesis_id: bytes | None = None,
                  stall_deadline_s: float = 30.0,
                  drain_timeout_s: float = 60.0,
+                 shard: str = "",
+                 replica_hint: str | None = None,
                  time_source=time.monotonic,
                  device="cuda"):
         self.device = resolve(device)
         self._now = time_source
+        # fleet shard name (verifyd/fleet.py): namespaces this
+        # replica's tenant ids, per-client metric series, watchdog and
+        # remediation hook, so N replicas can share one process — and
+        # one registry, and one device scheduler — without colliding
+        self.shard = str(shard)
+        self._component = f"verifyd.{self.shard}" if self.shard \
+            else "verifyd"
+        # a fleet peer worth trying when THIS replica is full or
+        # draining; rides in registry_full/shutting_down shed docs
+        self.replica_hint = replica_hint
         self.max_clients = max(int(max_clients), 1)
         self.max_pending_items = max(int(max_pending_items), 1)
         self._default_rate = float(default_rate)
@@ -206,6 +221,11 @@ class VerifydService:
                             default_max_queued=default_max_queued,
                             default_max_inflight=default_max_inflight,
                             time_source=time_source, device=self.device)
+        if self.shard:
+            # shard-namespaced tenant ids (runtime/scheduler.py
+            # ShardScheduler): fleet replicas sharing one device
+            # runtime must not collide on client identity
+            self.scheduler = self.scheduler.namespaced(self.shard)
         # client table + pending counters are LOOP-ONLY by contract:
         # admission runs on the event loop, scheduler quanta only touch
         # the farm (no lock needed; the sim scenario and tests drive one
@@ -225,7 +245,7 @@ class VerifydService:
         # resolved counter must advance within the deadline — a wedged
         # farm backend or dead scheduler worker shows on /readyz
         self._watchdog = health_mod.Watchdog(
-            "verifyd",
+            self._component,
             progress=lambda: self.stats["resolved_items"],
             active=lambda: self._pending_items > 0,
             deadline_s=stall_deadline_s)
@@ -239,12 +259,12 @@ class VerifydService:
         from ..obs import health as health_mod
         from ..obs import remediate as remediate_mod
 
-        health_mod.HEALTH.register("verifyd", self._watchdog.check)
+        health_mod.HEALTH.register(self._component, self._watchdog.check)
         # recovery hook beside the watchdog (obs/remediate.py): a
         # wedged-drain verdict resets the farm's lanes — stuck client
         # requests fail typed and re-submit instead of pinning the
         # service until an operator restart
-        remediate_mod.ACTIONS.register("verifyd",
+        remediate_mod.ACTIONS.register(self._component,
                                        remediate_mod.RESET_FARM_LANES,
                                        self.farm.reset_lanes)
         await asyncio.to_thread(self.tuner.ensure_raced)
@@ -269,19 +289,38 @@ class VerifydService:
             from ..obs import health as health_mod
             from ..obs import remediate as remediate_mod
 
-            health_mod.HEALTH.unregister("verifyd",
+            health_mod.HEALTH.unregister(self._component,
                                          self._watchdog.check)
             remediate_mod.ACTIONS.unregister(
-                "verifyd", remediate_mod.RESET_FARM_LANES,
+                self._component, remediate_mod.RESET_FARM_LANES,
                 self.farm.reset_lanes)
+            if self.shard:
+                # this shard's service-level gauge series go with it
+                metrics.verifyd_clients.remove(shard=self.shard)
+                metrics.verifyd_pending.remove(shard=self.shard)
 
     # -- clients --------------------------------------------------------
 
+    def _mcid(self, cid: str) -> str:
+        """The client's metric-label identity: shard-namespaced so a
+        client re-routed between fleet replicas in one process never
+        shares (or clobbers) series across shards — and the OLD shard's
+        unregister_client drops exactly its own series."""
+        return f"{self.shard}/{cid}" if self.shard else cid
+
     def _gauge_clients(self) -> None:
-        metrics.verifyd_clients.set(len(self.clients))
+        if self.shard:
+            metrics.verifyd_clients.set(len(self.clients),
+                                        shard=self.shard)
+        else:
+            metrics.verifyd_clients.set(len(self.clients))
 
     def _gauge_pending(self) -> None:
-        metrics.verifyd_pending.set(self._pending_items)
+        if self.shard:
+            metrics.verifyd_pending.set(self._pending_items,
+                                        shard=self.shard)
+        else:
+            metrics.verifyd_pending.set(self._pending_items)
 
     def register_client(self, cid: str, *, weight: float | None = None,
                         rate: float | None = None,
@@ -299,11 +338,12 @@ class VerifydService:
         now = self._now()
         if c is None:
             if len(self.clients) >= self.max_clients:
-                metrics.verifyd_shed.inc(client="-",
+                metrics.verifyd_shed.inc(client=self._mcid("-"),
                                          reason=protocol.SHED_REGISTRY_FULL)
                 raise Shed(protocol.SHED_REGISTRY_FULL,
                            f"{len(self.clients)} clients registered "
-                           f">= max_clients {self.max_clients}")
+                           f">= max_clients {self.max_clients}",
+                           replica_hint=self.replica_hint)
             self.scheduler.register_tenant(
                 cid, weight=weight if weight is not None else 1.0,
                 max_queued=max_queued, max_inflight=max_inflight)
@@ -343,10 +383,11 @@ class VerifydService:
             return False
         self.scheduler.unregister_tenant(c.id)
         self._gauge_clients()
-        metrics.verifyd_client_pending.remove(client=c.id)
+        mcid = self._mcid(c.id)
+        metrics.verifyd_client_pending.remove(client=mcid)
         for inst in (metrics.verifyd_requests, metrics.verifyd_items,
                      metrics.verifyd_shed):
-            inst.remove_matching(client=c.id)
+            inst.remove_matching(client=mcid)
         return True
 
     # -- admission ------------------------------------------------------
@@ -357,10 +398,13 @@ class VerifydService:
         if c is not None:
             c.shed += 1
         self.stats["shed"][reason] = self.stats["shed"].get(reason, 0) + 1
-        label = cid if c is not None else "-"
-        metrics.verifyd_shed.inc(client=label, reason=reason)
-        metrics.verifyd_requests.inc(client=label, outcome="shed")
-        raise Shed(reason, detail, retry_after_s)
+        mcid = self._mcid(cid if c is not None else "-")
+        metrics.verifyd_shed.inc(client=mcid, reason=reason)
+        metrics.verifyd_requests.inc(client=mcid, outcome="shed")
+        hint = self.replica_hint if reason in (
+            protocol.SHED_SHUTTING_DOWN,
+            protocol.SHED_REGISTRY_FULL) else None
+        raise Shed(reason, detail, retry_after_s, replica_hint=hint)
 
     def estimated_wait_s(self) -> float:
         """Predicted queue wait for a newly admitted item: the pending
@@ -387,7 +431,7 @@ class VerifydService:
             self._shed(None, cid, protocol.SHED_UNREGISTERED,
                        f"client {cid!r} is not registered")
         if not reqs:
-            metrics.verifyd_requests.inc(client=cid,
+            metrics.verifyd_requests.inc(client=self._mcid(cid),
                                          outcome="ok")
             return []
         lane = Lane(lane)
@@ -456,7 +500,7 @@ class VerifydService:
                                          self._pending_items)
         self._gauge_pending()
         metrics.verifyd_client_pending.set(c.pending,
-                                           client=cid)
+                                           client=self._mcid(cid))
         t0 = self._now()
         settled = False
 
@@ -483,7 +527,7 @@ class VerifydService:
             if live is c:
                 c.pending -= n
                 metrics.verifyd_client_pending.set(
-                    c.pending, client=cid)
+                    c.pending, client=self._mcid(cid))
 
         try:
             verdicts = await asyncio.wrap_future(handle.future)
@@ -507,13 +551,13 @@ class VerifydService:
         settle()
         metrics.verifyd_request_seconds.observe(
             max(self._now() - t0, 0.0), lane=lane.name.lower())
-        metrics.verifyd_requests.inc(client=cid,
+        metrics.verifyd_requests.inc(client=self._mcid(cid),
                                      outcome="ok")
         kinds: dict[str, int] = {}
         for r in reqs:
             kinds[r.kind] = kinds.get(r.kind, 0) + 1
         for kind, count in kinds.items():
-            metrics.verifyd_items.inc(count, client=cid,
+            metrics.verifyd_items.inc(count, client=self._mcid(cid),
                                       kind=kind)
         return verdicts
 
@@ -544,4 +588,5 @@ class VerifydService:
                             for k in sorted(KIND_WEIGHTS)},
             },
             "closed": self._closed,
+            "shard": self.shard,
         }

@@ -309,13 +309,15 @@ VERIFY_MODULES = ("spacemesh_tpu_torch.verify",
 
 def test_aiohttp_only_in_the_verifyd_server_and_client_session():
     """aiohttp is imported by ``verifyd/server.py`` and, lazily, by the
-    client's session; the farm, the service, signing and the verifyd
-    package import and verify a signature with aiohttp, grpc, protobuf
-    and cryptography all blocked, as on a host that has none of them
-    (signing then takes its pure-Python branch)."""
+    client's and the fleet's replica endpoint's sessions; the farm, the
+    service, signing and the verifyd package import and verify a
+    signature with aiohttp, grpc, protobuf and cryptography all blocked,
+    as on a host that has none of them (signing then takes its
+    pure-Python branch)."""
     assert _importers(lambda n: n.split(".")[0] == "aiohttp") == {
         "spacemesh_tpu_torch/verifyd/server.py": [""],
-        "spacemesh_tpu_torch/verifyd/client.py": ["_sess"]}
+        "spacemesh_tpu_torch/verifyd/client.py": ["_sess"],
+        "spacemesh_tpu_torch/verifyd/fleet.py": ["_sess"]}
     code = (
         "import asyncio, importlib, sys\n"
         "class Block:\n"
@@ -342,6 +344,47 @@ def test_aiohttp_only_in_the_verifyd_server_and_client_session():
         "assert asyncio.run(go()) is True\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in\n"
         "            ('aiohttp', 'grpc', 'cryptography')]\n"
+        "print('imported')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "imported"
+
+
+FLEET_MODULES = ("spacemesh_tpu_torch.obs.remediate",
+                 "spacemesh_tpu_torch.obs.sli",
+                 "spacemesh_tpu_torch.obs.federate",
+                 "spacemesh_tpu_torch.verifyd.routing",
+                 "spacemesh_tpu_torch.verifyd.failover",
+                 "spacemesh_tpu_torch.verifyd.fleet",
+                 "spacemesh_tpu_torch.sim",
+                 "spacemesh_tpu_torch.sim.verifyd_load",
+                 "spacemesh_tpu_torch.sim.failover",
+                 "spacemesh_tpu_torch.sim.fleet",
+                 "spacemesh_tpu_torch.sim.scenarios")
+
+
+def test_fleet_modules_import_without_jax_the_jax_package_or_aiohttp():
+    """The fleet's modules and drills import, and ``fleet_from_urls``
+    builds its verifier, with jax, the JAX package and aiohttp blocked:
+    the replica endpoint opens its aiohttp session only on first use."""
+    code = (
+        "import importlib, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                  'spacemesh_tpu', 'aiohttp'):\n"
+        "            raise ModuleNotFoundError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {FLEET_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from spacemesh_tpu_torch.verifyd import fleet_from_urls\n"
+        "fv = fleet_from_urls(['http://127.0.0.1:1', 'http://127.0.0.1:2'],\n"
+        "                     farm=None)\n"
+        "assert sorted(fv.router.replicas) == ['r0', 'r1']\n"
+        "fv.shutdown()\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('jax', 'jaxlib', 'spacemesh_tpu', 'aiohttp')]\n"
         "print('imported')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
