@@ -1544,8 +1544,8 @@ async def drive_fleet(requests: list, n_posts: int, n_mix: int, *,
     farms = [farm(FLEET_INFLIGHT) for _ in names]
     local = farm(FLEET_LOCAL_INFLIGHT)
     servers = [VerifydServer(service=VerifydService(
-        farm=f, shard=name, default_rate=1e9, default_burst=1e9,
-        device=device)) for f, name in zip(farms, names)]
+        farm=f, shard=name, device=device))
+        for f, name in zip(farms, names)]
     served = contextvars.ContextVar("served")
     fv = None
     try:

@@ -325,10 +325,6 @@ class HookRegistry:
         with self._lock:
             self._hooks[(str(component), str(action))] = hook
 
-    def get(self, component: str, action: str):
-        with self._lock:
-            return self._hooks.get((str(component), str(action)))
-
     def unregister(self, component: str, action: str,
                    hook: Callable[[], object] | None = None) -> None:
         """Remove the hook — only if it still maps to ``hook`` when one

@@ -69,6 +69,20 @@ _NON_TRIPPING_SHEDS = frozenset({protocol.SHED_UNREGISTERED,
 PATH_LOCAL = "local"
 PATH_LOCAL_FASTFAIL = "local_fastfail"  # every breaker open: no attempt
 
+# the JAX FleetRouter's defaults, fixed here: no caller of the port sets
+# them (ring shape, stealing, and the autoscaling signal's targets)
+VNODES = 64
+LOAD_FACTOR = 1.0
+HOT_SCORE = 1.0            # load score that marks a replica stealable-from
+STEAL_MARGIN = 0.25        # a steal target must be this much cooler
+KIND_HEAT_TAU_S = 30.0     # decay of per-kind shed pressure
+KIND_HEAT_THRESHOLD = 3.0  # decayed sheds of one kind that make it hot
+TARGET_UTILIZATION = 0.7
+MIN_REPLICAS = 1
+MAX_REPLICAS = 64
+QUEUE_WAIT_SLO_S = 0.25    # queue-wait p99 at a load score of 1.0
+SHED_SLO_PER_SEC = 1.0     # shed rate at a load score of 1.0
+
 
 class _Replica:
     """One fleet member: endpoint + breaker + registration cache."""
@@ -97,27 +111,12 @@ class FleetRouter:
     ``finally``.
     """
 
-    def __init__(self, *, seed: int = 0, vnodes: int = 64,
-                 load_factor: float = 1.0,
-                 hot_score: float = 1.0,
-                 steal_margin: float = 0.25,
-                 kind_heat_tau_s: float = 30.0,
-                 kind_heat_threshold: float = 3.0,
-                 target_utilization: float = 0.7,
-                 min_replicas: int = 1, max_replicas: int = 64,
+    def __init__(self, *, seed: int = 0,
                  breaker_kw: dict | None = None,
                  time_source: Callable[[], float] = time.monotonic):
-        self.placement = Placement(seed=seed, vnodes=vnodes,
-                                   load_factor=load_factor)
+        self.placement = Placement(seed=seed, vnodes=VNODES,
+                                   load_factor=LOAD_FACTOR)
         self.replicas: dict[str, _Replica] = {}
-        self.hot_score = float(hot_score)
-        self.steal_margin = float(steal_margin)
-        self.kind_heat_tau_s = max(float(kind_heat_tau_s), 1e-6)
-        self.kind_heat_threshold = float(kind_heat_threshold)
-        self.target_utilization = min(max(float(target_utilization),
-                                          1e-3), 1.0)
-        self.min_replicas = max(int(min_replicas), 0)
-        self.max_replicas = max(int(max_replicas), 1)
         self._breaker_kw = dict(breaker_kw or {})
         self._now = time_source
         self._started = False
@@ -131,6 +130,11 @@ class FleetRouter:
         self._stale: list[tuple[str, str]] = []
         self.stats = {"steals": 0, "reroutes": 0, "replicas_added": 0,
                       "replicas_removed": 0}
+
+    @property
+    def min_replicas(self) -> int:
+        """The floor of ``fleet_desired_replicas``."""
+        return MIN_REPLICAS
 
     # -- lifecycle -------------------------------------------------------
 
@@ -325,13 +329,13 @@ class FleetRouter:
         return order
 
     def _is_hot(self, name: str, kinds) -> bool:
-        if self._scores.get(name, 0.0) >= self.hot_score:
+        if self._scores.get(name, 0.0) >= HOT_SCORE:
             return True
         now = self._now()
         for kind in kinds:
             heat, t = self._kind_heat.get((name, kind), (0.0, now))
-            if heat * math.exp(-(now - t) / self.kind_heat_tau_s) \
-                    >= self.kind_heat_threshold:
+            if heat * math.exp(-(now - t) / KIND_HEAT_TAU_S) \
+                    >= KIND_HEAT_THRESHOLD:
                 return True
         return False
 
@@ -349,8 +353,8 @@ class FleetRouter:
                 best, best_score = name, score
         if best is None:
             return None
-        src_score = self._scores.get(src, self.hot_score)
-        if best_score + self.steal_margin > src_score:
+        src_score = self._scores.get(src, HOT_SCORE)
+        if best_score + STEAL_MARGIN > src_score:
             return None
         return best
 
@@ -360,19 +364,17 @@ class FleetRouter:
         now = self._now()
         for kind in set(kinds):
             heat, t = self._kind_heat.get((name, kind), (0.0, now))
-            heat = heat * math.exp(-(now - t) / self.kind_heat_tau_s)
+            heat = heat * math.exp(-(now - t) / KIND_HEAT_TAU_S)
             self._kind_heat[(name, kind)] = (heat + 1.0, now)
 
     # -- autoscaling signals ---------------------------------------------
 
-    def update_signals(self, sli_values: dict,
-                       *, queue_wait_slo_s: float = 0.25,
-                       shed_slo_per_sec: float = 1.0) -> dict:
+    def update_signals(self, sli_values: dict) -> dict:
         """Fold the windowed SLIs (obs/sli.py ``fleet_slis``) into
         per-replica load scores and the ``fleet_desired_replicas``
         autoscaling gauge.  A score of 1.0 means "at target": the
         replica's queue-wait p99 sits at its SLO share or its shed rate
-        at the tolerated rate; ≥ ``hot_score`` marks it stealable-from.
+        at the tolerated rate; ≥ ``HOT_SCORE`` marks it stealable-from.
         """
         scores: dict[str, float] = {}
         for name in self.replicas:
@@ -380,9 +382,9 @@ class FleetRouter:
             sheds = sli_values.get(f"fleet_replica_{name}_shed_per_sec")
             score = 0.0
             if qwait is not None:
-                score = max(score, float(qwait) / queue_wait_slo_s)
+                score = max(score, float(qwait) / QUEUE_WAIT_SLO_S)
             if sheds is not None:
-                score = max(score, float(sheds) / shed_slo_per_sec)
+                score = max(score, float(sheds) / SHED_SLO_PER_SEC)
             scores[name] = score
             metrics.fleet_replica_load.set(score, replica=name)
         self._scores = scores
@@ -393,11 +395,11 @@ class FleetRouter:
             # utilization autoscaling: enough replicas that the mean
             # score lands back at the target utilization
             mean = sum(scores.values()) / n
-            desired = max(self.min_replicas,
-                          min(self.max_replicas,
+            desired = max(MIN_REPLICAS,
+                          min(MAX_REPLICAS,
                               math.ceil(n * mean
-                                        / self.target_utilization)
-                              if mean > 0 else self.min_replicas))
+                                        / TARGET_UTILIZATION)
+                              if mean > 0 else MIN_REPLICAS))
         metrics.fleet_desired_replicas.set(desired)
         return {"scores": scores, "desired_replicas": desired}
 
@@ -740,23 +742,19 @@ class HttpReplicaEndpoint:
 
 def fleet_from_urls(urls, *, farm, client_id: str = "node",
                     deadline_s: float | None = None,
-                    seed: int = 0, max_clients: int = 64,
-                    bus=None,
-                    time_source: Callable[[], float] = time.monotonic
-                    ) -> FleetVerifier:
+                    bus=None) -> FleetVerifier:
     """Build a FleetVerifier over HTTP replicas (a node wires this
     behind ``SPACEMESH_VERIFYD_URLS``; replica names are r0..rN in URL
     order, so a restarted node reproduces the same ring).  The replicas
     may be either package's verifyd: the wire docs are one format."""
-    router = FleetRouter(seed=seed, time_source=time_source)
+    router = FleetRouter()
     for i, url in enumerate(u.strip() for u in urls):
         if not url:
             continue
         # the router escapes into the FleetVerifier (own_router=True),
         # whose aclose tears every replica down
         router.register_replica(
-            f"r{i}", HttpReplicaEndpoint(url), own_endpoint=True,
-            max_clients=max_clients)
+            f"r{i}", HttpReplicaEndpoint(url), own_endpoint=True)
     return FleetVerifier(router=router, farm=farm, client_id=client_id,
                          deadline_s=deadline_s, own_router=True,
-                         bus=bus, time_source=time_source)
+                         bus=bus)

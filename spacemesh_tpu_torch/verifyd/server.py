@@ -121,9 +121,9 @@ class VerifydServer:
             await self._start_grpc()
         return self.actual_port
 
-    async def stop_listening(self, grace_s: float = 0.1) -> None:
+    async def stop_listening(self) -> None:
         """Close the HTTP listener and its open connections (requests
-        still running after ``grace_s`` are cancelled) while the service,
+        still running after 0.1 s are cancelled) while the service,
         its clients' registrations and its farm keep running: to a
         caller the replica is gone until :meth:`resume_listening` binds
         the same port again."""
@@ -131,7 +131,7 @@ class VerifydServer:
             return
         await self._site.stop()
         self._site = None
-        await self.runner.server.shutdown(grace_s)
+        await self.runner.server.shutdown(0.1)
 
     async def resume_listening(self) -> int:
         """Bind the HTTP listener again on the port it had."""

@@ -239,17 +239,16 @@ def test_action_registry_equality_unregister():
     def hook():
         calls.append(1)
 
+    key = ("t-comp", "restart_component")
     remediate.ACTIONS.register("t-comp", "restart_component", hook)
     try:
-        assert remediate.ACTIONS.get("t-comp",
-                                     "restart_component") is hook
+        assert remediate.ACTIONS._hooks[key] is hook
         remediate.ACTIONS.unregister("t-comp", "restart_component",
                                      lambda: None)   # wrong hook: no-op
-        assert remediate.ACTIONS.get("t-comp",
-                                     "restart_component") is hook
+        assert remediate.ACTIONS._hooks[key] is hook
     finally:
         remediate.ACTIONS.unregister("t-comp", "restart_component", hook)
-    assert remediate.ACTIONS.get("t-comp", "restart_component") is None
+    assert key not in remediate.ACTIONS._hooks
 
 
 # --- the fuzz: step-for-step equal to the JAX breaker ---------------------
