@@ -5,19 +5,29 @@ Run from the repository root with no arguments on a machine with one
 card: ``python3 chip_smoke.py``. It imports nothing of JAX or of the JAX
 package. Phases, each printed as it runs:
 
-1. device: the card's name and power limit; build the three CUDA sources
+1. device: the card's name and power limit; build the four CUDA sources
    from ``spacemesh_tpu_torch/csrc`` (one nvcc each, started together) and
-   print each kernel's registers and spills;
+   print each kernel's registers and spills; then wrap the plain twins
+   ``salsa20_8``, ``blockmix_r1`` and ``sha256_compress`` so that a call
+   on a CUDA tensor while a path is driven is counted (the guard: every
+   path below must count 0);
 2. ROMix: the kernel against its plain PyTorch version on the card (N=1024
    at a ragged batch, and N=8192 at the init batch of 32768 lanes), whole
    and fill phase only (``mix_phase=False``), and full labels against
    ``hashlib.scrypt``; exact equality; the fill/mix time split;
 3. PBKDF2: both entry points of the envelope kernel against their plain
    versions at the init batch (32768 lanes, one shared commitment), at the
-   packed init's batch (32768 lanes, per-lane commitments) and at a ragged
-   batch of per-lane commitments (the verifier's form); exact equality;
-   timed by CUDA events around back-to-back wrapper calls (the wrapper's
-   call rate) and by the profiler's kernel times;
+   packed init's batch (32768 lanes, per-lane commitments), at the
+   verifyd farm's batch (9472 per-lane lanes) and at a ragged batch of
+   per-lane commitments (the verifier's form); exact equality; timed by
+   CUDA events around back-to-back wrapper calls (the wrapper's call rate)
+   and by the profiler's kernel times;
+   then the proving hash kernel against its plain twin (big-endian label
+   words, per-lane and shared challenge and nonce) at the main path's
+   verify (74 lanes), a serial verify's 37 lanes and the farm's 9472, and
+   [k2pow]: the search kernel against its plain twin over 2^16 nonces (a
+   batch crossing nonce_hi = 1; hits checked with hashlib) and the verify
+   kernel at 64 and 4096 witnesses (against hashlib too), all timed;
 4. proving scan: the kernel against its plain version, and one prove step
    through the kernel against the plain step, on random device-resident
    labels with 16 nonces, at the main path's prove batch (2^18 lanes, all
@@ -28,7 +38,8 @@ package. Phases, each printed as it runs:
    32768 lanes, ``Prover.prove()`` pipelined and ``prove_serial()``,
    ``verify_many()`` on the proof and on a tampered copy, each held
    against hashlib and the plain CPU path; the kernels' launch counts are
-   zeroed just before and read just after; the torch calls one init batch
+   zeroed just before and read just after (k2pow search at least once per
+   proof); the torch calls one init batch
    makes around the kernels, counted on the card; the first init batch's
    dispatch time apart from the others', beside one bare allocation of
    its 32 GiB V scratch;
@@ -55,8 +66,9 @@ package. Phases, each printed as it runs:
    minimum; 16 ``submit_prove`` equal to a solo ``Prover``'s proofs, their
    latency with the card idle and under a concurrent packed init; one
    ``submit_verify`` of the 16 proofs and a tampered one; 16 ``submit_pow``
-   equal to ``ops.pow.search``. The kernels' launch counts are zeroed
-   before the packed init and proves and read after;
+   equal to ``ops.pow.search``, each nonce passing hashlib. The kernels'
+   launch counts are zeroed before the packed init and proves and read
+   after (k2pow search at least once per proof);
 8. [verifyd] verification as a service, BASELINE's "batch of 10k NIPoST
    proofs" at N=8192 and mainnet k1/k2/k3: 10240 POST requests over the
    ``[tenants]`` identities (each proof with another valid k2pow witness
@@ -67,13 +79,14 @@ package. Phases, each printed as it runs:
    the card, honest True and tampered False, 32 sampled labels of the
    farm's recomputes against hashlib; proofs verified/s beside the serial
    rate of a 256-proof sample, request latency p50/p99, batches and
-   occupancy, each POST dispatch's split (host stages, the three kernels'
-   device time, the eager proving hash, the pow kind), the device's idle
-   share over a profiled repeat of the load, peak memory. The kernels'
-   launch counts are zeroed before the warm run and read after it (one
-   launch each per POST batch); the three kernels are held to their plain
-   twins on the widest recompute's real inputs and on its first proof's
-   37 lanes, a serial verify's shape;
+   occupancy, each POST dispatch's split (host stages, the four kernels'
+   device time, the pow kind), the device's idle share over a profiled
+   repeat of the load, peak memory. The kernels' launch counts are zeroed
+   before the warm run and read after it (ROMix, the PBKDF2 pair and the
+   proving hash once per POST batch, k2pow verify once per device pow
+   batch); the four kernels are held to their plain twins on the widest
+   recompute's real inputs and on its first proof's 37 lanes, a serial
+   verify's shape;
 9. [fleet] the verifyd fleet: three ``VerifydService`` replicas (shards
    r0-r2, each over a farm of 2 POST batches in flight) served by the
    port's HTTP server on their own 127.0.0.1 ports, behind one
@@ -88,7 +101,8 @@ package. Phases, each printed as it runs:
    inline verdicts; r1's attempts while down bounded by its breaker; the
    blackout served wholly by the local farm; remote serving back after
    the restore. The kernels' launch counts are zeroed before the clean run
-   and read after it: one launch each per POST batch of all farms. Then
+   and read after it: one launch each per POST batch of all farms, and
+   k2pow verify once per device pow batch. Then
    the port's verifyd-outage, fleet and byzantine-verifyd drills, twice
    on the card (``ok``, the same digest) and once on the host CPU;
 10. a JSON line of per-kernel launches, times and bounds, each time taken
@@ -96,7 +110,9 @@ package. Phases, each printed as it runs:
    times beside it under ``full_width``, the PBKDF2 pair's packed-init
    shape under ``perlane``), with each later path's launches beside the
    main path's (``tenants_launches``, ``verifyd_launches``,
-   ``fleet_launches``).
+   ``fleet_launches``). ``path`` names the path whose count ``launches``
+   is: the main path's, but for k2pow verify, which only the verification
+   paths run (``[verifyd]``'s warm run; ``main_launches`` 0).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Labels per unit are cut from mainnet's 2^32 to 2^20
@@ -129,6 +145,9 @@ PROVE_BATCH = 1 << 18
 SCAN_LANES = 1 << 24
 SCAN_NONCES = 16
 RAGGED_LANES = 1037
+VERIFY_LANES = 256 * 37   # a verifyd farm batch: 256 proofs x k3 labels
+SEARCH_BATCH = 1 << 16    # ops.pow.search's nonces per launch
+POW_WITNESSES = (64, 4096)  # a farm pow batch; verify_many's widest
 WORKER_LABELS = 1 << 18
 WINDOW_REPS = 5       # in-process proves per window size and challenge
 WINDOW_CANDIDATES = 24  # challenges tried for each winner group
@@ -172,6 +191,94 @@ def max_abs_err(a, b) -> int:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+class PlainGuard:
+    """Counts calls of the plain twins that no path may run on the card
+    (``salsa20_8``, ``blockmix_r1``, ``sha256_compress``) on a CUDA tensor
+    while a path is driven (from :meth:`start` to :meth:`stop`); the twin
+    checks run outside.
+    :meth:`install` rebinds each name in every module of the port that
+    holds it, the defining modules first, so later ``from`` imports get
+    the counted one too. It also counts the ``ops.pow.verify_many`` calls
+    that reach the device (at least ``min_device`` witnesses) and the
+    batches they launch."""
+
+    TWINS = {"salsa20_8": "spacemesh_tpu_torch.ops.salsa",
+             "blockmix_r1": "spacemesh_tpu_torch.ops.salsa",
+             "sha256_compress": "spacemesh_tpu_torch.ops.sha256"}
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.armed = False
+        self.calls = {name: 0 for name in self.TWINS}
+        self.pow_batches = 0
+
+    def install(self) -> None:
+        import importlib
+
+        import torch
+
+        for mod in ("ops.salsa", "ops.sha256", "ops.romix_cuda",
+                    "ops.proving_cuda", "ops.pbkdf2_cuda", "ops.pow_cuda",
+                    "ops.pow", "ops.scrypt", "ops.proving",
+                    "post.verifier", "verify.farm"):
+            importlib.import_module(f"spacemesh_tpu_torch.{mod}")
+
+        def counted(name, fn):
+            def twin(*args, **kwargs):
+                if self.armed and any(isinstance(a, torch.Tensor)
+                                      and a.is_cuda for a in args):
+                    with self.lock:
+                        self.calls[name] += 1
+                return fn(*args, **kwargs)
+            return twin
+
+        for name, home in self.TWINS.items():
+            real = getattr(sys.modules[home], name)
+            wrapped = counted(name, real)
+            for key, mod in list(sys.modules.items()):
+                if (key.startswith("spacemesh_tpu_torch")
+                        and getattr(mod, name, None) is real):
+                    setattr(mod, name, wrapped)
+        k2pow = sys.modules["spacemesh_tpu_torch.ops.pow"]
+        real_many = k2pow.verify_many
+
+        def verify_many(items, *, batch=1 << 12, min_device=8, **kw):
+            if self.armed and len(items) >= min_device:
+                with self.lock:
+                    self.pow_batches += -(-len(items) // batch)
+            return real_many(items, batch=batch, min_device=min_device, **kw)
+
+        k2pow.verify_many = verify_many
+
+    def start(self) -> None:
+        """Zero the counts and arm the guard: a path's drive begins."""
+        with self.lock:
+            for name in self.calls:
+                self.calls[name] = 0
+            self.pow_batches = 0
+        self.armed = True
+
+    def stop(self) -> dict:
+        """Disarm; the counts since :meth:`start`: each twin's calls on CUDA
+        tensors, and ``pow_batches``, the verify kernel launches the
+        drive's device pow batches asked for."""
+        self.armed = False
+        with self.lock:
+            return dict(self.calls, pow_batches=self.pow_batches)
+
+
+GUARD = PlainGuard()
+
+
+def require_no_twins(counts: dict, path: str) -> None:
+    twins = {k: counts[k] for k in PlainGuard.TWINS}
+    require(sum(twins.values()) == 0, f"{path}: no plain twin ran on a CUDA "
+            f"tensor ({json.dumps(twins)})")
+    log(f"[guard] {path}: plain twins on CUDA tensors {json.dumps(twins)}")
 
 
 def phase_device(ctx: dict) -> None:
@@ -321,10 +428,12 @@ def pbkdf2_case(ctx: dict, b: int, per_lane: bool, seed: int) -> dict:
 
 def phase_pbkdf2(ctx: dict) -> None:
     # the init batch's shape (one commitment for every lane), the packed
-    # init's (per-lane commitments at the same width), then a ragged batch
-    # of per-lane commitments as the verifier sends
+    # init's (per-lane commitments at the same width), a verifyd farm
+    # batch's, then a ragged batch of per-lane commitments as the verifier
+    # sends
     main = pbkdf2_case(ctx, INIT_BATCH, per_lane=False, seed=6)
     packed = pbkdf2_case(ctx, INIT_BATCH, per_lane=True, seed=8)
+    farm = pbkdf2_case(ctx, VERIFY_LANES, per_lane=True, seed=10)
     ragged = pbkdf2_case(ctx, RAGGED_LANES, per_lane=True, seed=7)
     keys = ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -332,7 +441,166 @@ def phase_pbkdf2(ctx: dict) -> None:
         ctx[f"pbkdf2_{entry}"] = dict(
             main[entry],
             perlane={k: packed[entry][k] for k in keys},
+            verify_width={k: farm[entry][k] for k in keys},
             ragged={k: ragged[entry][k] for k in keys})
+
+
+def hash_case(ctx: dict, b: int, per_lane: bool, seed: int) -> dict:
+    """The proving hash kernel against its plain twin on ``b`` random lanes
+    with big-endian label words, as the verifier hands them over (and once
+    little-endian), the challenge and nonce per lane or shared; then both
+    timed."""
+    import numpy as np
+    from spacemesh_tpu_torch.ops import proving_cuda, u32
+
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    rand = (lambda *shape: u32.from_numpy(
+        rng.integers(0, 2**32, shape, dtype=np.uint32), dev))
+    ch = rand(8, b) if per_lane else rand(8)
+    nonce = rand(b) if per_lane else int(rng.integers(0, 2**32))
+    lo, hi, words = rand(b), rand(b), rand(4, b)
+    err = max(max_abs_err(
+        proving_cuda.proving_hash(ch, nonce, lo, hi, words, big_endian=be),
+        proving_cuda.proving_hash_plain(ch, nonce, lo, hi, words,
+                                        big_endian=be)) for be in (True,
+                                                                   False))
+    form = "per-lane" if per_lane else "shared"
+    require(err == 0, f"proving hash kernel == plain at B={b} ({form} "
+                      f"challenge and nonce)")
+    kernel = (lambda: proving_cuda.proving_hash(ch, nonce, lo, hi, words,
+                                                big_endian=True))
+    res = dict(
+        ms=cuda_ms(kernel, reps=50),
+        plain_ms=cuda_ms(lambda: proving_cuda.proving_hash_plain(
+            ch, nonce, lo, hi, words, big_endian=True), reps=3),
+        kernel_ms=kernel_ms(kernel, "hash_kernel", reps=50),
+        max_abs_err=err, shape=f"B={b} {form} challenge and nonce",
+        **bound(proving_cuda.hash_int_ops(b),
+                proving_cuda.hash_io_bytes(b, per_lane),
+                ctx["int_ops_per_s"]))
+    log(f"[hash] B={b} ({form} challenge and nonce): kernel == plain (BE and "
+        f"LE label words); wrapper call rate {res['ms']:.4f} ms, kernel "
+        f"time {res['kernel_ms']} ms (profiler), plain "
+        f"{res['plain_ms']:.2f} ms, bound {res['bound_ms']:.5f} ms "
+        f"({res['bound_by']})")
+    return res
+
+
+def phase_proving_hash(ctx: dict) -> None:
+    # the main path's verify (2 proofs x k3 lanes), a serial verify's k3
+    # lanes, a verifyd farm batch; one shared challenge and nonce, as the
+    # JAX function also takes
+    keys = ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    main = hash_case(ctx, 2 * 37, per_lane=True, seed=30)
+    serial = hash_case(ctx, 37, per_lane=True, seed=31)
+    farm = hash_case(ctx, VERIFY_LANES, per_lane=True, seed=32)
+    shared = hash_case(ctx, VERIFY_LANES, per_lane=False, seed=33)
+    ctx["proving_hash"] = dict(
+        main, serial={k: serial[k] for k in keys},
+        verify_width={k: farm[k] for k in keys},
+        shared={k: shared[k] for k in keys},
+        max_abs_err=max(c["max_abs_err"] for c in (main, serial, farm,
+                                                   shared)))
+
+
+def phase_k2pow(ctx: dict) -> None:
+    """The k2pow kernels against their plain twins and hashlib: the search
+    over a batch of ``SEARCH_BATCH`` nonces that crosses nonce_hi = 1, at a
+    difficulty that hits in it, and the verify kernel on ``POW_WITNESSES``
+    random witnesses (valid, invalid and equal-to-target ones); timed."""
+    import numpy as np
+    import torch
+    from spacemesh_tpu_torch.ops import pow as k2pow
+    from spacemesh_tpu_torch.ops import pow_cuda
+
+    dev = torch.device("cuda")
+    ch = hashlib.sha256(b"chip-smoke-k2pow-challenge").digest()
+    node = hashlib.sha256(b"chip-smoke-k2pow-node").digest()
+    diff = bytes([0, 4]) + bytes([255]) * 30
+    pre = k2pow.prefix_state(ch, node)
+    tgt = np.frombuffer(diff, dtype=">u4").astype(np.uint32)
+    base = (1 << 32) - SEARCH_BATCH // 2
+    got = pow_cuda.search_batch(pre, tgt, base, SEARCH_BATCH, dev)
+    want = pow_cuda.search_plain(pre, tgt, base, SEARCH_BATCH, dev)
+    err = max_abs_err(got.to(torch.int32), want.to(torch.int32))
+    hits = torch.nonzero(got).flatten().tolist()
+    require(err == 0, f"k2pow search kernel == plain over {SEARCH_BATCH} "
+                      "nonces")
+    require(hits and all(k2pow.verify(ch, node, diff, base + h)
+                         for h in hits), "every search hit passes hashlib")
+    miss = next(i for i in range(SEARCH_BATCH) if i not in set(hits))
+    require(not k2pow.verify(ch, node, diff, base + miss),
+            "a nonce the search missed fails hashlib")
+    ops_s = ctx["int_ops_per_s"]
+    search = (lambda: pow_cuda.search_batch(pre, tgt, 0, SEARCH_BATCH, dev))
+    ctx["k2pow_search"] = dict(
+        ms=cuda_ms(search, reps=50),
+        plain_ms=cuda_ms(lambda: pow_cuda.search_plain(
+            pre, tgt, 0, SEARCH_BATCH, dev), reps=3),
+        kernel_ms=kernel_ms(search, "search_kernel", reps=50),
+        max_abs_err=err, shape=f"B={SEARCH_BATCH} nonces",
+        **bound(pow_cuda.int_ops(SEARCH_BATCH, "search"),
+                pow_cuda.io_bytes(SEARCH_BATCH, "search"), ops_s))
+    c = ctx["k2pow_search"]
+    log(f"[k2pow] search of {SEARCH_BATCH} nonces from {base}: kernel == "
+        f"plain, {len(hits)} hits, each passing hashlib; wrapper call rate "
+        f"{c['ms']:.4f} ms, kernel time {c['kernel_ms']} ms (profiler), plain "
+        f"{c['plain_ms']:.1f} ms, bound {c['bound_ms']:.5f} ms "
+        f"({c['bound_by']})")
+    rng = np.random.default_rng(40)
+    cases = {}
+    for b in POW_WITNESSES:
+        items = []
+        for i in range(b):
+            c_, n_ = (bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+                      for _ in range(2))
+            nonce = int(rng.integers(0, 2**64, dtype=np.uint64))
+            d_ = bytes([int(rng.integers(0, 256))]) + bytes([255]) * 31
+            if i % 7 == 0:  # a digest equal to its target is not below it
+                d_ = k2pow.pow_hash(c_, n_, nonce)
+            items.append((c_, n_, d_, nonce))
+        block1 = u32_dev(np.stack([np.frombuffer(c_ + n_, dtype=">u4")
+                                   for c_, n_, _, _ in items], axis=1))
+        targets = u32_dev(np.stack([np.frombuffer(d_, dtype=">u4")
+                                    for _, _, d_, _ in items], axis=1))
+        lo, hi = pow_cuda.split_nonces(
+            np.array([x[3] for x in items], dtype=np.uint64), dev)
+        got = pow_cuda.verify_batch(block1, lo, hi, targets)
+        want = pow_cuda.verify_plain(block1, lo, hi, targets)
+        err = max_abs_err(got.to(torch.int32), want.to(torch.int32))
+        truth = [k2pow.verify(*x[:3], x[3]) for x in items]
+        require(err == 0 and got.cpu().tolist() == truth,
+                f"k2pow verify kernel == plain == hashlib at {b} witnesses")
+        require(0 < sum(truth) < b, "the witnesses are mixed")
+        verify = (lambda: pow_cuda.verify_batch(block1, lo, hi, targets))
+        cases[b] = dict(
+            ms=cuda_ms(verify, reps=50),
+            plain_ms=cuda_ms(lambda: pow_cuda.verify_plain(
+                block1, lo, hi, targets), reps=3),
+            kernel_ms=kernel_ms(verify, "verify_kernel", reps=50),
+            max_abs_err=err, shape=f"B={b} witnesses",
+            **bound(pow_cuda.int_ops(b, "verify"),
+                    pow_cuda.io_bytes(b, "verify"), ops_s))
+        c = cases[b]
+        log(f"[k2pow] verify of {b} witnesses ({sum(truth)} valid): kernel "
+            f"== plain == hashlib; wrapper call rate {c['ms']:.4f} ms, kernel "
+            f"time {c['kernel_ms']} ms (profiler), plain {c['plain_ms']:.1f} "
+            f"ms, bound {c['bound_ms']:.5f} ms ({c['bound_by']})")
+    small, wide = POW_WITNESSES
+    ctx["k2pow_verify"] = dict(cases[small], widest={
+        k: cases[wide][k] for k in ("shape", "ms", "kernel_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "max_abs_err")},
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()))
+
+
+def u32_dev(a):
+    """A numpy u32 array on the card as int32 bit patterns."""
+    import numpy as np
+    from spacemesh_tpu_torch.ops import u32
+
+    return u32.from_numpy(np.ascontiguousarray(a, dtype=np.uint32), "cuda")
 
 
 def scan_case(b: int, valid: int, start: int, thr: int, seed: int,
@@ -416,8 +684,7 @@ def phase_scan(ctx: dict) -> None:
 def phase_main_path(ctx: dict) -> None:
     import numpy as np
     import torch
-    from spacemesh_tpu_torch.ops import (pbkdf2_cuda, proving, proving_cuda,
-                                         romix_cuda)
+    from spacemesh_tpu_torch.ops import proving
     from spacemesh_tpu_torch.post import initializer, prover, verifier
     from spacemesh_tpu_torch.post.data import LabelStore
 
@@ -427,10 +694,8 @@ def phase_main_path(ctx: dict) -> None:
     params = prover.ProofParams()  # mainnet k1/k2/k3, default k2pow
     alloc_ms = v_alloc_ms()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as d:
-        romix_cuda.launches = 0
-        proving_cuda.launches = 0
-        pbkdf2_cuda.expand_launches = 0
-        pbkdf2_cuda.finish_launches = 0
+        zero_launches()
+        GUARD.start()
         t0 = time.perf_counter()
         meta, res = initializer.initialize(
             d, node_id=node, commitment=commitment, num_units=1,
@@ -462,10 +727,8 @@ def phase_main_path(ctx: dict) -> None:
                                         device="cuda")
         verify_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        ctx["launches"] = {"romix": romix_cuda.launches,
-                           "scan": proving_cuda.launches,
-                           "pbkdf2_expand": pbkdf2_cuda.expand_launches,
-                           "pbkdf2_finish": pbkdf2_cuda.finish_launches}
+        ctx["launches"] = launch_counts()
+        guard = GUARD.stop()
 
         require(meta.labels_written == UNIT_LABELS, "init wrote every label")
         st = res.stats
@@ -519,8 +782,12 @@ def phase_main_path(ctx: dict) -> None:
         require(bool((vals < thr).all()), "hashlib + plain CPU path accept")
         log(f"[verify] verify_many -> {verdicts} in {verify_s:.2f} s; "
             "hashlib labels + plain CPU hashes agree")
+    require_no_twins(guard, "main path")
     for key, n in ctx["launches"].items():
-        require(n > 0, f"main path launched {key}")
+        if key != "k2pow_verify":  # witnesses are checked with hashlib here
+            require(n > 0, f"main path launched {key}")
+    require(ctx["launches"]["k2pow_search"] >= 2, "k2pow search launched at "
+            "least once per proof (pipelined and serial)")
     log(f"[launches] main path: {json.dumps(ctx['launches'])}")
 
 
@@ -581,8 +848,7 @@ def wait_served(client, timeout: float) -> float:
 def phase_worker(ctx: dict) -> None:
     import numpy as np
     import torch
-    from spacemesh_tpu_torch.ops import (pbkdf2_cuda, proving, proving_cuda,
-                                         romix_cuda)
+    from spacemesh_tpu_torch.ops import proving
     from spacemesh_tpu_torch.post import prover, verifier
     from spacemesh_tpu_torch.post.data import LabelStore, PostMetadata
     from spacemesh_tpu_torch.post.remote import RemotePostClient
@@ -657,10 +923,7 @@ def phase_worker(ctx: dict) -> None:
                 times[f"worker_g1_{rep_}"] = time.perf_counter() - t0
             require(worker[0] == worker[1], "worker proofs agree")
 
-            romix_cuda.launches = 0
-            proving_cuda.launches = 0
-            pbkdf2_cuda.expand_launches = 0
-            pbkdf2_cuda.finish_launches = 0
+            zero_launches()
             for g in (1, 4):
                 pv = prover.Prover(d, params, window_groups=g, device="cuda")
                 t0 = time.perf_counter()
@@ -680,14 +943,12 @@ def phase_worker(ctx: dict) -> None:
                 for p in (worker[0], bad)]
             verdicts = verifier.verify_many(items, params, device="cuda")
             torch.cuda.synchronize()
-            launches = {"romix": romix_cuda.launches,
-                        "scan": proving_cuda.launches,
-                        "pbkdf2_expand": pbkdf2_cuda.expand_launches,
-                        "pbkdf2_finish": pbkdf2_cuda.finish_launches}
+            launches = launch_counts()
             require(verdicts == [True, False],
                     f"in-process verdicts {verdicts} == [True, False]")
             for key, n in launches.items():
-                require(n > 0, f"worker phase launched {key} in process")
+                if key != "k2pow_verify":
+                    require(n > 0, f"worker phase launched {key} in process")
 
             # kill the worker once: the supervisor restarts it on the same
             # port, this time proving 4 nonce groups per disk pass
@@ -844,18 +1105,25 @@ def first_min(stored) -> int:
 
 
 def launch_counts() -> dict:
-    from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving_cuda, romix_cuda
+    from spacemesh_tpu_torch.ops import (pbkdf2_cuda, pow_cuda, proving_cuda,
+                                         romix_cuda)
 
     return {"romix": romix_cuda.launches, "scan": proving_cuda.launches,
             "pbkdf2_expand": pbkdf2_cuda.expand_launches,
-            "pbkdf2_finish": pbkdf2_cuda.finish_launches}
+            "pbkdf2_finish": pbkdf2_cuda.finish_launches,
+            "proving_hash": proving_cuda.hash_launches,
+            "k2pow_search": pow_cuda.search_launches,
+            "k2pow_verify": pow_cuda.verify_launches}
 
 
 def zero_launches() -> None:
-    from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving_cuda, romix_cuda
+    from spacemesh_tpu_torch.ops import (pbkdf2_cuda, pow_cuda, proving_cuda,
+                                         romix_cuda)
 
     romix_cuda.launches = proving_cuda.launches = 0
     pbkdf2_cuda.expand_launches = pbkdf2_cuda.finish_launches = 0
+    proving_cuda.hash_launches = 0
+    pow_cuda.search_launches = pow_cuda.verify_launches = 0
 
 
 def quantiles(xs: list) -> str:
@@ -912,6 +1180,7 @@ def phase_tenants(ctx: dict) -> None:
             zero_launches()
             # the tenants' path: packed init, proves idle and under load,
             # one verify, k2pow
+            GUARD.start()
             t0 = time.perf_counter()
             metas = [h.result(timeout=600) for h in submit_inits(
                 sched, base, ids, TENANT_LABELS)]
@@ -955,6 +1224,7 @@ def phase_tenants(ctx: dict) -> None:
             pow_s = time.perf_counter() - t0
             torch.cuda.synchronize()
             launches = launch_counts()
+            guard = GUARD.stop()
             # the second packed init of the comparison, then the second solo
             t0 = time.perf_counter()
             for h in submit_inits(sched, os.path.join(base, "rep"), rep_ids,
@@ -988,8 +1258,14 @@ def phase_tenants(ctx: dict) -> None:
             sched.close()
         intervals = device_intervals(prof)
 
+        require_no_twins(guard, "tenants")
         for key, n in launches.items():
-            require(n > 0, f"the tenants' path launched {key}")
+            if key != "k2pow_verify":
+                require(n > 0, f"the tenants' path launched {key}")
+        require(launches["k2pow_search"] >= 3 * TENANTS,
+                f"k2pow search launched at least once per proof and per "
+                f"submit_pow ({launches['k2pow_search']} for "
+                f"{3 * TENANTS})")
         for (tid, node, commit), meta in zip(ids, metas):
             require(meta.labels_written == TENANT_LABELS,
                     f"{tid}: packed init wrote every label")
@@ -1067,6 +1343,9 @@ def phase_tenants(ctx: dict) -> None:
                              device=dev) for _, node, _ in ids]
         solo_pow_s = time.perf_counter() - t0
         require(pows == want, "submit_pow == ops.pow.search")
+        require(all(k2pow.verify(challenge, node, params.pow_difficulty, n)
+                    for n, (_, node, _) in zip(pows, ids)),
+                "every submit_pow nonce passes hashlib")
     solo_rate = [total / s for s in solo_s]
     packed_rate = [total / s for s in packed_s]
     ratio = statistics.mean(packed_rate) / statistics.mean(solo_rate)
@@ -1127,22 +1406,17 @@ def phase_tenants(ctx: dict) -> None:
 def pow_witnesses(challenge: bytes, node: bytes, difficulty: bytes,
                   count: int) -> list:
     """The ``count`` smallest valid k2pow nonces of (challenge, node): one
-    batched hash over the first 2^18 nonces on the card, each hit checked
-    with hashlib. A proof with another valid witness is another honest,
+    search kernel launch over the first 2^18 nonces, each hit checked with
+    hashlib. A proof with another valid witness is another honest,
     distinct request with the same device work."""
     import numpy as np
     from spacemesh_tpu_torch.ops import pow as k2pow
-    from spacemesh_tpu_torch.ops import u32
+    from spacemesh_tpu_torch.ops import pow_cuda
 
-    dev = "cuda"
-    nonces = np.arange(1 << 18, dtype=np.uint64)
-    lo = u32.from_numpy((nonces & 0xFFFFFFFF).astype(np.uint32), dev)
-    hi = u32.from_numpy((nonces >> 32).astype(np.uint32), dev)
-    st = u32.from_numpy(k2pow.prefix_state(challenge, node), dev)
-    tgt = u32.from_numpy(np.frombuffer(difficulty, dtype=">u4")
-                         .astype(np.uint32), dev)
-    hits = np.nonzero(k2pow.below_targets(
-        k2pow.pow_hash_batch(st, lo, hi), tgt).cpu().numpy())[0]
+    hits = np.nonzero(pow_cuda.search_batch(
+        k2pow.prefix_state(challenge, node),
+        np.frombuffer(difficulty, dtype=">u4").astype(np.uint32), 0, 1 << 18,
+        "cuda").cpu().numpy())[0]
     found = [int(n) for n in hits[:count]]
     require(len(found) == count, f"{count} k2pow witnesses in 2^18 nonces")
     for n in found:
@@ -1288,9 +1562,9 @@ def run_verifyd(posts: list, mix, profile: bool) -> dict:
 
 def serial_verdicts(posts: list) -> tuple:
     """``post.verifier.verify`` one item per call on the card with the
-    service's K3 seed, in one thread (the eager proving hash holds the
-    interpreter lock, so threads do not overlap these calls). Returns
-    (verdicts, seconds of the first ``SERIAL_SAMPLE``)."""
+    service's K3 seed, in one thread: the reference the service's verdicts
+    are held to. Returns (verdicts, seconds of the first
+    ``SERIAL_SAMPLE``)."""
     import torch
     from spacemesh_tpu_torch.post import prover, verifier
 
@@ -1308,9 +1582,9 @@ def serial_verdicts(posts: list) -> tuple:
 def phase_verifyd(ctx: dict) -> None:
     import importlib.util
 
-    import numpy as np
     import torch
     from spacemesh_tpu_torch.core import signing
+    from spacemesh_tpu_torch.ops import proving as tproving
     from spacemesh_tpu_torch.ops import scrypt as tscrypt
     from spacemesh_tpu_torch.tools.measure import busy_us, device_intervals
     from torch.autograd import DeviceType
@@ -1320,43 +1594,63 @@ def phase_verifyd(ctx: dict) -> None:
     t_setup = time.perf_counter()
     posts, flags, mix = verifyd_load(ctx)
     setup_s = time.perf_counter() - t_setup
-    # the labels of the farm's recomputes, sampled where the verifier
-    # calls the label pipeline: the first and last lane of each call
-    real_multi = tscrypt.scrypt_labels_multi
+    # taps on the verifier's recompute in the cold run: the first and last
+    # lane of each label batch (sampled against hashlib), and the inputs of
+    # the widest batch (for path_twins), all kept on the card until after
+    # the run; the warm run is timed untapped
+    real_words = tscrypt.scrypt_labels_words
+    real_hash = tproving.proving_hash
     taps = []
-    widest: dict = {}  # the inputs of the widest recompute, for path_twins
+    widest: dict = {"b": 0}
 
-    def tap(commitments, indices, *, n=8192, device="cuda"):
-        out = real_multi(commitments, indices, n=n, device=device)
-        if len(indices) > len(widest.get("indices", ())):
-            widest.update(commitments=np.array(commitments),
-                          indices=np.array(indices))
-        for i in (0, len(indices) - 1):
-            taps.append((bytes(commitments[i]), int(indices[i]), n,
-                         bytes(out[i])))
-        return out
+    def tap_words(cw, idx_lo, idx_hi, *, n):
+        words = real_words(cw, idx_lo, idx_hi, n=n)
+        b = idx_lo.shape[0]
+        ends = [torch.stack([t[..., 0], t[..., b - 1]], -1)
+                for t in (cw, idx_lo, idx_hi, words)]
+        with GUARD.lock:
+            taps.append((n, *ends))
+            if b > widest["b"]:
+                widest.update(b=b, n=n, lo_obj=idx_lo, cw=cw.clone(),
+                              lo=idx_lo.clone(), hi=idx_hi.clone())
+        return words
 
-    tscrypt.scrypt_labels_multi = tap
+    def tap_hash(ch, nonce, idx_lo, idx_hi, words, *, big_endian=False):
+        with GUARD.lock:
+            if idx_lo is widest.get("lo_obj"):
+                widest.update(ch=ch.clone(), nonce=nonce.clone(),
+                              lo_obj=None)
+        return real_hash(ch, nonce, idx_lo, idx_hi, words,
+                         big_endian=big_endian)
+
+    tscrypt.scrypt_labels_words = tap_words
+    tproving.proving_hash = tap_hash
     try:
         # a fresh service each time: the first pays each stream's first
         # scratch allocations, the second runs warm and is the one read
         cold = run_verifyd(posts, mix, profile=False)
-        torch.cuda.reset_peak_memory_stats()
-        zero_launches()
-        bare = run_verifyd(posts, mix, profile=False)
-        launches = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        peak_reserved = torch.cuda.max_memory_reserved()
-        profiled = run_verifyd(posts, mix, profile=True)
     finally:
-        tscrypt.scrypt_labels_multi = real_multi
-    t0 = time.perf_counter()
-    twins = path_twins(widest["commitments"], widest["indices"])
-    twins_s = time.perf_counter() - t0
+        tscrypt.scrypt_labels_words = real_words
+        tproving.proving_hash = real_hash
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    GUARD.start()
+    bare = run_verifyd(posts, mix, profile=False)
+    launches = launch_counts()
+    guard = GUARD.stop()
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    GUARD.start()
+    profiled = run_verifyd(posts, mix, profile=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     serial, sample_s = serial_verdicts(posts)
     serial_s = time.perf_counter() - t0
+    guard_rest = GUARD.stop()
+    t0 = time.perf_counter()
+    twins = path_twins(widest)
+    twins_s = time.perf_counter() - t0
+    picks = tap_labels(taps)
     mix_inline = mix.inline_all()
 
     for name, run in (("cold", cold), ("warm", bare),
@@ -1368,16 +1662,24 @@ def phase_verifyd(ctx: dict) -> None:
     require(serial == [not f for f in flags],
             "honest requests True, tampered ones False")
     require(0 < sum(mix_inline) < len(mix_inline), "the mix is mixed")
+    require_no_twins(guard, "verifyd warm run")
+    require_no_twins(guard_rest, "verifyd profiled run and serial verifies")
     post_b = bare["per_kind"]["post"]["batches"]
-    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish"):
+    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish", "proving_hash"):
         require(launches[key] == post_b, f"the warm run launched {key} once "
                 f"per POST batch ({launches[key]} launches, {post_b} "
                 "batches)")
+    require(guard["pow_batches"] > 0
+            and launches["k2pow_verify"] == guard["pow_batches"],
+            f"the warm run launched k2pow verify once per device pow batch "
+            f"({launches['k2pow_verify']} launches, {guard['pow_batches']} "
+            "batches)")
+    require(launches["scan"] == launches["k2pow_search"] == 0,
+            "verification launches no scan and no k2pow search")
     for shape, errs in twins.items():
         for key, err in errs.items():
             require(err == 0, f"{key} kernel == plain at the verifyd path's "
                               f"{shape}")
-    picks = taps[::max(len(taps) // 32, 1)][:32]
     check_taps(picks)
 
     branch = ("OpenSSL" if signing._HAVE_CRYPTOGRAPHY else "the "
@@ -1420,18 +1722,20 @@ def phase_verifyd(ctx: dict) -> None:
             f"{k} {v / post_b * 1e3:.2f} ({v / post_b * 1e3 / whole:.0%})"
             for k, v in bare["post_timing"].items())
         + f"; whole dispatch {whole:.2f} ms. prep: structure, k2pow, K3 and "
-        f"the per-lane arrays; labels: the three kernels and the labels' "
-        f"copy to the host; hash: the eager proving hash with its copies")
+        f"the per-lane arrays; labels: the inputs' copies and the three "
+        f"label kernels' launches; hash: the proving hash launch, the wait "
+        f"for all four kernels and the values' copy to the host")
     n_pow = sum(r.kind == "pow" for r in mix.requests)
     log("[verifyd] pow kind: " + ", ".join(
         f"{name} run {r['per_kind']['pow']['dispatch_s'] * 1e3:.1f} ms in "
         f"{r['per_kind']['pow']['batches']} batch(es)" for name, r in (
             ("cold", cold), ("warm", bare), ("profiled", profiled))
-        if "pow" in r["per_kind"]) + f" for {n_pow} witnesses (eager "
-        f"SHA-256 beside the POST batches)")
+        if "pow" in r["per_kind"]) + f" for {n_pow} witnesses (the k2pow "
+        f"verify kernel beside the POST batches)")
     prof = profiled["prof"]
     intervals = device_intervals(prof)
-    kern = {"romix": 0.0, "expand_kernel": 0.0, "finish_kernel": 0.0}
+    kern = {"romix": 0.0, "expand_kernel": 0.0, "finish_kernel": 0.0,
+            "hash_kernel": 0.0, "verify_kernel": 0.0}
     total_us = 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1443,10 +1747,12 @@ def phase_verifyd(ctx: dict) -> None:
     pb = profiled["per_kind"]["post"]["batches"]
     log(f"[verifyd] device time per POST batch (profiled run, {pb} "
         f"batches): ROMix {kern['romix'] / pb / 1e3:.2f} ms, PBKDF2 expand "
-        f"{kern['expand_kernel'] / pb / 1e3:.3f} ms, finish "
-        f"{kern['finish_kernel'] / pb / 1e3:.3f} ms; every other device "
-        f"activity (the proving hash's and the pow kind's eager kernels, "
-        f"copies) {(total_us - sum(kern.values())) / 1e3:.1f} ms in all")
+        f"{kern['expand_kernel'] / pb / 1e3:.4f} ms, finish "
+        f"{kern['finish_kernel'] / pb / 1e3:.4f} ms, proving hash "
+        f"{kern['hash_kernel'] / pb / 1e3:.4f} ms; k2pow verify "
+        f"{kern['verify_kernel'] / 1e3:.4f} ms in all; every other device "
+        f"activity (copies, fills) {(total_us - sum(kern.values())) / 1e3:.1f}"
+        f" ms in all")
     if intervals:
         busy = busy_us(intervals) / 1e6
         idle = (f"device busy {busy:.3f} s, idle share "
@@ -1457,13 +1763,15 @@ def phase_verifyd(ctx: dict) -> None:
     log(f"[verifyd] {idle}; peak device memory over the warm run: "
         f"allocated {peak / 2**30:.2f} GiB, reserved by the caching "
         f"allocator {peak_reserved / 2**30:.2f} GiB")
-    log(f"[verifyd] {len(picks)} sampled labels of the farm's recomputes == "
-        f"hashlib.scrypt; every verdict == serial inline; launches in the "
-        f"warm run {json.dumps(launches)}, one each per POST batch")
+    log(f"[verifyd] {len(picks)} sampled labels of the farm's recomputes "
+        f"(big-endian words read back from the card) == hashlib.scrypt; "
+        f"every verdict == serial inline; launches in the warm run "
+        f"{json.dumps(launches)}: one each per POST batch, k2pow verify one "
+        f"per device pow batch ({guard['pow_batches']})")
     log(f"[verifyd] kernels == plain on the widest recompute's inputs "
-        f"({len(widest['indices'])} lanes, per-lane commitments) and on its "
-        f"first proof's lanes (a serial verify's shape), max_abs_err "
-        f"{json.dumps(twins)}, in {twins_s:.1f} s")
+        f"({widest['b']} lanes, per-lane commitments, challenges and "
+        f"nonces) and on its first proof's lanes (a serial verify's shape), "
+        f"max_abs_err {json.dumps(twins)}, in {twins_s:.1f} s")
     log(f"[verifyd] {ctx['smi']}")
     # the load and its serial inline verdicts, reused by [fleet]
     ctx["verifyd"] = dict(launches=launches, twins=twins, posts=posts,
@@ -1693,12 +2001,15 @@ def phase_fleet(ctx: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     zero_launches()
+    GUARD.start()
     b0 = post_batches()
     clean = asyncio.run(drive_fleet(requests, len(posts), len(mix.requests),
                                     params=params, seed=VERIFYD_SEED,
                                     drill=False))
     launches = launch_counts()
+    guard = GUARD.stop()
     batches = post_batches() - b0
+    GUARD.start()
     # the closed farms' streams leave their V scratch in the allocator's
     # cache: hand it back before the drill's farms are made
     torch.cuda.empty_cache()
@@ -1718,11 +2029,17 @@ def phase_fleet(ctx: dict) -> None:
                 "through the fleet == the serial inline verdict on the card")
         require(run["mixed"] == mix_inline, f"{name} run: sig/vrf/membership"
                 "/pow verdicts through the fleet == inline")
-    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish"):
+    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish", "proving_hash"):
         require(launches[key] == batches, f"the clean run launched {key} "
                 f"once per POST batch of all farms ({launches[key]} "
                 f"launches, {batches} batches): no ROMix launch was split")
-    require(launches["scan"] == 0, "verification launches no scan")
+    require(guard["pow_batches"] > 0
+            and launches["k2pow_verify"] == guard["pow_batches"],
+            f"the clean run launched k2pow verify once per device pow batch "
+            f"({launches['k2pow_verify']} launches, {guard['pow_batches']} "
+            "batches)")
+    require(launches["scan"] == launches["k2pow_search"] == 0,
+            "verification launches no scan and no k2pow search")
     recs = drill["records"]
     down = drill["marks"]
     probes = down["r1_up"][0] - down["r1_down"][0]
@@ -1746,6 +2063,8 @@ def phase_fleet(ctx: dict) -> None:
     card = [run_drills("cuda"), run_drills("cuda")]
     cpu = run_drills("cpu")
     drills_s = time.perf_counter() - t0
+    require_no_twins(guard, "fleet clean run")
+    require_no_twins(GUARD.stop(), "fleet drill and the fleet drills")
     for name in FLEET_DRILLS:
         for run in card:
             require(run[name][0], f"drill {name} ok on the card "
@@ -1789,8 +2108,9 @@ def phase_fleet(ctx: dict) -> None:
         f"{sum(r['path'] == 'remote' for r in after)} of {len(after)} remote; "
         f"fleet stats {json.dumps(drill['stats'])}; proofs/s "
         f"{n_posts / drill['wall']:.0f}")
-    log(f"[fleet] launches in the clean run {json.dumps(launches)} == "
-        f"{batches} POST batches over the {FLEET_REPLICAS + 1} farms; peak "
+    log(f"[fleet] launches in the clean run {json.dumps(launches)}: "
+        f"{batches} POST batches over the {FLEET_REPLICAS + 1} farms, "
+        f"{guard['pow_batches']} device pow batches; peak "
         f"device memory over both runs: allocated {peak / 2**30:.2f} GiB, "
         f"reserved {peak_reserved / 2**30:.2f} GiB (V cap "
         f"{FLEET_REPLICAS * FLEET_INFLIGHT + FLEET_LOCAL_INFLIGHT} x 9.25 "
@@ -1807,45 +2127,66 @@ def phase_fleet(ctx: dict) -> None:
     ctx["fleet"] = dict(launches=launches)
 
 
-def path_twins(commits, indices) -> dict:
-    """The three kernels against their plain twins at the ``[verifyd]``
-    path's two shapes, on one farm recompute's real inputs: the whole
-    recompute (per-lane commitments, k3 lanes per proof) and its first
+def path_twins(widest: dict) -> dict:
+    """The four kernels against their plain twins at the ``[verifyd]``
+    path's two shapes, on the widest farm recompute's real inputs (as the
+    cold run's taps kept them on the card): the whole recompute (per-lane
+    commitments, challenges and nonces, k3 lanes per proof) and its first
     proof's k3 lanes (the shape of a serial verify). One plain ROMix call
     covers both shapes' lanes (ROMix is lane-wise: each lane's output
     depends on that lane's input alone). Returns max_abs_err by shape and
     kernel."""
-    import numpy as np
     import torch
-    from spacemesh_tpu_torch.ops import pbkdf2_cuda, romix_cuda, u32
-    from spacemesh_tpu_torch.ops.scrypt import split_indices
+    from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving_cuda, romix_cuda
     from spacemesh_tpu_torch.post import prover
 
     k3 = prover.ProofParams().k3
+    n = widest["n"]
     errs, blocks = {}, []
-    for shape, sl in ((f"(32, {len(indices)})", slice(None)),
-                      (f"(32, {k3})", slice(0, k3))):
-        cw = u32.from_numpy(np.ascontiguousarray(
-            commits[sl].view(">u4").astype(np.uint32).T), "cuda")
-        lo, hi = (u32.from_numpy(a, "cuda") for a in split_indices(
-            indices[sl]))
+    for shape, sl in ((f"({widest['b']},)", slice(None)),
+                      (f"({k3},)", slice(0, k3))):
+        cw, lo, hi = (widest[k][..., sl].contiguous() for k in ("cw", "lo",
+                                                                 "hi"))
+        ch, nonce = (widest[k][..., sl].contiguous() for k in ("ch", "nonce"))
         blk = pbkdf2_cuda.expand(cw, lo, hi)
         inner, outer, want = pbkdf2_cuda._expand(cw, lo, hi)
-        mixed = romix_cuda.romix(blk, N_MAIN)
+        mixed = romix_cuda.romix(blk, n)
         words = pbkdf2_cuda.finish(cw, mixed)
         errs[shape] = {
             "pbkdf2_expand": max_abs_err(blk, want),
             "pbkdf2_finish": max_abs_err(
-                words, pbkdf2_cuda._pbkdf2_second(inner, outer, mixed)[:4])}
+                words, pbkdf2_cuda._pbkdf2_second(inner, outer, mixed)[:4]),
+            "proving_hash": max_abs_err(
+                proving_cuda.proving_hash(ch, nonce, lo, hi, words,
+                                          big_endian=True),
+                proving_cuda.proving_hash_plain(ch, nonce, lo, hi, words,
+                                                big_endian=True))}
         blocks.append((shape, blk, mixed))
     plain = romix_cuda.romix_r1(torch.cat([b for _, b, _ in blocks], dim=1),
-                                N_MAIN)
+                                n)
     c0 = 0
     for shape, blk, mixed in blocks:
         c1 = c0 + blk.shape[1]
         errs[shape]["romix"] = max_abs_err(mixed, plain[:, c0:c1])
         c0 = c1
     return errs
+
+
+def tap_labels(taps: list) -> list:
+    """The cold run's taps -> up to 32 (commitment, index, N, label bytes)
+    samples, spread over the run, read back from the card."""
+    import numpy as np
+    from spacemesh_tpu_torch.ops import scrypt, u32
+
+    out = []
+    for n, cw, lo, hi, words in taps[::max(len(taps) // 16, 1)][:16]:
+        cw, lo, hi = (u32.to_numpy(t) for t in (cw, lo, hi))
+        labels = scrypt.labels_to_bytes(words)
+        for j in range(2):
+            out.append((cw[:, j].astype(">u4").tobytes(),
+                        int(lo[j]) | int(hi[j]) << 32, n,
+                        labels[16 * j:16 * j + 16]))
+    return out
 
 
 def check_taps(picks: list) -> None:
@@ -1937,7 +2278,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device(ctx)
     phase_romix(ctx)
+    GUARD.install()
     phase_pbkdf2(ctx)
+    phase_proving_hash(ctx)
+    phase_k2pow(ctx)
     phase_scan(ctx)
     phase_main_path(ctx)
     phase_worker(ctx)
@@ -1949,19 +2293,26 @@ def main() -> int:
              "scan": {"full_width": {k: ctx["scan_full"][k] for k in (
                  "shape", "ms", "plain_ms", "bound_ms", "bound_by")}},
              "pbkdf2_expand": {k: ctx["pbkdf2_expand"][k] for k in (
-                 "kernel_ms", "perlane", "ragged")},
+                 "kernel_ms", "perlane", "verify_width", "ragged")},
              "pbkdf2_finish": {k: ctx["pbkdf2_finish"][k] for k in (
-                 "kernel_ms", "perlane", "ragged")}}
+                 "kernel_ms", "perlane", "verify_width", "ragged")},
+             "proving_hash": {k: ctx["proving_hash"][k] for k in (
+                 "kernel_ms", "serial", "verify_width", "shared")},
+             "k2pow_search": {"kernel_ms": ctx["k2pow_search"]["kernel_ms"]},
+             "k2pow_verify": {k: ctx["k2pow_verify"][k] for k in (
+                 "kernel_ms", "widest")}}
     for key in extra:
         extra[key]["tenants_launches"] = ctx["tenants"]["launches"][key]
         extra[key]["verifyd_launches"] = ctx["verifyd"]["launches"][key]
         extra[key]["fleet_launches"] = ctx["fleet"]["launches"][key]
-        if key != "scan":
+        if key in ("romix", "pbkdf2_expand", "pbkdf2_finish",
+                   "proving_hash"):
             extra[key]["verifyd_max_abs_err"] = {
                 shape: errs[key] for shape, errs
                 in ctx["verifyd"]["twins"].items()}
     envelope = ("spacemesh_tpu/ops/scrypt.py:440 (XLA-fused envelope, no "
                 "Pallas kernel)")
+    xla = " (XLA, no Pallas kernel)"
     kernels = []
     for key, name, source, replaces in (
             ("romix", "romix_r1", "spacemesh_tpu_torch/csrc/romix.cu",
@@ -1971,11 +2322,24 @@ def main() -> int:
             ("pbkdf2_expand", "pbkdf2_expand",
              "spacemesh_tpu_torch/csrc/pbkdf2.cu", envelope),
             ("pbkdf2_finish", "pbkdf2_finish",
-             "spacemesh_tpu_torch/csrc/pbkdf2.cu", envelope)):
+             "spacemesh_tpu_torch/csrc/pbkdf2.cu", envelope),
+            ("proving_hash", "proving_hash",
+             "spacemesh_tpu_torch/csrc/proving_scan.cu",
+             "spacemesh_tpu/ops/proving.py:60" + xla),
+            ("k2pow_search", "k2pow_search",
+             "spacemesh_tpu_torch/csrc/k2pow.cu",
+             "spacemesh_tpu/ops/pow.py:39" + xla),
+            ("k2pow_verify", "k2pow_verify",
+             "spacemesh_tpu_torch/csrc/k2pow.cu",
+             "spacemesh_tpu/ops/pow.py:190" + xla)):
         m = ctx[key]
+        path, launches = "main", ctx["launches"][key]
+        if key == "k2pow_verify":
+            path, launches = "verifyd", ctx["verifyd"]["launches"][key]
+            extra[key]["main_launches"] = ctx["launches"][key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": ctx["launches"][key],
+            "replaces": replaces, "path": path, "launches": launches,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,

@@ -1,7 +1,7 @@
-// PoST proving scan, one thread per label lane.
+// PoST proving scan and proving hash, one thread per label lane.
 //
-// Replaces spacemesh_tpu/ops/proving_pallas.py::_kernel. For each of
-// n_nonces consecutive nonces, one Salsa20/8 over the 16-word state
+// The scan replaces spacemesh_tpu/ops/proving_pallas.py::_kernel. For each
+// of n_nonces consecutive nonces, one Salsa20/8 over the 16-word state
 //
 //   challenge(8 LE words) || nonce0+k || idx_lo || idx_hi || 0 || label(4 LE)
 //
@@ -19,9 +19,23 @@
 // Bound: about 400 integer instructions per (label, nonce) pair against
 // 24 bytes read per label and n_nonces * (1 + 4/64) bytes written, so the
 // scan is bound by the warp-instruction rate.
+//
+// The proving hash (hash_kernel) replaces the XLA program of
+// spacemesh_tpu/ops/proving.py::proving_hash_jit, which has no Pallas
+// kernel: the verifier's one Salsa20/8 per (proof, index) lane, with the
+// challenge and nonce shared or per lane, returning x0 + challenge[0]. It
+// takes the label words little-endian as the scan does, or big-endian as
+// pbkdf2.cu's finish leaves them (be_labels: swapped on load), so the
+// verifier hands the recomputed labels over without leaving the card.
+// Bound: about 390 integer instructions per lane against at most 64
+// bytes moved, so the instruction rate bounds it; a verify batch of 9472
+// lanes is a few microseconds of either, and launch latency sets its time.
+// Both kernels run the rounds through salsa20_8_rounds.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 #define ROTL(v, n) __funnelshift_l((v), (v), (n))
 #define QR(a, b, c, d)     \
@@ -37,6 +51,22 @@ constexpr int kSegment = 64;
 struct Challenge {
     uint32_t w[8];
 };
+
+// The 8 rounds (4 double rounds) of Salsa20/8 on the state x, in place,
+// without the final feed-forward add.
+__device__ __forceinline__ void salsa20_8_rounds(uint32_t (&x)[16]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        QR(x[0], x[4], x[8], x[12]);
+        QR(x[5], x[9], x[13], x[1]);
+        QR(x[10], x[14], x[2], x[6]);
+        QR(x[15], x[3], x[7], x[11]);
+        QR(x[0], x[1], x[2], x[3]);
+        QR(x[5], x[6], x[7], x[4]);
+        QR(x[10], x[11], x[8], x[9]);
+        QR(x[15], x[12], x[13], x[14]);
+    }
+}
 
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(Challenge ch, uint32_t nonce0, uint32_t thr,
@@ -60,22 +90,11 @@ scan_kernel(Challenge ch, uint32_t nonce0, uint32_t thr,
     const int warp = threadIdx.x >> 5;
     const long long nseg = b / kSegment;
     for (int k = 0; k < n_nonces; ++k) {
-        uint32_t x0 = ch.w[0], x1 = ch.w[1], x2 = ch.w[2], x3 = ch.w[3];
-        uint32_t x4 = ch.w[4], x5 = ch.w[5], x6 = ch.w[6], x7 = ch.w[7];
-        uint32_t x8 = nonce0 + (uint32_t)k, x9 = lo, x10 = hi, x11 = 0;
-        uint32_t x12 = l0, x13 = l1, x14 = l2, x15 = l3;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            QR(x0, x4, x8, x12);
-            QR(x5, x9, x13, x1);
-            QR(x10, x14, x2, x6);
-            QR(x15, x3, x7, x11);
-            QR(x0, x1, x2, x3);
-            QR(x5, x6, x7, x4);
-            QR(x10, x11, x8, x9);
-            QR(x15, x12, x13, x14);
-        }
-        const bool hit = alive && (x0 + ch.w[0]) < thr;
+        uint32_t x[16] = {ch.w[0], ch.w[1], ch.w[2], ch.w[3],
+                          ch.w[4], ch.w[5], ch.w[6], ch.w[7],
+                          nonce0 + (uint32_t)k, lo, hi, 0u, l0, l1, l2, l3};
+        salsa20_8_rounds(x);
+        const bool hit = alive && (x[0] + ch.w[0]) < thr;
         if (in) mask[(size_t)k * b + lane] = hit ? 1 : 0;
         const unsigned ballot = __ballot_sync(0xffffffffu, hit);
         const int slot = k & 1;
@@ -107,5 +126,52 @@ extern "C" int proving_scan_launch(const uint32_t* challenge, uint32_t nonce0,
         ch, nonce0, thr, valid, (const uint32_t*)idx_lo,
         (const uint32_t*)idx_hi, (const uint32_t*)lw, (int8_t*)mask,
         (int32_t*)seg, b, n_nonces);
+    return (int)cudaGetLastError();
+}
+
+constexpr unsigned kHashMaxThreads = 256;
+
+__global__ void __launch_bounds__(kHashMaxThreads)
+hash_kernel(const uint32_t* __restrict__ cw, long long cws, long long cls,
+            const uint32_t* __restrict__ nonce, long long nls,
+            uint32_t nonce_value, const uint32_t* __restrict__ idx_lo,
+            const uint32_t* __restrict__ idx_hi,
+            const uint32_t* __restrict__ lw, int be_labels,
+            uint32_t* __restrict__ out, long long b) {
+    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= b) return;
+    uint32_t x[16];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = cw[i * cws + lane * cls];
+    x[8] = nonce ? nonce[lane * nls] : nonce_value;
+    x[9] = idx_lo[lane];
+    x[10] = idx_hi[lane];
+    x[11] = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const uint32_t v = lw[(size_t)i * b + lane];
+        x[12 + i] = be_labels ? __byte_perm(v, 0, 0x0123) : v;
+    }
+    const uint32_t c0 = x[0];
+    salsa20_8_rounds(x);
+    out[lane] = x[0] + c0;
+}
+
+// cw: 8 u32 challenge words at cw[w * cws + lane * cls] (cls = 0: shared);
+// nonce: u32 at nonce[lane * nls], or nonce_value for every lane when
+// nonce is null; idx_lo/idx_hi: (B,) u32; lw: (4, B) u32 label words, LE,
+// or BE when be_labels; out: (B,) u32. Returns cudaGetLastError().
+extern "C" int proving_hash_launch(const void* cw, long long cws,
+                                   long long cls, const void* nonce,
+                                   long long nls, uint32_t nonce_value,
+                                   const void* idx_lo, const void* idx_hi,
+                                   const void* lw, int be_labels, void* out,
+                                   long long b, void* stream) {
+    if (b <= 0) return 0;
+    const unsigned block = spread_threads(b, kHashMaxThreads);
+    hash_kernel<<<blocks_of(b, block), block, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)cw, cws, cls, (const uint32_t*)nonce, nls,
+        nonce_value, (const uint32_t*)idx_lo, (const uint32_t*)idx_hi,
+        (const uint32_t*)lw, be_labels, (uint32_t*)out, b);
     return (int)cudaGetLastError();
 }

@@ -2,11 +2,13 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``build/lib<name>-<hash>.so`` for ``sm_90a``, then loaded with
-``ctypes``; the hash is of the source and the flags, so an edited source
-never loads a stale library. Nothing is built at import: the first call
-that launches a kernel builds what it needs, and :func:`build_all` starts
-one nvcc per source, all at once, for callers that want every kernel up
-front (``chip_smoke.py``). A failed build raises; there is no fallback.
+``ctypes``; the hash is of the source, every header under ``csrc/`` it
+includes (``#include "..."``, followed through headers), and the flags, so
+an edited source or header never loads a stale library. Nothing is built
+at import: the first call that launches a kernel builds what it needs, and
+:func:`build_all` starts one nvcc per source, all at once, for callers
+that want every kernel up front (``chip_smoke.py``). A failed build
+raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +26,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("romix", "proving_scan", "pbkdf2")
+SOURCES = ("romix", "proving_scan", "pbkdf2", "k2pow")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,10 +49,31 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, directly or
+    through another header, each once, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / inc.decode()
+            if header.is_file():
+                todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _build_one(name: str) -> str:

@@ -5,9 +5,13 @@ scrypt (N, r=1, p=1) wraps ROMix in two PBKDF2-HMAC-SHA256 calls with the
 commitment as the password: :func:`expand` turns a label index into the
 (32, B) block ROMix takes, and :func:`finish` turns ROMix's output into
 the (4, B) label words. The kernel is ``csrc/pbkdf2.cu``, one source with
-one entry point for each, one thread per lane. Each derives the HMAC
-midstates from the raw commitment words itself, so only the block and the
-label words pass through device memory.
+one entry point for each (the SHA-256 rounds in ``csrc/sha256.cuh``).
+Each derives the HMAC midstates from the raw commitment words itself, so
+only the block and the label words pass through device memory: once per
+block, into shared memory, for a shared commitment; per lane otherwise,
+split over a pair of threads in expand. Expand runs four threads per lane,
+one for each of its independent output blocks; finish, a serial chain,
+one.
 
 It replaces no Pallas kernel: the JAX package compiles this envelope into
 one XLA program around its ROMix kernel
@@ -17,7 +21,7 @@ plus the 2 of the HMAC midstates once per batch for a shared commitment
 or once per lane for per-lane ones (:data:`COMPRESS_OPS` integer
 operations each, :func:`int_ops`), against at most 176 bytes per lane
 (:func:`io_bytes`). So the operations bound it, about 0.015 ms for both
-at 32768 lanes with one commitment; launch latency sets its time.
+at 32768 lanes with one commitment.
 
 :func:`expand` and :func:`finish` take the kernel for CUDA tensors and the
 plain twins (:func:`_expand`, :func:`_pbkdf2_second`, ported from the JAX

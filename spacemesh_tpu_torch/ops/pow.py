@@ -6,10 +6,12 @@
     valid <=> pow_hash < difficulty     (32-byte big-endian compare)
 
 The search runs batches of nonces on the device through the bounded
-dispatch/retire window of ``runtime/engine.py``. A device error raises: the
-JAX package's host re-hash on a failed dispatch is not carried over. The
-single :func:`verify` and batches below ``min_device`` items use hashlib,
-as in the JAX package.
+dispatch/retire window of ``runtime/engine.py``, each batch one launch of
+the search kernel on the card (``ops/pow_cuda.py``); batched verification
+is one launch of the verify kernel per batch. On the CPU both run the
+plain twins. A device error raises: the JAX package's host re-hash on a
+failed dispatch is not carried over. The single :func:`verify` and batches
+below ``min_device`` items use hashlib, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,50 +22,15 @@ import numpy as np
 import torch
 
 from ..device import HostCopy, resolve
-from . import u32
-from .sha256 import IV, byteswap32, iv_tensor, sha256_compress
-from .u32 import DTYPE, flip
-
-# Message layout: challenge(32) || node_id(32) || le64(nonce) = 72 bytes
-# -> two 64-byte blocks with FIPS padding in the second.
-_BIT_LEN = 72 * 8
+from . import pow_cuda, u32
+# the plain twins, under the JAX package's names
+from .pow_cuda import below_targets, pow_hash_batch  # noqa: F401
+from .pow_cuda import split_nonces as _split
+from .sha256 import IV, sha256_compress
 
 
 def _words_be(data: bytes) -> np.ndarray:
     return np.frombuffer(data, dtype=">u4").astype(np.uint32)
-
-
-def _second_block(nonce_lo: torch.Tensor, nonce_hi: torch.Tensor):
-    """le64(nonce) || 0x80 || zeros || be64(bit length), (16, B)."""
-    b = nonce_lo.shape[0]
-    tail = torch.zeros((14, b), dtype=DTYPE, device=nonce_lo.device)
-    tail[0] = u32.s32(0x80000000)
-    tail[13] = _BIT_LEN
-    return torch.cat([byteswap32(nonce_lo)[None], byteswap32(nonce_hi)[None],
-                      tail])
-
-
-def pow_hash_batch(prefix_state: torch.Tensor, nonce_lo: torch.Tensor,
-                   nonce_hi: torch.Tensor) -> torch.Tensor:
-    """SHA-256 over the second block for a (B,) batch of nonces.
-    ``prefix_state``: (8,) midstate after challenge || node_id. Returns
-    (8, B) BE digest words."""
-    return sha256_compress(prefix_state, _second_block(nonce_lo, nonce_hi))
-
-
-def below_targets(digest_words: torch.Tensor, target_words: torch.Tensor
-                  ) -> torch.Tensor:
-    """Big-endian 256-bit unsigned compare, digest < target, per lane.
-    digest_words: (8, B); target_words: (8,) shared or (8, B)."""
-    if target_words.dim() == 1:
-        target_words = target_words[:, None]
-    d, t = flip(digest_words), flip(target_words)
-    lt, eq = d < t, d == t
-    out = lt[7]
-    for i in range(6, -1, -1):
-        out = lt[i] | (eq[i] & out)
-    return out
-
 
 
 def prefix_state(challenge: bytes, node_id: bytes) -> np.ndarray:
@@ -82,12 +49,6 @@ def pow_hash(challenge: bytes, node_id: bytes, nonce: int) -> bytes:
         challenge + node_id + int(nonce).to_bytes(8, "little")).digest()
 
 
-def _split(nonces: np.ndarray, dev) -> tuple[torch.Tensor, torch.Tensor]:
-    lo = (nonces & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    hi = (nonces >> np.uint64(32)).astype(np.uint32)
-    return u32.from_numpy(lo, dev), u32.from_numpy(hi, dev)
-
-
 def search(challenge: bytes, node_id: bytes, difficulty: bytes,
            *, batch: int = 1 << 16, start: int = 0,
            max_batches: int = 1 << 16, inflight: int = 2,
@@ -101,13 +62,13 @@ def search(challenge: bytes, node_id: bytes, difficulty: bytes,
     if len(difficulty) != 32:
         raise ValueError("difficulty must be 32 bytes")
     dev = resolve(device)
-    st = u32.from_numpy(prefix_state(challenge, node_id), dev)
-    tgt = u32.from_numpy(_words_be(difficulty), dev)
+    st = prefix_state(challenge, node_id)
+    tgt = _words_be(difficulty)
 
     def dispatch(base):
-        lo, hi = _split(np.arange(base, base + batch, dtype=np.uint64), dev)
         # enqueue only: the (B,) hit mask is awaited at retire
-        return base, HostCopy(below_targets(pow_hash_batch(st, lo, hi), tgt))
+        return base, HostCopy(pow_cuda.search_batch(st, tgt, base, batch,
+                                                    dev))
 
     def retire(ticket):
         # 0 is a valid winning nonce: the engine's early exit tests
@@ -131,11 +92,10 @@ def pow_verify_batch(block1: torch.Tensor, nonce_lo: torch.Tensor,
                      ) -> torch.Tensor:
     """Verify a (B,) batch of witnesses in one two-block SHA-256 pass.
     ``block1``: (16, B) challenge||node_id words; ``target_words``: (8, B)
-    per-item difficulty. Returns (B,) bool."""
-    st = sha256_compress(iv_tensor(block1.device), block1)
-    return below_targets(sha256_compress(st, _second_block(nonce_lo,
-                                                           nonce_hi)),
-                         target_words)
+    per-item difficulty. Returns (B,) bool: the verify kernel on CUDA
+    tensors, its plain twin on CPU ones (``ops/pow_cuda.py:verify_batch``).
+    """
+    return pow_cuda.verify_batch(block1, nonce_lo, nonce_hi, target_words)
 
 
 def _verify_host(items: list) -> list[bool]:

@@ -1,8 +1,9 @@
-"""Proving scan: the CUDA kernel on the card, its plain twin on the CPU.
+"""Proving scan and proving hash: the CUDA kernels on the card, their
+plain twins on the CPU.
 
-Replaces ``spacemesh_tpu/ops/proving_pallas.py::_kernel`` (the
-``pallas_call`` at :124), reached through ``_scan_pallas``. The kernel is
-``csrc/proving_scan.cu``: one thread per label lane, the label words and
+:func:`scan` replaces ``spacemesh_tpu/ops/proving_pallas.py::_kernel``
+(the ``pallas_call`` at :124), reached through ``_scan_pallas``. The kernel
+is ``csrc/proving_scan.cu``: one thread per label lane, the label words and
 index in registers, a loop over the nonce group writing one int8 mask row
 per nonce, and per-64-lane segment hit counts from warp ballots.
 
@@ -11,9 +12,19 @@ nonce) pair (:func:`int_ops`) against 24 bytes read per label and
 n_nonces * (1 + 4/64) bytes written (:func:`io_bytes`), so the
 warp-instruction rate bounds it (132 SMs x 128 lanes per clock).
 
-:func:`scan` takes the kernel for CUDA tensors and :func:`scan_plain` only
+:func:`proving_hash` is the verifier's hash, one Salsa20/8 per lane with
+the challenge and nonce shared or per lane. It replaces the XLA program of
+``spacemesh_tpu/ops/proving.py::proving_hash_jit`` (no Pallas kernel) with
+``hash_kernel`` of the same source, one thread per lane at any batch size,
+which takes the label words little-endian or, with ``big_endian=True``,
+as ``ops/pbkdf2_cuda.py:finish`` leaves them on the card. Bound: about 390
+integer instructions per lane (:func:`hash_int_ops`) against at most 64
+bytes (:func:`hash_io_bytes`).
+
+:func:`scan` and :func:`proving_hash` take the kernel for CUDA tensors and
+their plain twins (:func:`scan_plain`, :func:`proving_hash_plain`) only
 for CPU tensors; a kernel that fails to build or launch raises.
-``launches`` counts kernel launches.
+``launches`` and ``hash_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -25,11 +36,12 @@ import torch
 
 from . import _build
 from .salsa import salsa20_8
-from .u32 import DTYPE, from_numpy, s32, to_numpy, ult
+from .u32 import DTYPE, byteswap32, from_numpy, s32, to_numpy, ult
 
 HIT_SEGMENT = 64  # lanes per compaction segment; batches divide by this
 
 launches = 0
+hash_launches = 0
 
 
 def int_ops(lanes: int, n_nonces: int) -> int:
@@ -44,14 +56,31 @@ def io_bytes(lanes: int, n_nonces: int) -> int:
     return lanes * 24 + n_nonces * (lanes + 4 * (lanes // HIT_SEGMENT))
 
 
-def proving_hash(challenge_words: torch.Tensor, nonce, idx_lo: torch.Tensor,
-                 idx_hi: torch.Tensor, label_words: torch.Tensor
-                 ) -> torch.Tensor:
-    """Proving-hash values, plain PyTorch (``ops/proving.py:proving_hash_jit``).
+def hash_int_ops(lanes: int) -> int:
+    """Integer instructions of the proving hash: one Salsa20/8 and the
+    feed-forward add per lane."""
+    return lanes * (8 * 16 * 3 + 1)
+
+
+def hash_io_bytes(lanes: int, per_lane: bool) -> int:
+    """Bytes the proving hash must move: the challenge and nonce (once, or
+    per lane), idx_lo, idx_hi and 4 label words in, one value out per
+    lane."""
+    return (36 * (lanes if per_lane else 1)
+            + lanes * (8 + 16 + 4))
+
+
+def proving_hash_plain(challenge_words: torch.Tensor, nonce,
+                       idx_lo: torch.Tensor, idx_hi: torch.Tensor,
+                       label_words: torch.Tensor, *,
+                       big_endian: bool = False) -> torch.Tensor:
+    """Proving-hash values, plain PyTorch (the JAX package's
+    ``ops/proving.py:proving_hash_jit``).
 
     challenge_words: (8,) shared or (8, B) per lane; nonce: a u32 int, or a
-    (B,) tensor per lane; idx_lo/idx_hi: (B,); label_words: (4, B) LE.
-    Returns (B,) int32 bit patterns of the u32 values."""
+    (B,) tensor per lane; idx_lo/idx_hi: (B,); label_words: (4, B) LE, or
+    BE with ``big_endian``. Returns (B,) int32 bit patterns of the u32
+    values."""
     b = idx_lo.shape[0]
     dev = idx_lo.device
     ch = challenge_words
@@ -62,10 +91,77 @@ def proving_hash(challenge_words: torch.Tensor, nonce, idx_lo: torch.Tensor,
         nv = torch.full((b,), s32(nonce), dtype=DTYPE, device=dev)
     else:
         nv = nonce.reshape(-1).expand(b)
+    if big_endian:
+        label_words = byteswap32(label_words)
     state = torch.cat([ch, nv[None], idx_lo[None], idx_hi[None],
                        torch.zeros((1, b), dtype=DTYPE, device=dev),
                        label_words])
     return salsa20_8(state)[0]
+
+
+def _hash_lib():
+    fn = _build.load("proving_scan").proving_hash_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_void_p]
+    return fn
+
+
+def proving_hash(challenge_words: torch.Tensor, nonce, idx_lo: torch.Tensor,
+                 idx_hi: torch.Tensor, label_words: torch.Tensor, *,
+                 big_endian: bool = False) -> torch.Tensor:
+    """Proving-hash values of a (B,) batch, any B: ``hash_kernel`` on CUDA
+    tensors, :func:`proving_hash_plain` on CPU tensors. Arguments as
+    there; a tensor nonce is (B,) or a single element."""
+    global hash_launches
+    dev = idx_lo.device
+    if dev.type == "cpu":
+        return proving_hash_plain(challenge_words, nonce, idx_lo, idx_hi,
+                                  label_words, big_endian=big_endian)
+    if dev.type != "cuda":
+        raise ValueError(f"proving_hash: unsupported device {dev}")
+    b = idx_lo.shape[0]
+    ch = challenge_words
+    if tuple(ch.shape) not in ((8,), (8, b)):
+        raise ValueError(f"challenge_words must be (8,) or (8, {b}), got "
+                         f"{tuple(ch.shape)}")
+    if idx_hi.shape != (b,) or label_words.shape != (4, b):
+        raise ValueError("idx_lo/idx_hi must be (B,) and label_words (4, B)")
+    tensors = [ch, idx_lo, idx_hi, label_words]
+    if isinstance(nonce, (int, np.integer)):
+        nv, nls, nval = None, 0, int(nonce) & 0xFFFFFFFF
+    else:
+        if nonce.numel() not in (1, b):
+            raise ValueError(f"nonce must have 1 or {b} elements")
+        nv, nls, nval = nonce.reshape(-1).contiguous(), 1, 0
+        if nonce.numel() == 1:
+            nls = 0
+        tensors.append(nv)
+    for t in tensors:
+        if t.dtype != DTYPE or t.device != dev:
+            raise ValueError("proving_hash inputs must be int32 on one device")
+    ch = ch.contiguous()
+    strides = (1, 0) if ch.dim() == 1 else (b, 1)
+    idx_lo, idx_hi = idx_lo.contiguous(), idx_hi.contiguous()
+    label_words = label_words.contiguous()
+    out = torch.empty(b, dtype=DTYPE, device=dev)
+    if b == 0:
+        return out
+    fn = _hash_lib()
+    with torch.cuda.device(dev):
+        err = fn(ch.data_ptr(), *strides,
+                 None if nv is None else nv.data_ptr(), nls, nval,
+                 idx_lo.data_ptr(), idx_hi.data_ptr(), label_words.data_ptr(),
+                 int(big_endian), out.data_ptr(), b,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        with _build.count_lock:
+            hash_launches += 1
+        _build.check(err, "proving_hash_launch")
+    return out
 
 
 def _check(challenge_words, idx_lo, idx_hi, label_words, n_nonces):
@@ -97,8 +193,8 @@ def scan_plain(challenge_words, nonce_base: int, idx_lo: torch.Tensor,
     cwt = from_numpy(cw, dev)
     alive = torch.arange(b, device=dev) < valid
     mask = torch.stack([
-        ult(proving_hash(cwt, (nonce_base + k) & 0xFFFFFFFF, idx_lo, idx_hi,
-                         label_words), threshold) & alive
+        ult(proving_hash_plain(cwt, (nonce_base + k) & 0xFFFFFFFF, idx_lo,
+                               idx_hi, label_words), threshold) & alive
         for k in range(n_nonces)])
     seg = mask.reshape(n_nonces, b // HIT_SEGMENT, HIT_SEGMENT).sum(
         -1, dtype=torch.int32)

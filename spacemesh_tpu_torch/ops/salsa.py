@@ -5,8 +5,9 @@ Copied from ``spacemesh_tpu/ops/scrypt.py`` (``salsa20_8``,
 regrouped into four diagonal vectors of shape (4, B), so each of the 32
 quarter-round steps of Salsa20/8 is one vector op over four quarters: the
 fewest torch ops per call, which is what an eager framework pays for. This
-is the plain version both CUDA kernels are held against
-(``ops/romix_cuda.py``, ``ops/proving_cuda.py``).
+is the plain version the CUDA kernels are held against
+(``ops/romix_cuda.py``; ``ops/proving_cuda.py``, the scan and the proving
+hash) and runs only on CPU tensors.
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
 """SHA-256 in PyTorch on int32 bit patterns (port of ops/sha256.py).
 
-The envelope around ROMix (PBKDF2-HMAC-SHA256, ops/scrypt.py) and the
-k2pow hash (ops/pow.py). Words are big-endian packed per FIPS 180-4, lanes
-trailing: ``state`` (8, B), ``block`` (16, B). Conversions to scrypt's
-little-endian layout go through :func:`byteswap32`.
+The plain twins of the SHA-256 kernels, ``csrc/pbkdf2.cu`` (the
+PBKDF2-HMAC-SHA256 envelope around ROMix) and ``csrc/k2pow.cu``: the
+wrappers of ``ops/pbkdf2_cuda.py`` and ``ops/pow_cuda.py`` run them on CPU
+tensors, the tests and ``chip_smoke.py`` hold the kernels to them; k2pow's
+prefix midstate is one compression of a CPU tensor. Words are big-endian
+packed per FIPS 180-4, lanes trailing: ``state`` (8, B), ``block`` (16, B).
+Conversions to scrypt's little-endian layout go through
+:func:`byteswap32`.
 """
 
 from __future__ import annotations

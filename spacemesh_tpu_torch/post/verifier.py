@@ -2,10 +2,13 @@
 
 Port of the single-device branch of ``spacemesh_tpu/post/verifier.py``. All
 spot-checked (proof, index) pairs are flattened into one label recompute
-(per-lane commitments, ``ops/scrypt.py:scrypt_labels_multi``: the ROMix
-kernel on the card) and one proving-hash pass, then each proof's values are
-held against its threshold. The K3 spot-check subset is drawn from the
-verifier's seed; the k2pow witness is checked with hashlib.
+(per-lane commitments, ``ops/scrypt.py:scrypt_labels_words``: the PBKDF2
+and ROMix kernels on the card) and one proving-hash pass over the label
+words where the recompute left them (the hash kernel reads them
+big-endian), so only the (B,) hash values come back to the host; then
+each proof's values are held against its threshold. The K3 spot-check
+subset is drawn from the verifier's seed; the k2pow witness is checked
+with hashlib.
 """
 
 from __future__ import annotations
@@ -56,9 +59,10 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
     is drawn per call. Pass one only for reproducible verification.
     ``timing``, when given, gains the host seconds of each stage: ``prep``
     (structure, k2pow and K3 checks, the per-lane arrays), ``labels`` (the
-    label recompute: three kernel launches on the card, and the labels'
-    copy to the host), ``hash`` (the eager proving hash, its copies in and
-    out) and ``check`` (the thresholds)."""
+    label recompute: its inputs' copies and three kernel launches on the
+    card), ``hash`` (the proving-hash launch, the wait for the recompute
+    and the hash, and the values' copy to the host) and ``check`` (the
+    thresholds)."""
     dev = resolve(device)
     t0 = time.perf_counter()
     p = params or ProofParams()
@@ -88,8 +92,8 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
     # 2) one label recompute + proving-hash pass per scrypt N (usually 1)
     owners = np.array(flat_owner)
     idx = np.array(flat_idx, dtype=np.uint64)
-    commits = np.stack([
-        np.frombuffer(items[o].commitment, dtype=np.uint8) for o in flat_owner])
+    commits = np.stack([scrypt.commitment_to_words(items[o].commitment)
+                        for o in flat_owner]).T  # (8, B) BE words
     chals = np.stack([proving.challenge_words(items[o].challenge)
                       for o in flat_owner]).T  # (8, B)
     nonces = np.array([items[o].proof.nonce for o in flat_owner],
@@ -98,15 +102,16 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
     t0 = _lap(timing, "prep", t0)
     for n in sorted({items[o].scrypt_n for o in flat_owner}):
         sel = np.array([items[o].scrypt_n == n for o in flat_owner])
-        labels = scrypt.scrypt_labels_multi(commits[sel], idx[sel], n=n,
-                                            device=dev)
+        lo, hi = (u32.from_numpy(h, dev)
+                  for h in scrypt.split_indices(idx[sel]))
+        # (4, B) BE label words, left on the inputs' device
+        words = scrypt.scrypt_labels_words(
+            u32.from_numpy(commits[:, sel], dev), lo, hi, n=n)
         t0 = _lap(timing, "labels", t0)
-        lo, hi = scrypt.split_indices(idx[sel])
         vals = proving.proving_hash(
             u32.from_numpy(chals[:, sel], dev),
-            u32.from_numpy(nonces[sel], dev), u32.from_numpy(lo, dev),
-            u32.from_numpy(hi, dev),
-            u32.from_numpy(scrypt.labels_to_words(labels), dev))
+            u32.from_numpy(nonces[sel], dev), lo, hi, words,
+            big_endian=True)
         values[sel] = u32.to_numpy(vals)
         t0 = _lap(timing, "hash", t0)
 

@@ -18,7 +18,7 @@ Port of ``spacemesh_tpu/runtime/workloads.py``. The kinds:
 Each kind carries a ``warm(n, batch, device="cuda")`` recipe that runs
 every kernel and PyTorch op the kind runs, once, at one (N, batch) shape,
 and returns ``{program: seconds}``. XLA's compiles have no counterpart
-here; what a first call pays on the card is building the three kernel
+here; what a first call pays on the card is building the four kernel
 libraries (``ops/_build.py``) and PyTorch's lazy load of its own CUDA
 kernels, which the first init batch of a process pays otherwise.
 
@@ -178,15 +178,14 @@ def _warm_k2pow(n: int, batch: int, device="cuda") -> dict:
 
     from ..device import resolve
     from ..ops import pow as k2pow
-    from ..ops import u32
+    from ..ops import pow_cuda
 
     dev = resolve(device)
-    st = u32.from_numpy(k2pow.prefix_state(bytes(32), bytes(32)), dev)
-    tgt = u32.from_numpy(np.full(8, 0xFFFFFFFF, dtype=np.uint32), dev)
-    lo, hi = _lanes(batch, dev)
+    st = k2pow.prefix_state(bytes(32), bytes(32))
+    tgt = np.full(8, 0xFFFFFFFF, dtype=np.uint32)
     doc: dict = {}
-    _timed(doc, "pow_batch", dev, lambda: k2pow.below_targets(
-        k2pow.pow_hash_batch(st, lo, hi), tgt))
+    _timed(doc, "pow_batch", dev, lambda: pow_cuda.search_batch(
+        st, tgt, 0, batch, dev))
     return doc
 
 

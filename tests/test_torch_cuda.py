@@ -8,13 +8,15 @@ so it also runs on a machine without it:
 """
 
 import hashlib
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving, proving_cuda
-from spacemesh_tpu_torch.ops import romix_cuda, scrypt, u32
+from spacemesh_tpu_torch.ops import pbkdf2_cuda, pow_cuda, proving
+from spacemesh_tpu_torch.ops import pow as k2pow
+from spacemesh_tpu_torch.ops import proving_cuda, romix_cuda, scrypt, u32
 from spacemesh_tpu_torch.post import initializer
 
 pytestmark = pytest.mark.cuda
@@ -66,7 +68,7 @@ def test_lanes_that_fit_counts_free_and_cached_memory(dev):
 
 
 @pytest.mark.parametrize("per_lane", [False, True])
-@pytest.mark.parametrize("b", [1, 1000])
+@pytest.mark.parametrize("b", [1, 1000, 9472])
 def test_pbkdf2_kernels_match_plain(dev, per_lane, b):
     rng = np.random.default_rng(b)
     idx = rng.integers(0, 2**64, b, dtype=np.uint64)
@@ -258,3 +260,101 @@ def test_farm_pow_batch_on_the_card_equals_the_cpu_twin(dev, verify_wl):
     card, _ = _farm_verdicts(verify_wl, dev, pows)
     cpu, _ = _farm_verdicts(verify_wl, "cpu", pows)
     assert card == cpu == [verify_wl.inline_verify(r) for r in pows]
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("b", [37, 9472])
+def test_proving_hash_kernel_matches_plain(dev, per_lane, b):
+    """At a serial verify's 37 lanes and a verifyd farm batch's 9472: the
+    challenge and nonce per lane or shared, the labels LE or BE."""
+    rng = np.random.default_rng(b + per_lane)
+    rand = (lambda *shape: u32.from_numpy(
+        rng.integers(0, 2**32, shape, dtype=np.uint32), dev))
+    ch = rand(8, b) if per_lane else rand(8)
+    nonce = rand(b) if per_lane else int(rng.integers(0, 2**32))
+    lo, hi, words = rand(b), rand(b), rand(4, b)
+    for big_endian in (False, True):
+        before = proving_cuda.hash_launches
+        got = proving_cuda.proving_hash(ch, nonce, lo, hi, words,
+                                        big_endian=big_endian)
+        assert proving_cuda.hash_launches == before + 1
+        assert torch.equal(got, proving_cuda.proving_hash_plain(
+            ch, nonce, lo, hi, words, big_endian=big_endian))
+
+
+def test_k2pow_search_kernel_matches_plain_and_hashlib(dev):
+    """A search batch of 2^16 nonces across nonce_hi = 1."""
+    ch = hashlib.sha256(b"cuda-k2pow-ch").digest()
+    node = hashlib.sha256(b"cuda-k2pow-node").digest()
+    diff = bytes([0, 4]) + bytes([255]) * 30
+    pre = k2pow.prefix_state(ch, node)
+    tgt = np.frombuffer(diff, dtype=">u4").astype(np.uint32)
+    base, count = 2**32 - 2**15, 2**16
+    before = pow_cuda.search_launches
+    got = pow_cuda.search_batch(pre, tgt, base, count, dev)
+    assert pow_cuda.search_launches == before + 1
+    assert torch.equal(got, pow_cuda.search_plain(pre, tgt, base, count, dev))
+    hits = torch.nonzero(got).flatten().tolist()
+    assert hits and all(k2pow.verify(ch, node, diff, base + h) for h in hits)
+
+
+@pytest.mark.parametrize("b", [64, 4096])
+def test_k2pow_verify_kernel_matches_plain_and_hashlib(dev, b):
+    rng = np.random.default_rng(b)
+    items = []
+    for i in range(b):
+        c, n = (bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+                for _ in range(2))
+        nonce = int(rng.integers(0, 2**64, dtype=np.uint64))
+        d = bytes([int(rng.integers(0, 256))]) + bytes([255]) * 31
+        if i % 9 == 0:
+            d = k2pow.pow_hash(c, n, nonce)  # equal: not below
+        items.append((c, n, d, nonce))
+    block1 = u32.from_numpy(np.stack([np.frombuffer(c + n, dtype=">u4")
+                                      for c, n, _, _ in items], 1), dev)
+    tgt = u32.from_numpy(np.stack([np.frombuffer(d, dtype=">u4")
+                                   for _, _, d, _ in items], 1), dev)
+    lo, hi = pow_cuda.split_nonces(np.array([x[3] for x in items],
+                                            dtype=np.uint64), dev)
+    before = pow_cuda.verify_launches
+    got = pow_cuda.verify_batch(block1, lo, hi, tgt)
+    assert pow_cuda.verify_launches == before + 1
+    assert torch.equal(got, pow_cuda.verify_plain(block1, lo, hi, tgt))
+    assert got.cpu().tolist() == [k2pow.verify(*x) for x in items]
+
+
+def test_verify_many_and_search_on_the_card_never_reach_the_plain_twins(
+        dev, verify_wl, monkeypatch):
+    """With the plain twins made to raise on a CUDA tensor, verify_many and
+    the k2pow search still run on the card (through the kernels) and give
+    the CPU twin's answers."""
+    from spacemesh_tpu_torch.post import verifier
+    from spacemesh_tpu_torch.verify.farm import PostRequest
+
+    def forbid(name, fn):
+        def twin(*args, **kwargs):
+            assert not any(isinstance(a, torch.Tensor) and a.is_cuda
+                           for a in args), f"{name} ran on a CUDA tensor"
+            return fn(*args, **kwargs)
+        return twin
+
+    for key, mod in list(sys.modules.items()):
+        if key.startswith("spacemesh_tpu_torch"):
+            for name in ("salsa20_8", "blockmix_r1", "sha256_compress"):
+                fn = getattr(mod, name, None)
+                if callable(fn):
+                    monkeypatch.setattr(mod, name, forbid(name, fn))
+    items = [r.item for r in verify_wl.requests if isinstance(r, PostRequest)]
+    want = verifier.verify_many(items, verify_wl.post_params,
+                                seed=verify_wl.post_seed, device="cpu")
+    before = proving_cuda.hash_launches
+    assert verifier.verify_many(items, verify_wl.post_params,
+                                seed=verify_wl.post_seed, device=dev) == want
+    assert proving_cuda.hash_launches > before and any(want)
+    diff = bytes([0, 8]) + bytes([255]) * 30
+    before = pow_cuda.search_launches
+    nonce = k2pow.search(COMMIT, COMMIT, diff, device=dev)
+    assert pow_cuda.search_launches > before
+    assert nonce == k2pow.search(COMMIT, COMMIT, diff, batch=1 << 12,
+                                 device="cpu")
+    assert k2pow.verify(COMMIT, COMMIT, diff, nonce)

@@ -209,6 +209,32 @@ def test_kernel_build_keys_on_source_and_raises_on_failed_nvcc(
     assert not list((tmp_path / "build").glob("*.so*"))
 
 
+def test_kernel_build_key_follows_included_headers(monkeypatch, tmp_path):
+    """A source's library path hashes the local headers it includes,
+    through other headers too, so an edited header never loads a stale
+    library; an unrelated file changes nothing."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\n'
+                               'int k;\n')
+    (csrc / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (csrc / "b.cuh").write_text("// rounds\n")
+    (csrc / "other.cuh").write_text("// unrelated\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build.source_files("k")] == ["k.cu", "a.cuh",
+                                                           "b.cuh"]
+    before = _build.library_path("k")
+    (csrc / "other.cuh").write_text("// unrelated, edited\n")
+    assert _build.library_path("k") == before
+    (csrc / "b.cuh").write_text("// rounds, edited\n")
+    edited = _build.library_path("k")
+    assert edited != before and edited.name.startswith("libk-")
+    monkeypatch.undo()
+    assert "k2pow" in _build.SOURCES
+    for name in ("pbkdf2", "k2pow"):
+        assert "sha256.cuh" in [p.name for p in _build.source_files(name)]
+
+
 def test_host_copy_and_state_conversion_round_trip():
     t = torch.arange(5, dtype=torch.int32)
     assert device.HostCopy(t).get() is t
