@@ -9,8 +9,8 @@ package. Phases, each printed as it runs:
    from ``spacemesh_tpu_torch/csrc`` (one nvcc each, started together) and
    print each kernel's registers and spills; then wrap the plain twins
    ``salsa20_8``, ``blockmix_r1`` and ``sha256_compress`` so that a call
-   on a CUDA tensor while a path is driven is counted (the guard: every
-   path below must count 0);
+   on a CUDA tensor, or on a host tensor, while a path is driven is
+   counted (the guard: every path below must count 0 of each);
 2. ROMix: the kernel against its plain PyTorch version on the card (N=1024
    at a ragged batch, and N=8192 at the init batch of 32768 lanes), whole
    and fill phase only (``mix_phase=False``), and full labels against
@@ -23,11 +23,20 @@ package. Phases, each printed as it runs:
    CUDA events around back-to-back wrapper calls (the wrapper's call rate)
    and by the profiler's kernel times;
    then the proving hash kernel against its plain twin (big-endian label
-   words, per-lane and shared challenge and nonce) at the main path's
-   verify (74 lanes), a serial verify's 37 lanes and the farm's 9472, and
-   [k2pow]: the search kernel against its plain twin over 2^16 nonces (a
-   batch crossing nonce_hi = 1; hits checked with hashlib) and the verify
-   kernel at 64 and 4096 witnesses (against hashlib too), all timed;
+   words, per-lane and shared challenge and nonce) at 74, 37 and 9472
+   lanes (no path launches it now); [finish_hash]: PBKDF2 finish with the
+   proving hash as its epilogue against finish's plain twin then the
+   hash's at 37, 1037 and 9472 per-lane lanes and 32768 shared ones,
+   timed at 9472 with finish alone in turns (the hash's share); and
+   [k2pow]: the search window (both forms of the rounds) against its
+   plain twin and hashlib over 2^20 nonces with a winner inside, with no
+   winner, and across nonce_hi = 1, and a window behind a winner; the
+   window of 2^24 nonces with no winner timed, IMAD and plain forms in
+   turns; one whole ``ops.pow.search`` (host clock, warm) at the default
+   and mainnet difficulties, two window launches each; an empty kernel's
+   time; the mask kernel against its plain twin over 2^16 nonces across
+   nonce_hi = 1; the verify kernel at 64 and 4096 witnesses (against
+   hashlib too), all timed;
 4. proving scan: the kernel against its plain version, and one prove step
    through the kernel against the plain step, on random device-resident
    labels with 16 nonces, at the main path's prove batch (2^18 lanes, all
@@ -38,8 +47,9 @@ package. Phases, each printed as it runs:
    32768 lanes, ``Prover.prove()`` pipelined and ``prove_serial()``,
    ``verify_many()`` on the proof and on a tampered copy, each held
    against hashlib and the plain CPU path; the kernels' launch counts are
-   zeroed just before and read just after (k2pow search at least once per
-   proof); the torch calls one init batch
+   zeroed just before and read just after (k2pow search windows at least
+   one per proof, the verify's recompute one finish_hash, no standalone
+   proving hash or mask search); the torch calls one init batch
    makes around the kernels, counted on the card; the first init batch's
    dispatch time apart from the others', beside one bare allocation of
    its 32 GiB V scratch;
@@ -79,14 +89,15 @@ package. Phases, each printed as it runs:
    the card, honest True and tampered False, 32 sampled labels of the
    farm's recomputes against hashlib; proofs verified/s beside the serial
    rate of a 256-proof sample, request latency p50/p99, batches and
-   occupancy, each POST dispatch's split (host stages, the four kernels'
+   occupancy, each POST dispatch's split (host stages, the three kernels'
    device time, the pow kind), the device's idle share over a profiled
    repeat of the load, peak memory. The kernels' launch counts are zeroed
-   before the warm run and read after it (ROMix, the PBKDF2 pair and the
-   proving hash once per POST batch, k2pow verify once per device pow
-   batch); the four kernels are held to their plain twins on the widest
-   recompute's real inputs and on its first proof's 37 lanes, a serial
-   verify's shape;
+   before the warm run and read after it (ROMix, PBKDF2 expand and
+   finish_hash once per POST batch, finish alone and the standalone hash
+   never, k2pow verify once per device pow batch); the cold run's taps ask
+   finish_hash for the label words; the path's kernels are held to their
+   plain twins on the widest recompute's real inputs and on its first
+   proof's 37 lanes, a serial verify's shape;
 9. [fleet] the verifyd fleet: three ``VerifydService`` replicas (shards
    r0-r2, each over a farm of 2 POST batches in flight) served by the
    port's HTTP server on their own 127.0.0.1 ports, behind one
@@ -101,10 +112,11 @@ package. Phases, each printed as it runs:
    inline verdicts; r1's attempts while down bounded by its breaker; the
    blackout served wholly by the local farm; remote serving back after
    the restore. The kernels' launch counts are zeroed before the clean run
-   and read after it: one launch each per POST batch of all farms, and
-   k2pow verify once per device pow batch. Then
+   and read after it: ROMix, expand and finish_hash once per POST batch
+   of all farms, and k2pow verify once per device pow batch. Then
    the port's verifyd-outage, fleet and byzantine-verifyd drills, twice
-   on the card (``ok``, the same digest) and once on the host CPU;
+   on the card (``ok``, the same digest; under the guard) and once on the
+   host CPU (outside it);
 10. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``, the PBKDF2 pair's packed-init
@@ -112,7 +124,11 @@ package. Phases, each printed as it runs:
    main path's (``tenants_launches``, ``verifyd_launches``,
    ``fleet_launches``). ``path`` names the path whose count ``launches``
    is: the main path's, but for k2pow verify, which only the verification
-   paths run (``[verifyd]``'s warm run; ``main_launches`` 0).
+   paths run (``[verifyd]``'s warm run; ``main_launches`` 0), and
+   ``none`` for the standalone proving hash and the k2pow mask search,
+   which no path launches (0 on all four: the paths hash in finish_hash
+   and search in windows). The k2pow search window's times are at 2^24
+   nonces with no winner, each search's beside them (``searches``).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Labels per unit are cut from mainnet's 2^32 to 2^20
@@ -146,7 +162,14 @@ SCAN_LANES = 1 << 24
 SCAN_NONCES = 16
 RAGGED_LANES = 1037
 VERIFY_LANES = 256 * 37   # a verifyd farm batch: 256 proofs x k3 labels
-SEARCH_BATCH = 1 << 16    # ops.pow.search's nonces per launch
+SEARCH_BATCH = 1 << 16    # the mask kernel's checked batch (the JAX pass)
+WINDOW_NONCES = 1 << 24   # ops.pow.search's window (ops/pow.py)
+WINDOW_CHECK = 1 << 20    # nonces of each window held to its plain twin
+# k2pow difficulties: the prover's and CLI's default (post/prover.py) and
+# mainnet's (the node's config)
+DEFAULT_DIFFICULTY = bytes([0, 255]) + bytes([255]) * 30
+MAINNET_DIFFICULTY = bytes.fromhex("000dfb23b0979b4b" + "00" * 24)
+SEARCH_REPS = 5           # timed searches per difficulty
 POW_WITNESSES = (64, 4096)  # a farm pow batch; verify_many's widest
 WORKER_LABELS = 1 << 18
 WINDOW_REPS = 5       # in-process proves per window size and challenge
@@ -195,9 +218,12 @@ def require(cond: bool, what: str) -> None:
 
 class PlainGuard:
     """Counts calls of the plain twins that no path may run on the card
-    (``salsa20_8``, ``blockmix_r1``, ``sha256_compress``) on a CUDA tensor
-    while a path is driven (from :meth:`start` to :meth:`stop`); the twin
-    checks run outside.
+    (``salsa20_8``, ``blockmix_r1``, ``sha256_compress``) while a path is
+    driven (from :meth:`start` to :meth:`stop`): on CUDA tensors, and on
+    host tensors, which a card path has no reason to make either (the
+    k2pow search once compressed block 1 on a CPU tensor per search). The
+    twin checks run outside; the script's own host checks inside a drive
+    run under :meth:`paused`.
     :meth:`install` rebinds each name in every module of the port that
     holds it, the defining modules first, so later ``from`` imports get
     the counted one too. It also counts the ``ops.pow.verify_many`` calls
@@ -214,6 +240,7 @@ class PlainGuard:
         self.lock = threading.Lock()
         self.armed = False
         self.calls = {name: 0 for name in self.TWINS}
+        self.host_calls = {name: 0 for name in self.TWINS}
         self.pow_batches = 0
 
     def install(self) -> None:
@@ -229,10 +256,13 @@ class PlainGuard:
 
         def counted(name, fn):
             def twin(*args, **kwargs):
-                if self.armed and any(isinstance(a, torch.Tensor)
-                                      and a.is_cuda for a in args):
+                if self.armed:
+                    tensors = [a for a in args if isinstance(a, torch.Tensor)]
                     with self.lock:
-                        self.calls[name] += 1
+                        if any(t.is_cuda for t in tensors):
+                            self.calls[name] += 1
+                        elif tensors:
+                            self.host_calls[name] += 1
                 return fn(*args, **kwargs)
             return twin
 
@@ -258,17 +288,27 @@ class PlainGuard:
         """Zero the counts and arm the guard: a path's drive begins."""
         with self.lock:
             for name in self.calls:
-                self.calls[name] = 0
+                self.calls[name] = self.host_calls[name] = 0
             self.pow_batches = 0
         self.armed = True
 
+    @contextlib.contextmanager
+    def paused(self):
+        """Disarmed for the script's own host-side check inside a drive."""
+        self.armed = False
+        try:
+            yield
+        finally:
+            self.armed = True
+
     def stop(self) -> dict:
         """Disarm; the counts since :meth:`start`: each twin's calls on CUDA
-        tensors, and ``pow_batches``, the verify kernel launches the
-        drive's device pow batches asked for."""
+        tensors, on host tensors (``host``), and ``pow_batches``, the
+        verify kernel launches the drive's device pow batches asked for."""
         self.armed = False
         with self.lock:
-            return dict(self.calls, pow_batches=self.pow_batches)
+            return dict(self.calls, host=dict(self.host_calls),
+                        pow_batches=self.pow_batches)
 
 
 GUARD = PlainGuard()
@@ -276,9 +316,13 @@ GUARD = PlainGuard()
 
 def require_no_twins(counts: dict, path: str) -> None:
     twins = {k: counts[k] for k in PlainGuard.TWINS}
+    host = counts["host"]
     require(sum(twins.values()) == 0, f"{path}: no plain twin ran on a CUDA "
             f"tensor ({json.dumps(twins)})")
-    log(f"[guard] {path}: plain twins on CUDA tensors {json.dumps(twins)}")
+    require(sum(host.values()) == 0, f"{path}: no plain twin ran on a host "
+            f"tensor ({json.dumps(host)})")
+    log(f"[guard] {path}: plain twins on CUDA tensors {json.dumps(twins)}, "
+        f"on host tensors {json.dumps(host)}")
 
 
 def phase_device(ctx: dict) -> None:
@@ -505,11 +549,149 @@ def phase_proving_hash(ctx: dict) -> None:
                                                    shared)))
 
 
+def finish_hash_case(b: int, per_lane: bool, seed: int) -> tuple:
+    """PBKDF2 finish with the proving hash as its epilogue against finish's
+    plain twin then the hash's (big-endian words handed over) on ``b``
+    random lanes: commitment, challenge and nonce per lane or shared; the
+    words asked for and not. Returns (max_abs_err, the inputs)."""
+    import numpy as np
+    from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving_cuda, u32
+
+    rng = np.random.default_rng(seed)
+    rand = (lambda *shape: u32.from_numpy(
+        rng.integers(0, 2**32, shape, dtype=np.uint32), "cuda"))
+    cw = rand(8, b) if per_lane else rand(8)
+    ch = rand(8, b) if per_lane else rand(8)
+    nonce = rand(b) if per_lane else int(rng.integers(0, 2**32))
+    lo, hi, blk = rand(b), rand(b), rand(32, b)
+    args = (cw, blk, ch, nonce, lo, hi)
+    values, words = pbkdf2_cuda.finish_hash(*args, words_out=True)
+    only, none = pbkdf2_cuda.finish_hash(*args)
+    want_words = pbkdf2_cuda._pbkdf2_second(*pbkdf2_cuda._midstates(cw),
+                                            blk)[:4]
+    want = proving_cuda.proving_hash_plain(ch, nonce, lo, hi, want_words,
+                                           big_endian=True)
+    err = max(max_abs_err(values, want), max_abs_err(only, want),
+              max_abs_err(words, want_words))
+    form = "per-lane" if per_lane else "shared"
+    require(err == 0 and none is None, f"finish_hash == finish + proving "
+            f"hash plain at B={b} ({form} commitment, challenge and nonce)")
+    return err, args
+
+
+def phase_finish_hash(ctx: dict) -> None:
+    """finish_hash against its plain path at a serial verify's 37 lanes, a
+    ragged 1037, the verifyd farm batch's 9472 (per lane) and 32768 shared
+    lanes; timed at 9472 per-lane lanes, with finish alone in turns (the
+    hash's share of the kernel) beside the hash's bound."""
+    from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving_cuda
+
+    errs = {}
+    for b, per_lane, seed in ((37, True, 50), (RAGGED_LANES, True, 51),
+                              (32768, False, 53), (VERIFY_LANES, True, 52)):
+        errs[f"B={b} {'per-lane' if per_lane else 'shared'}"], args = \
+            finish_hash_case(b, per_lane, seed)
+    cw, blk, ch, nonce, lo, hi = args  # the farm batch's shape
+    b = VERIFY_LANES
+    fh = (lambda: pbkdf2_cuda.finish_hash(cw, blk, ch, nonce, lo, hi))
+    fin = (lambda: pbkdf2_cuda.finish(cw, blk))
+    turns = [kernel_ms(f, "finish_kernel", reps=50)
+             for f in (fin, fh, fh, fin)]
+    hash_ms = (turns[1] + turns[2] - turns[0] - turns[3]) / 2
+    hash_bound = bound(proving_cuda.hash_int_ops(b),
+                       proving_cuda.hash_io_bytes(b, True),
+                       ctx["int_ops_per_s"])["bound_ms"]
+    ctx["pbkdf2_finish_hash"] = dict(
+        ms=cuda_ms(fh, reps=50),
+        plain_ms=cuda_ms(lambda: proving_cuda.proving_hash_plain(
+            ch, nonce, lo, hi, pbkdf2_cuda._pbkdf2_second(
+                *pbkdf2_cuda._midstates(cw), blk)[:4], big_endian=True),
+            reps=2),
+        kernel_ms=(turns[1] + turns[2]) / 2,
+        finish_fh_fh_finish_ms=turns, hash_ms=hash_ms,
+        hash_bound_ms=hash_bound, max_abs_err=max(errs.values()),
+        shape=f"B={b} per-lane commitment, challenge and nonce",
+        **bound(pbkdf2_cuda.int_ops(b, "finish_hash", True),
+                pbkdf2_cuda.io_bytes(b, "finish_hash", True),
+                ctx["int_ops_per_s"]))
+    c = ctx["pbkdf2_finish_hash"]
+    log(f"[finish_hash] == finish + proving hash plain at "
+        f"{', '.join(errs)} (max_abs_err {c['max_abs_err']}); at B={b} "
+        f"per-lane: kernel ms finish, finish_hash, finish_hash, finish "
+        f"{json.dumps(turns)}: the hash adds {hash_ms:.5f} ms (its bound "
+        f"alone {hash_bound:.5f} ms); wrapper call rate {c['ms']:.4f} ms, "
+        f"plain {c['plain_ms']:.1f} ms, bound {c['bound_ms']:.5f} ms "
+        f"({c['bound_by']})")
+
+
+def first_hit(challenge: bytes, node: bytes, difficulty: bytes,
+              start: int, count: int) -> int | None:
+    """The smallest nonce of ``start .. start + count - 1`` below
+    ``difficulty``, by hashlib; None when there is none."""
+    prefix = challenge + node
+    for n in range(start, start + count):
+        if hashlib.sha256(prefix + n.to_bytes(8, "little")).digest() \
+                < difficulty:
+            return n
+    return None
+
+
+def window_cases(block1, ch: bytes, node: bytes) -> int:
+    """The window kernel, both forms, against its plain twin on the card
+    and hashlib over ``WINDOW_CHECK`` nonces: a winner inside, no winner
+    (a zero target), and a window across nonce_hi = 1 whose winner is past
+    it; and a window behind a winner, which leaves the cell. Returns the
+    largest |kernel - plain| over the cells."""
+    import numpy as np
+    import torch
+    from spacemesh_tpu_torch.ops import pow_cuda
+
+    dev = torch.device("cuda")
+    hard = bytes([0, 4]) + bytes([255]) * 30
+    carry = next(s for s in range((1 << 32) - 64, 1 << 32)
+                 if (first_hit(ch, node, DEFAULT_DIFFICULTY, s, 4096) or 0)
+                 >= 1 << 32)
+    err = 0
+    for name, diff, start in (("a winner inside", hard, 0),
+                              ("no winner", bytes(32), 5),
+                              ("across nonce_hi = 1", DEFAULT_DIFFICULTY,
+                               carry)):
+        tgt = np.frombuffer(diff, dtype=">u4").astype(np.uint32)
+        want = pow_cuda.new_cell(dev)
+        pow_cuda.search_window_plain(block1, tgt, start, WINDOW_CHECK, want,
+                                     chunk=1 << 16)
+        truth = first_hit(ch, node, diff, start,
+                          WINDOW_CHECK if diff != bytes(32) else 0)
+        plain = pow_cuda.cell_value(want.cpu())
+        require(plain == (pow_cuda.NO_WINNER if truth is None else truth),
+                f"window plain twin == hashlib ({name})")
+        for imad in (True, False):
+            got = pow_cuda.new_cell(dev)
+            pow_cuda.search_window(block1, tgt, start, WINDOW_CHECK, got, dev,
+                                   imad=imad)
+            value = pow_cuda.cell_value(got.cpu())
+            err = max(err, abs(value - plain))
+            form = "IMAD" if imad else "plain"
+            require(value == plain, f"window kernel ({form} form) == plain "
+                    f"twin == hashlib ({name})")
+            if truth is not None:
+                pow_cuda.search_window(block1, tgt, start + WINDOW_CHECK,
+                                       WINDOW_CHECK, got, dev, imad=imad)
+                require(pow_cuda.cell_value(got.cpu()) == value,
+                        f"a window behind the winner leaves the cell ({name})")
+        log(f"[k2pow] window of {WINDOW_CHECK} nonces from {start} ({name}): "
+            f"both forms == plain twin == hashlib "
+            f"({'no winner' if truth is None else f'winner {truth}'})")
+    return err
+
+
 def phase_k2pow(ctx: dict) -> None:
     """The k2pow kernels against their plain twins and hashlib: the search
-    over a batch of ``SEARCH_BATCH`` nonces that crosses nonce_hi = 1, at a
-    difficulty that hits in it, and the verify kernel on ``POW_WITNESSES``
-    random witnesses (valid, invalid and equal-to-target ones); timed."""
+    window (both forms) in three cases, then timed at full width in turns,
+    and one whole ``ops.pow.search`` at the default and mainnet
+    difficulties; the mask kernel over ``SEARCH_BATCH`` nonces across
+    nonce_hi = 1; the verify kernel on ``POW_WITNESSES`` random witnesses
+    (valid, invalid and equal-to-target ones); an empty kernel's time."""
     import numpy as np
     import torch
     from spacemesh_tpu_torch.ops import pow as k2pow
@@ -518,6 +700,112 @@ def phase_k2pow(ctx: dict) -> None:
     dev = torch.device("cuda")
     ch = hashlib.sha256(b"chip-smoke-k2pow-challenge").digest()
     node = hashlib.sha256(b"chip-smoke-k2pow-node").digest()
+    block1 = np.frombuffer(ch + node, dtype=">u4").astype(np.uint32)
+    ops_s = ctx["int_ops_per_s"]
+    window_err = window_cases(block1, ch, node)
+
+    # the window at full width, no winner: both forms in turns
+    zero = np.zeros(8, dtype=np.uint32)
+
+    def window(imad):
+        return lambda: pow_cuda.search_window(
+            block1, zero, 0, WINDOW_NONCES, pow_cuda.new_cell(dev), dev,
+            imad=imad)
+
+    turns = [kernel_ms(window(imad), "window_kernel", reps=10)
+             for imad in (False, True, True, False)]
+    imad_ms, plain_form_ms = (turns[1] + turns[2]) / 2, (turns[0]
+                                                          + turns[3]) / 2
+    blocks = pow_cuda.window_blocks(WINDOW_NONCES)
+    t0 = time.perf_counter()
+    cell = pow_cuda.new_cell(dev)
+    pow_cuda.search_window_plain(block1, zero, 0, WINDOW_NONCES, cell,
+                                 chunk=1 << 20)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ctx["k2pow_search"] = dict(
+        ms=cuda_ms(window(True), reps=10), plain_ms=plain_ms,
+        kernel_ms=imad_ms, plain_form_kernel_ms=plain_form_ms,
+        plain_imad_imad_plain_ms=turns,
+        nonces_per_s=WINDOW_NONCES / (imad_ms / 1e3),
+        max_abs_err=window_err, blocks=blocks,
+        shape=f"{WINDOW_NONCES} nonces, no winner (IMAD form)",
+        **bound(pow_cuda.int_ops(WINDOW_NONCES, "window", blocks),
+                pow_cuda.io_bytes(WINDOW_NONCES, "window"), ops_s))
+    c = ctx["k2pow_search"]
+    log(f"[k2pow] window of {WINDOW_NONCES} nonces, no winner, {blocks} "
+        f"blocks: kernel ms plain, IMAD, IMAD, plain {json.dumps(turns)}; "
+        f"IMAD {imad_ms:.4f} ms ({c['nonces_per_s'] / 1e9:.2f} G nonces/s, "
+        f"{c['bound_ms'] / imad_ms:.0%} of the bound {c['bound_ms']:.4f} ms, "
+        f"{c['bound_by']}), plain form {plain_form_ms:.4f} ms "
+        f"({c['bound_ms'] / plain_form_ms:.0%}); wrapper call rate "
+        f"{c['ms']:.4f} ms; plain twin {plain_ms:.0f} ms")
+
+    # one whole search, host clock, warm, at both difficulties in turns
+    runs = {name: (lambda diff=diff: k2pow.search(ch, node, diff, device=dev))
+            for name, diff in (("default", DEFAULT_DIFFICULTY),
+                               ("mainnet", MAINNET_DIFFICULTY))}
+    wants = {name: first_hit(ch, node, diff, 0, 1 << 20)
+             for name, diff in (("default", DEFAULT_DIFFICULTY),
+                                ("mainnet", MAINNET_DIFFICULTY))}
+    times = {name: [] for name in runs}
+    launches = {name: set() for name in runs}
+    for name, run in runs.items():
+        require(run() == wants[name], f"ops.pow.search == hashlib ({name})")
+    for _ in range(SEARCH_REPS):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            n0 = pow_cuda.search_launches
+            t0 = time.perf_counter()
+            nonce = run()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            launches[name].add(pow_cuda.search_launches - n0)
+            require(nonce == wants[name], f"ops.pow.search == hashlib "
+                    f"({name})")
+    searches = {}
+    for name, run in runs.items():
+        want = wants[name]
+        searches[name] = dict(
+            nonce=want, ms=statistics.median(times[name]),
+            ms_all=times[name], launches=sorted(launches[name]),
+            kernel_ms=kernel_ms(run, "window_kernel", reps=5, per_call=True),
+            # what this input needs: block 1 once, the nonces up to the
+            # winner
+            **bound(pow_cuda.int_ops(want + 1, "window", 1),
+                    pow_cuda.io_bytes(want + 1, "window"), ops_s))
+        r = searches[name]
+        log(f"[k2pow] ops.pow.search at the {name} difficulty: nonce {want} "
+            f"(== hashlib), {r['ms']:.3f} ms per search (host clock, median "
+            f"of {SEARCH_REPS} in turns with the other difficulty: "
+            f"{json.dumps([round(t, 3) for t in times[name]])}), "
+            f"{r['launches']} window launches per search, kernel time "
+            f"{r['kernel_ms']:.4f} ms per search; bound for the {want + 1} "
+            f"nonces it needs {r['bound_ms']:.6f} ms")
+        require(launches[name] == {2}, f"one window and the speculative one "
+                f"behind it per search at the {name} difficulty "
+                f"({sorted(launches[name])})")
+    c["searches"] = searches
+
+    # the empty kernel: the floor a launch costs
+    empty = (lambda: pow_cuda.empty_launch(dev))
+    host = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        empty()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    ctx["empty_kernel"] = dict(
+        kernel_ms=kernel_ms(empty, "empty_kernel", reps=50),
+        call_ms=cuda_ms(empty, reps=50),
+        launch_to_done_ms=statistics.median(host))
+    e = ctx["empty_kernel"]
+    log(f"[k2pow] empty kernel: device {e['kernel_ms']} ms, back to back "
+        f"{e['call_ms']:.4f} ms per wrapper call, launch to completion "
+        f"{e['launch_to_done_ms']:.4f} ms (host clock, median of 50)")
+
+    # the mask kernel, which no path launches, over a batch across
+    # nonce_hi = 1
     diff = bytes([0, 4]) + bytes([255]) * 30
     pre = k2pow.prefix_state(ch, node)
     tgt = np.frombuffer(diff, dtype=">u4").astype(np.uint32)
@@ -526,16 +814,15 @@ def phase_k2pow(ctx: dict) -> None:
     want = pow_cuda.search_plain(pre, tgt, base, SEARCH_BATCH, dev)
     err = max_abs_err(got.to(torch.int32), want.to(torch.int32))
     hits = torch.nonzero(got).flatten().tolist()
-    require(err == 0, f"k2pow search kernel == plain over {SEARCH_BATCH} "
+    require(err == 0, f"k2pow mask kernel == plain over {SEARCH_BATCH} "
                       "nonces")
     require(hits and all(k2pow.verify(ch, node, diff, base + h)
-                         for h in hits), "every search hit passes hashlib")
+                         for h in hits), "every mask hit passes hashlib")
     miss = next(i for i in range(SEARCH_BATCH) if i not in set(hits))
     require(not k2pow.verify(ch, node, diff, base + miss),
-            "a nonce the search missed fails hashlib")
-    ops_s = ctx["int_ops_per_s"]
+            "a nonce the mask missed fails hashlib")
     search = (lambda: pow_cuda.search_batch(pre, tgt, 0, SEARCH_BATCH, dev))
-    ctx["k2pow_search"] = dict(
+    ctx["k2pow_search_mask"] = dict(
         ms=cuda_ms(search, reps=50),
         plain_ms=cuda_ms(lambda: pow_cuda.search_plain(
             pre, tgt, 0, SEARCH_BATCH, dev), reps=3),
@@ -543,8 +830,8 @@ def phase_k2pow(ctx: dict) -> None:
         max_abs_err=err, shape=f"B={SEARCH_BATCH} nonces",
         **bound(pow_cuda.int_ops(SEARCH_BATCH, "search"),
                 pow_cuda.io_bytes(SEARCH_BATCH, "search"), ops_s))
-    c = ctx["k2pow_search"]
-    log(f"[k2pow] search of {SEARCH_BATCH} nonces from {base}: kernel == "
+    c = ctx["k2pow_search_mask"]
+    log(f"[k2pow] mask of {SEARCH_BATCH} nonces from {base}: kernel == "
         f"plain, {len(hits)} hits, each passing hashlib; wrapper call rate "
         f"{c['ms']:.4f} ms, kernel time {c['kernel_ms']} ms (profiler), plain "
         f"{c['plain_ms']:.1f} ms, bound {c['bound_ms']:.5f} ms "
@@ -717,8 +1004,9 @@ def phase_main_path(ctx: dict) -> None:
         item = verifier.VerifyItem(proof=proof, challenge=challenge,
                                    node_id=node, commitment=commitment,
                                    scrypt_n=N_MAIN, total_labels=total)
-        bad.indices[0] = replacement_index(proof, commitment, challenge,
-                                           thr, total)
+        with GUARD.paused():  # the script's host check, not the path
+            bad.indices[0] = replacement_index(proof, commitment, challenge,
+                                               thr, total)
         bad_item = verifier.VerifyItem(proof=bad, challenge=challenge,
                                        node_id=node, commitment=commitment,
                                        scrypt_n=N_MAIN, total_labels=total)
@@ -783,12 +1071,18 @@ def phase_main_path(ctx: dict) -> None:
         log(f"[verify] verify_many -> {verdicts} in {verify_s:.2f} s; "
             "hashlib labels + plain CPU hashes agree")
     require_no_twins(guard, "main path")
-    for key, n in ctx["launches"].items():
-        if key != "k2pow_verify":  # witnesses are checked with hashlib here
+    launches = ctx["launches"]
+    for key, n in launches.items():
+        if key in OFF_PATH:
+            require(n == 0, f"main path launched no {key}")
+        elif key != "k2pow_verify":  # witnesses are checked with hashlib
             require(n > 0, f"main path launched {key}")
-    require(ctx["launches"]["k2pow_search"] >= 2, "k2pow search launched at "
-            "least once per proof (pipelined and serial)")
-    log(f"[launches] main path: {json.dumps(ctx['launches'])}")
+    require(launches["pbkdf2_finish_hash"] == 1, "the verify's recompute "
+            "is one finish_hash launch")
+    require(launches["k2pow_search"] >= 2, "k2pow search launched at "
+            "least one window per proof (pipelined and serial)")
+    log(f"[launches] main path: {json.dumps(launches)}; k2pow windows "
+        f"{launches['k2pow_search']} for 2 searches")
 
 
 def run_cli(args: list, want_rc: int = 0) -> dict:
@@ -947,7 +1241,10 @@ def phase_worker(ctx: dict) -> None:
             require(verdicts == [True, False],
                     f"in-process verdicts {verdicts} == [True, False]")
             for key, n in launches.items():
-                if key != "k2pow_verify":
+                if key in OFF_PATH:
+                    require(n == 0, f"worker phase launched no {key}")
+                elif key not in ("k2pow_verify", "pbkdf2_finish"):
+                    # no init in process: finish runs only as finish_hash
                     require(n > 0, f"worker phase launched {key} in process")
 
             # kill the worker once: the supervisor restarts it on the same
@@ -1111,9 +1408,16 @@ def launch_counts() -> dict:
     return {"romix": romix_cuda.launches, "scan": proving_cuda.launches,
             "pbkdf2_expand": pbkdf2_cuda.expand_launches,
             "pbkdf2_finish": pbkdf2_cuda.finish_launches,
+            "pbkdf2_finish_hash": pbkdf2_cuda.finish_hash_launches,
             "proving_hash": proving_cuda.hash_launches,
             "k2pow_search": pow_cuda.search_launches,
+            "k2pow_search_mask": pow_cuda.mask_launches,
             "k2pow_verify": pow_cuda.verify_launches}
+
+
+# kernels no path launches: the standalone proving hash (labels from the
+# host, ops/proving.py:proving_hashes) and the k2pow mask search
+OFF_PATH = ("proving_hash", "k2pow_search_mask")
 
 
 def zero_launches() -> None:
@@ -1122,8 +1426,9 @@ def zero_launches() -> None:
 
     romix_cuda.launches = proving_cuda.launches = 0
     pbkdf2_cuda.expand_launches = pbkdf2_cuda.finish_launches = 0
-    proving_cuda.hash_launches = 0
+    pbkdf2_cuda.finish_hash_launches = proving_cuda.hash_launches = 0
     pow_cuda.search_launches = pow_cuda.verify_launches = 0
+    pow_cuda.mask_launches = 0
 
 
 def quantiles(xs: list) -> str:
@@ -1210,8 +1515,10 @@ def phase_tenants(ctx: dict) -> None:
                 scrypt_n=N_MAIN, total_labels=TENANT_LABELS)
                 for p, (_, node, commit) in zip(proofs, ids)]
             bad = dataclasses.replace(proofs[0], indices=list(proofs[0].indices))
-            bad.indices[0] = replacement_index(proofs[0], ids[0][2], challenge,
-                                               thr, TENANT_LABELS)
+            with GUARD.paused():  # the script's host check, not the path
+                bad.indices[0] = replacement_index(proofs[0], ids[0][2],
+                                                   challenge, thr,
+                                                   TENANT_LABELS)
             items.append(dataclasses.replace(items[0], proof=bad))
             t0 = time.perf_counter()
             verdicts = sched.submit_verify("id00", items, params).result(
@@ -1260,12 +1567,14 @@ def phase_tenants(ctx: dict) -> None:
 
         require_no_twins(guard, "tenants")
         for key, n in launches.items():
-            if key != "k2pow_verify":
+            if key in OFF_PATH:
+                require(n == 0, f"the tenants' path launched no {key}")
+            elif key != "k2pow_verify":
                 require(n > 0, f"the tenants' path launched {key}")
         require(launches["k2pow_search"] >= 3 * TENANTS,
-                f"k2pow search launched at least once per proof and per "
-                f"submit_pow ({launches['k2pow_search']} for "
-                f"{3 * TENANTS})")
+                f"k2pow search launched at least one window per proof and "
+                f"per submit_pow ({launches['k2pow_search']} for "
+                f"{3 * TENANTS} searches)")
         for (tid, node, commit), meta in zip(ids, metas):
             require(meta.labels_written == TENANT_LABELS,
                     f"{tid}: packed init wrote every label")
@@ -1392,7 +1701,8 @@ def phase_tenants(ctx: dict) -> None:
         f"{sum(verdicts)} True, {len(verdicts) - sum(verdicts)} False in "
         f"{verify_s:.3f} s; {TENANTS} submit_pow == ops.pow.search: "
         f"{pow_s:.3f} s scheduled, {solo_pow_s:.3f} s in series")
-    log(f"[tenants] launches: {json.dumps(launches)}")
+    log(f"[tenants] launches: {json.dumps(launches)}; k2pow windows "
+        f"{launches['k2pow_search']} for {3 * TENANTS} searches")
     log(f"[tenants] {ctx['smi']}")
     ctx["tenants"] = dict(
         launches=launches, solo_rate=solo_rate, packed_rate=packed_rate,
@@ -1584,7 +1894,6 @@ def phase_verifyd(ctx: dict) -> None:
 
     import torch
     from spacemesh_tpu_torch.core import signing
-    from spacemesh_tpu_torch.ops import proving as tproving
     from spacemesh_tpu_torch.ops import scrypt as tscrypt
     from spacemesh_tpu_torch.tools.measure import busy_us, device_intervals
     from torch.autograd import DeviceType
@@ -1594,44 +1903,36 @@ def phase_verifyd(ctx: dict) -> None:
     t_setup = time.perf_counter()
     posts, flags, mix = verifyd_load(ctx)
     setup_s = time.perf_counter() - t_setup
-    # taps on the verifier's recompute in the cold run: the first and last
-    # lane of each label batch (sampled against hashlib), and the inputs of
-    # the widest batch (for path_twins), all kept on the card until after
-    # the run; the warm run is timed untapped
-    real_words = tscrypt.scrypt_labels_words
-    real_hash = tproving.proving_hash
+    # taps on the verifier's recompute in the cold run: the label words
+    # (asked of finish_hash there alone) of the first and last lane of each
+    # batch, sampled against hashlib, and the inputs of the widest batch
+    # (for path_twins), all kept on the card until after the run; the warm
+    # run is timed untapped
+    real_hash = tscrypt.scrypt_labels_hash
     taps = []
     widest: dict = {"b": 0}
 
-    def tap_words(cw, idx_lo, idx_hi, *, n):
-        words = real_words(cw, idx_lo, idx_hi, n=n)
+    def tap_hash(cw, idx_lo, idx_hi, ch, nonce, *, n, words_out=False):
+        values, words = real_hash(cw, idx_lo, idx_hi, ch, nonce, n=n,
+                                  words_out=True)
         b = idx_lo.shape[0]
         ends = [torch.stack([t[..., 0], t[..., b - 1]], -1)
                 for t in (cw, idx_lo, idx_hi, words)]
         with GUARD.lock:
             taps.append((n, *ends))
             if b > widest["b"]:
-                widest.update(b=b, n=n, lo_obj=idx_lo, cw=cw.clone(),
-                              lo=idx_lo.clone(), hi=idx_hi.clone())
-        return words
+                widest.update(b=b, n=n, **{k: t.clone() for k, t in (
+                    ("cw", cw), ("lo", idx_lo), ("hi", idx_hi), ("ch", ch),
+                    ("nonce", nonce))})
+        return values, (words if words_out else None)
 
-    def tap_hash(ch, nonce, idx_lo, idx_hi, words, *, big_endian=False):
-        with GUARD.lock:
-            if idx_lo is widest.get("lo_obj"):
-                widest.update(ch=ch.clone(), nonce=nonce.clone(),
-                              lo_obj=None)
-        return real_hash(ch, nonce, idx_lo, idx_hi, words,
-                         big_endian=big_endian)
-
-    tscrypt.scrypt_labels_words = tap_words
-    tproving.proving_hash = tap_hash
+    tscrypt.scrypt_labels_hash = tap_hash
     try:
         # a fresh service each time: the first pays each stream's first
         # scratch allocations, the second runs warm and is the one read
         cold = run_verifyd(posts, mix, profile=False)
     finally:
-        tscrypt.scrypt_labels_words = real_words
-        tproving.proving_hash = real_hash
+        tscrypt.scrypt_labels_hash = real_hash
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     GUARD.start()
@@ -1665,10 +1966,12 @@ def phase_verifyd(ctx: dict) -> None:
     require_no_twins(guard, "verifyd warm run")
     require_no_twins(guard_rest, "verifyd profiled run and serial verifies")
     post_b = bare["per_kind"]["post"]["batches"]
-    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish", "proving_hash"):
+    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish_hash"):
         require(launches[key] == post_b, f"the warm run launched {key} once "
                 f"per POST batch ({launches[key]} launches, {post_b} "
                 "batches)")
+    for key in ("pbkdf2_finish", *OFF_PATH):
+        require(launches[key] == 0, f"the warm run launched no {key}")
     require(guard["pow_batches"] > 0
             and launches["k2pow_verify"] == guard["pow_batches"],
             f"the warm run launched k2pow verify once per device pow batch "
@@ -1723,8 +2026,8 @@ def phase_verifyd(ctx: dict) -> None:
             for k, v in bare["post_timing"].items())
         + f"; whole dispatch {whole:.2f} ms. prep: structure, k2pow, K3 and "
         f"the per-lane arrays; labels: the inputs' copies and the three "
-        f"label kernels' launches; hash: the proving hash launch, the wait "
-        f"for all four kernels and the values' copy to the host")
+        f"kernels' launches (finish hashes); hash: the wait for the three "
+        f"kernels and the values' copy to the host")
     n_pow = sum(r.kind == "pow" for r in mix.requests)
     log("[verifyd] pow kind: " + ", ".join(
         f"{name} run {r['per_kind']['pow']['dispatch_s'] * 1e3:.1f} ms in "
@@ -1735,7 +2038,7 @@ def phase_verifyd(ctx: dict) -> None:
     prof = profiled["prof"]
     intervals = device_intervals(prof)
     kern = {"romix": 0.0, "expand_kernel": 0.0, "finish_kernel": 0.0,
-            "hash_kernel": 0.0, "verify_kernel": 0.0}
+            "verify_kernel": 0.0}
     total_us = 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1747,9 +2050,9 @@ def phase_verifyd(ctx: dict) -> None:
     pb = profiled["per_kind"]["post"]["batches"]
     log(f"[verifyd] device time per POST batch (profiled run, {pb} "
         f"batches): ROMix {kern['romix'] / pb / 1e3:.2f} ms, PBKDF2 expand "
-        f"{kern['expand_kernel'] / pb / 1e3:.4f} ms, finish "
-        f"{kern['finish_kernel'] / pb / 1e3:.4f} ms, proving hash "
-        f"{kern['hash_kernel'] / pb / 1e3:.4f} ms; k2pow verify "
+        f"{kern['expand_kernel'] / pb / 1e3:.4f} ms, finish with the "
+        f"proving hash {kern['finish_kernel'] / pb / 1e3:.4f} ms; k2pow "
+        f"verify "
         f"{kern['verify_kernel'] / 1e3:.4f} ms in all; every other device "
         f"activity (copies, fills) {(total_us - sum(kern.values())) / 1e3:.1f}"
         f" ms in all")
@@ -1766,8 +2069,9 @@ def phase_verifyd(ctx: dict) -> None:
     log(f"[verifyd] {len(picks)} sampled labels of the farm's recomputes "
         f"(big-endian words read back from the card) == hashlib.scrypt; "
         f"every verdict == serial inline; launches in the warm run "
-        f"{json.dumps(launches)}: one each per POST batch, k2pow verify one "
-        f"per device pow batch ({guard['pow_batches']})")
+        f"{json.dumps(launches)}: ROMix, expand and finish_hash one each per "
+        f"POST batch, k2pow verify one per device pow batch "
+        f"({guard['pow_batches']})")
     log(f"[verifyd] kernels == plain on the widest recompute's inputs "
         f"({widest['b']} lanes, per-lane commitments, challenges and "
         f"nonces) and on its first proof's lanes (a serial verify's shape), "
@@ -2029,10 +2333,12 @@ def phase_fleet(ctx: dict) -> None:
                 "through the fleet == the serial inline verdict on the card")
         require(run["mixed"] == mix_inline, f"{name} run: sig/vrf/membership"
                 "/pow verdicts through the fleet == inline")
-    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish", "proving_hash"):
+    for key in ("romix", "pbkdf2_expand", "pbkdf2_finish_hash"):
         require(launches[key] == batches, f"the clean run launched {key} "
                 f"once per POST batch of all farms ({launches[key]} "
                 f"launches, {batches} batches): no ROMix launch was split")
+    for key in ("pbkdf2_finish", *OFF_PATH):
+        require(launches[key] == 0, f"the clean run launched no {key}")
     require(guard["pow_batches"] > 0
             and launches["k2pow_verify"] == guard["pow_batches"],
             f"the clean run launched k2pow verify once per device pow batch "
@@ -2061,10 +2367,11 @@ def phase_fleet(ctx: dict) -> None:
 
     t0 = time.perf_counter()
     card = [run_drills("cuda"), run_drills("cuda")]
+    guard_rest = GUARD.stop()  # the host CPU's drills run the plain twins
     cpu = run_drills("cpu")
     drills_s = time.perf_counter() - t0
     require_no_twins(guard, "fleet clean run")
-    require_no_twins(GUARD.stop(), "fleet drill and the fleet drills")
+    require_no_twins(guard_rest, "fleet drill and the card's fleet drills")
     for name in FLEET_DRILLS:
         for run in card:
             require(run[name][0], f"drill {name} ok on the card "
@@ -2128,14 +2435,15 @@ def phase_fleet(ctx: dict) -> None:
 
 
 def path_twins(widest: dict) -> dict:
-    """The four kernels against their plain twins at the ``[verifyd]``
-    path's two shapes, on the widest farm recompute's real inputs (as the
-    cold run's taps kept them on the card): the whole recompute (per-lane
-    commitments, challenges and nonces, k3 lanes per proof) and its first
-    proof's k3 lanes (the shape of a serial verify). One plain ROMix call
-    covers both shapes' lanes (ROMix is lane-wise: each lane's output
-    depends on that lane's input alone). Returns max_abs_err by shape and
-    kernel."""
+    """The verify path's kernels against their plain twins at the
+    ``[verifyd]`` path's two shapes, on the widest farm recompute's real
+    inputs (as the cold run's taps kept them on the card): the whole
+    recompute (per-lane commitments, challenges and nonces, k3 lanes per
+    proof) and its first proof's k3 lanes (the shape of a serial verify):
+    expand, ROMix, finish with the proving hash (and finish alone and the
+    standalone hash over its words). One plain ROMix call covers both
+    shapes' lanes (ROMix is lane-wise: each lane's output depends on that
+    lane's input alone). Returns max_abs_err by shape and kernel."""
     import torch
     from spacemesh_tpu_torch.ops import pbkdf2_cuda, proving_cuda, romix_cuda
     from spacemesh_tpu_torch.post import prover
@@ -2145,22 +2453,25 @@ def path_twins(widest: dict) -> dict:
     errs, blocks = {}, []
     for shape, sl in ((f"({widest['b']},)", slice(None)),
                       (f"({k3},)", slice(0, k3))):
-        cw, lo, hi = (widest[k][..., sl].contiguous() for k in ("cw", "lo",
-                                                                 "hi"))
-        ch, nonce = (widest[k][..., sl].contiguous() for k in ("ch", "nonce"))
+        cw, lo, hi, ch, nonce = (widest[k][..., sl].contiguous() for k in (
+            "cw", "lo", "hi", "ch", "nonce"))
         blk = pbkdf2_cuda.expand(cw, lo, hi)
         inner, outer, want = pbkdf2_cuda._expand(cw, lo, hi)
         mixed = romix_cuda.romix(blk, n)
-        words = pbkdf2_cuda.finish(cw, mixed)
+        values, words = pbkdf2_cuda.finish_hash(cw, mixed, ch, nonce, lo, hi,
+                                                words_out=True)
+        plain_words = pbkdf2_cuda._pbkdf2_second(inner, outer, mixed)[:4]
+        plain_values = proving_cuda.proving_hash_plain(
+            ch, nonce, lo, hi, plain_words, big_endian=True)
         errs[shape] = {
             "pbkdf2_expand": max_abs_err(blk, want),
-            "pbkdf2_finish": max_abs_err(
-                words, pbkdf2_cuda._pbkdf2_second(inner, outer, mixed)[:4]),
+            "pbkdf2_finish": max_abs_err(pbkdf2_cuda.finish(cw, mixed),
+                                         plain_words),
+            "pbkdf2_finish_hash": max(max_abs_err(values, plain_values),
+                                      max_abs_err(words, plain_words)),
             "proving_hash": max_abs_err(
                 proving_cuda.proving_hash(ch, nonce, lo, hi, words,
-                                          big_endian=True),
-                proving_cuda.proving_hash_plain(ch, nonce, lo, hi, words,
-                                                big_endian=True))}
+                                          big_endian=True), plain_values)}
         blocks.append((shape, blk, mixed))
     plain = romix_cuda.romix_r1(torch.cat([b for _, b, _ in blocks], dim=1),
                                 n)
@@ -2281,6 +2592,7 @@ def main() -> int:
     GUARD.install()
     phase_pbkdf2(ctx)
     phase_proving_hash(ctx)
+    phase_finish_hash(ctx)
     phase_k2pow(ctx)
     phase_scan(ctx)
     phase_main_path(ctx)
@@ -2296,20 +2608,29 @@ def main() -> int:
                  "kernel_ms", "perlane", "verify_width", "ragged")},
              "pbkdf2_finish": {k: ctx["pbkdf2_finish"][k] for k in (
                  "kernel_ms", "perlane", "verify_width", "ragged")},
+             "pbkdf2_finish_hash": {k: ctx["pbkdf2_finish_hash"][k] for k in (
+                 "kernel_ms", "finish_fh_fh_finish_ms", "hash_ms",
+                 "hash_bound_ms")},
              "proving_hash": {k: ctx["proving_hash"][k] for k in (
                  "kernel_ms", "serial", "verify_width", "shared")},
-             "k2pow_search": {"kernel_ms": ctx["k2pow_search"]["kernel_ms"]},
+             "k2pow_search": {k: ctx["k2pow_search"][k] for k in (
+                 "kernel_ms", "plain_form_kernel_ms",
+                 "plain_imad_imad_plain_ms", "nonces_per_s", "blocks",
+                 "searches")},
+             "k2pow_search_mask": {
+                 "kernel_ms": ctx["k2pow_search_mask"]["kernel_ms"]},
              "k2pow_verify": {k: ctx["k2pow_verify"][k] for k in (
                  "kernel_ms", "widest")}}
+    for key in ("proving_hash", "k2pow_verify"):
+        extra[key]["empty_kernel"] = ctx["empty_kernel"]
     for key in extra:
         extra[key]["tenants_launches"] = ctx["tenants"]["launches"][key]
         extra[key]["verifyd_launches"] = ctx["verifyd"]["launches"][key]
         extra[key]["fleet_launches"] = ctx["fleet"]["launches"][key]
-        if key in ("romix", "pbkdf2_expand", "pbkdf2_finish",
-                   "proving_hash"):
+        twins = ctx["verifyd"]["twins"]
+        if all(key in errs for errs in twins.values()):
             extra[key]["verifyd_max_abs_err"] = {
-                shape: errs[key] for shape, errs
-                in ctx["verifyd"]["twins"].items()}
+                shape: errs[key] for shape, errs in twins.items()}
     envelope = ("spacemesh_tpu/ops/scrypt.py:440 (XLA-fused envelope, no "
                 "Pallas kernel)")
     xla = " (XLA, no Pallas kernel)"
@@ -2323,10 +2644,16 @@ def main() -> int:
              "spacemesh_tpu_torch/csrc/pbkdf2.cu", envelope),
             ("pbkdf2_finish", "pbkdf2_finish",
              "spacemesh_tpu_torch/csrc/pbkdf2.cu", envelope),
+            ("pbkdf2_finish_hash", "pbkdf2_finish_hash",
+             "spacemesh_tpu_torch/csrc/pbkdf2.cu",
+             "spacemesh_tpu/ops/proving.py:60" + xla + " after " + envelope),
             ("proving_hash", "proving_hash",
              "spacemesh_tpu_torch/csrc/proving_scan.cu",
              "spacemesh_tpu/ops/proving.py:60" + xla),
-            ("k2pow_search", "k2pow_search",
+            ("k2pow_search", "k2pow_search_window",
+             "spacemesh_tpu_torch/csrc/k2pow.cu",
+             "spacemesh_tpu/ops/pow.py:39" + xla),
+            ("k2pow_search_mask", "k2pow_search_mask",
              "spacemesh_tpu_torch/csrc/k2pow.cu",
              "spacemesh_tpu/ops/pow.py:39" + xla),
             ("k2pow_verify", "k2pow_verify",
@@ -2334,6 +2661,8 @@ def main() -> int:
              "spacemesh_tpu/ops/pow.py:190" + xla)):
         m = ctx[key]
         path, launches = "main", ctx["launches"][key]
+        if key in OFF_PATH:  # launched by no path: 0 on all four
+            path = "none"
         if key == "k2pow_verify":
             path, launches = "verifyd", ctx["verifyd"]["launches"][key]
             extra[key]["main_launches"] = ctx["launches"][key]

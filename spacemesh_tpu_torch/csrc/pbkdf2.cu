@@ -12,6 +12,13 @@
 //           T_i = HMAC(pw, salt || be32(i)); out = T_1..T_4 as (32, B) LE
 //   finish: HMAC(pw, B' || be32(1)) over the 128-byte ROMix output B',
 //           the first 4 big-endian digest words -> (4, B)
+//   finish + hash (kHash): finish, then the PoST proving hash of each
+//           lane's label as its epilogue: one Salsa20/8 over
+//           challenge(8 LE words) || nonce || idx_lo || idx_hi || 0 ||
+//           label(4 LE words) -> x0 + challenge[0], (B,). The verifier's
+//           recompute; replaces the standalone proving-hash launch
+//           (proving_scan.cu's hash_kernel, XLA's proving_hash_jit in the
+//           JAX package) on that path.
 //
 // Bound: 8 compressions per lane in expand and 4 in finish, plus the HMAC
 // midstates' 2 once per commitment (about 1300 integer operations each),
@@ -35,6 +42,12 @@
 //     the compiler interleaves, so they cost about one on the chain;
 //   - blocks are sized by spread_threads (launch.cuh): four warps or
 //     more, spread evenly over the SMs at the verifier's small batches.
+//   - the proving hash runs in finish's thread, after the outer
+//     compression: the 4 label words are already in its registers, so
+//     the hash costs one Salsa20/8 (about 390 instructions against
+//     finish's 4 compressions) and no launch of its own; the words are
+//     swapped from finish's big-endian to the hash's little-endian in
+//     registers, and written out only when the caller asks for them.
 // The integer pipe bounds what is left: about three quarters of a
 // compression's instructions are rotates and three-input logic, which an
 // H100 SM issues at 64 lanes a clock, half the rate the bound assumes.
@@ -43,6 +56,7 @@
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
+#include "salsa.cuh"
 #include "sha256.cuh"
 
 constexpr unsigned kMaxThreads = 256;
@@ -132,11 +146,29 @@ expand_kernel(const uint32_t* __restrict__ cw, long long ws, long long ls,
         out[(size_t)(q * 8 + k) * b + lane] = bswap32(inner[k]);
 }
 
-template <bool kShared>
+// The proving hash's inputs for finish's epilogue: challenge words at
+// ch[w * chs + lane * chl] (chl = 0: one shared challenge), the nonce at
+// nonce[lane * nls] or nonce_value for every lane when nonce is null, the
+// (B,) index halves, and the (B,) output values.
+struct HashArgs {
+    const uint32_t* ch;
+    long long chs, chl;
+    const uint32_t* nonce;
+    long long nls;
+    uint32_t nonce_value;
+    const uint32_t* idx_lo;
+    const uint32_t* idx_hi;
+    uint32_t* values;
+};
+
+// kHash = false: finish alone, out the (4, B) label words. kHash = true:
+// finish, then the proving hash into hash.values; out is written only
+// when it is not null.
+template <bool kShared, bool kHash>
 __global__ void __launch_bounds__(kMaxThreads)
 finish_kernel(const uint32_t* __restrict__ cw, long long ws, long long ls,
               const uint32_t* __restrict__ blk, uint32_t* __restrict__ out,
-              long long b) {
+              long long b, HashArgs hash) {
     const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     uint32_t inner[8], outer[8], m[16];
     if (kShared) {
@@ -166,6 +198,23 @@ finish_kernel(const uint32_t* __restrict__ cw, long long ws, long long ls,
     m[15] = (64 + 132) * 8;
     compress(inner, m);
     hmac_outer(outer, inner);
+    if constexpr (kHash) {
+        uint32_t x[16];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = hash.ch[i * hash.chs + lane * hash.chl];
+        x[8] = hash.nonce ? hash.nonce[lane * hash.nls] : hash.nonce_value;
+        x[9] = hash.idx_lo[lane];
+        x[10] = hash.idx_hi[lane];
+        x[11] = 0u;
+        // finish's big-endian digest words -> the little-endian label
+        // words the hash takes (labels_to_words)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[12 + i] = bswap32(inner[i]);
+        const uint32_t c0 = x[0];
+        salsa20_8_rounds(x);
+        hash.values[lane] = x[0] + c0;
+        if (out == nullptr) return;
+    }
 #pragma unroll
     for (int k = 0; k < 4; ++k) out[(size_t)k * b + lane] = inner[k];
 }
@@ -195,8 +244,35 @@ extern "C" int pbkdf2_finish_launch(const void* cw, long long ws, long long ls,
     if (b <= 0) return 0;
     const unsigned block = spread_threads(b, kMaxThreads);
     const unsigned grid = blocks_of(b, block);
-    auto kernel = ls == 0 ? finish_kernel<true> : finish_kernel<false>;
+    auto kernel = ls == 0 ? finish_kernel<true, false>
+                          : finish_kernel<false, false>;
     kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)cw, ws, ls, (const uint32_t*)blk, (uint32_t*)out, b);
+        (const uint32_t*)cw, ws, ls, (const uint32_t*)blk, (uint32_t*)out, b,
+        HashArgs{});
+    return (int)cudaGetLastError();
+}
+
+// cw, blk as above; out: (4, B) u32 BE label words, or null to skip them;
+// ch: 8 u32 challenge words at ch[w * chs + lane * chl]; nonce: u32 at
+// nonce[lane * nls], or nonce_value for every lane when nonce is null;
+// idx_lo/idx_hi: (B,) u32; values: (B,) u32 proving-hash values. Returns
+// cudaGetLastError().
+extern "C" int pbkdf2_finish_hash_launch(
+    const void* cw, long long ws, long long ls, const void* blk, void* out,
+    long long b, const void* ch, long long chs, long long chl,
+    const void* nonce, long long nls, uint32_t nonce_value,
+    const void* idx_lo, const void* idx_hi, void* values, void* stream) {
+    if (b <= 0) return 0;
+    const unsigned block = spread_threads(b, kMaxThreads);
+    const unsigned grid = blocks_of(b, block);
+    auto kernel = ls == 0 ? finish_kernel<true, true>
+                          : finish_kernel<false, true>;
+    const HashArgs hash{(const uint32_t*)ch, chs, chl,
+                        (const uint32_t*)nonce, nls, nonce_value,
+                        (const uint32_t*)idx_lo, (const uint32_t*)idx_hi,
+                        (uint32_t*)values};
+    kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)cw, ws, ls, (const uint32_t*)blk, (uint32_t*)out, b,
+        hash);
     return (int)cudaGetLastError();
 }

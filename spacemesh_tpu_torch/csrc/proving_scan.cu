@@ -22,27 +22,22 @@
 //
 // The proving hash (hash_kernel) replaces the XLA program of
 // spacemesh_tpu/ops/proving.py::proving_hash_jit, which has no Pallas
-// kernel: the verifier's one Salsa20/8 per (proof, index) lane, with the
-// challenge and nonce shared or per lane, returning x0 + challenge[0]. It
-// takes the label words little-endian as the scan does, or big-endian as
-// pbkdf2.cu's finish leaves them (be_labels: swapped on load), so the
-// verifier hands the recomputed labels over without leaving the card.
-// Bound: about 390 integer instructions per lane against at most 64
-// bytes moved, so the instruction rate bounds it; a verify batch of 9472
-// lanes is a few microseconds of either, and launch latency sets its time.
-// Both kernels run the rounds through salsa20_8_rounds.
+// kernel: one Salsa20/8 per (proof, index) lane, with the challenge and
+// nonce shared or per lane, returning x0 + challenge[0]. It takes the
+// label words little-endian as the scan does, or big-endian (be_labels:
+// swapped on load). The verifier no longer launches it: pbkdf2.cu's
+// finish runs the same hash as its epilogue on the label words it holds
+// in registers. It serves labels that come from the host
+// (ops/proving.py:proving_hashes). Bound: about 390 integer instructions
+// per lane against at most 64 bytes moved; at a few thousand lanes
+// launch latency sets its time. Both kernels run the rounds through
+// salsa20_8_rounds (salsa.cuh).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
-
-#define ROTL(v, n) __funnelshift_l((v), (v), (n))
-#define QR(a, b, c, d)     \
-    b ^= ROTL(a + d, 7);   \
-    c ^= ROTL(b + a, 9);   \
-    d ^= ROTL(c + b, 13);  \
-    a ^= ROTL(d + c, 18);
+#include "salsa.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -51,22 +46,6 @@ constexpr int kSegment = 64;
 struct Challenge {
     uint32_t w[8];
 };
-
-// The 8 rounds (4 double rounds) of Salsa20/8 on the state x, in place,
-// without the final feed-forward add.
-__device__ __forceinline__ void salsa20_8_rounds(uint32_t (&x)[16]) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        QR(x[0], x[4], x[8], x[12]);
-        QR(x[5], x[9], x[13], x[1]);
-        QR(x[10], x[14], x[2], x[6]);
-        QR(x[15], x[3], x[7], x[11]);
-        QR(x[0], x[1], x[2], x[3]);
-        QR(x[5], x[6], x[7], x[4]);
-        QR(x[10], x[11], x[8], x[9]);
-        QR(x[15], x[12], x[13], x[14]);
-    }
-}
 
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(Challenge ch, uint32_t nonce0, uint32_t thr,

@@ -6,6 +6,17 @@
 // message word that is a compile-time constant (the padding words of the
 // HMAC and k2pow blocks) folds into an immediate. The round constants sit
 // in constant memory, read at a compile-time index: one operand each.
+//
+// Two forms of the rounds, chosen at compile time (kImad). The plain form
+// adds with IADD3, which issues on the integer pipe beside the rotates
+// (SHF) and three-input logic (LOP3) that make up about two thirds of a
+// compression: that pipe, 64 lanes a clock per SM, bounds a compression
+// when many lanes keep the SMs busy. The IMAD form computes the rounds'
+// two-input adds as a * kSha256One + b, a multiply by a one in constant
+// memory that the compiler cannot fold, which issues on the FMA pipe, so
+// the two pipes share the work; it costs more instructions and a longer
+// dependent chain. The k2pow search, a throughput-bound loop over many
+// nonces, takes it; PBKDF2 and the k2pow verify keep the plain form.
 
 #pragma once
 
@@ -36,11 +47,65 @@ __device__ __forceinline__ uint32_t bswap32(uint32_t v) {
     return __byte_perm(v, 0, 0x0123);
 }
 
-// st <- SHA-256 compression of st with the 16 big-endian words of m.
+// A one the compiler cannot fold: the IMAD form multiplies by it.
+__constant__ uint32_t kSha256One = 1u;
+
+// a + b: IADD3 on the integer pipe, or (kImad) IMAD on the FMA pipe.
+template <bool kImad>
+__device__ __forceinline__ uint32_t sha256_add(uint32_t a, uint32_t b) {
+    if constexpr (kImad)
+        return a * kSha256One + b;
+    else
+        return a + b;
+}
+
+// Rounds kFirst..63 on the working variables v (a..h), in place, with the
+// message schedule in w: w[i & 15] holds W[i] for the rounds before 16
+// and W[i-16] after, as in compress. Without the feed-forward add.
+template <bool kImad, int kFirst>
+__device__ __forceinline__ void sha256_rounds(uint32_t* v, uint32_t* w) {
+    uint32_t a = v[0], b = v[1], c = v[2], d = v[3];
+    uint32_t e = v[4], f = v[5], g = v[6], h = v[7];
+#pragma unroll
+    for (int i = kFirst; i < 64; ++i) {
+        if (i >= 16) {  // w[i & 15] holds W[i-16]
+            const uint32_t x = w[(i - 15) & 15], y = w[(i - 2) & 15];
+            w[i & 15] += (SHA256_ROTR(x, 7) ^ SHA256_ROTR(x, 18) ^ (x >> 3)) +
+                         w[(i - 7) & 15] +
+                         (SHA256_ROTR(y, 17) ^ SHA256_ROTR(y, 19) ^ (y >> 10));
+        }
+        const uint32_t s1 = SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^
+                            SHA256_ROTR(e, 25);
+        const uint32_t s0 = SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^
+                            SHA256_ROTR(a, 22);
+        const uint32_t t1 =
+            sha256_add<kImad>(sha256_add<kImad>(h, s1), (e & f) ^ (~e & g)) +
+            (kSha256K[i] + w[i & 15]);
+        const uint32_t t2 = sha256_add<kImad>(s0, (a & b) ^ (a & c) ^ (b & c));
+        h = g; g = f; f = e; e = sha256_add<kImad>(d, t1);
+        d = c; c = b; b = a; a = sha256_add<kImad>(t1, t2);
+    }
+    v[0] = a; v[1] = b; v[2] = c; v[3] = d;
+    v[4] = e; v[5] = f; v[6] = g; v[7] = h;
+}
+
+// st <- SHA-256 compression of st with the 16 big-endian words of m. The
+// plain form (the default) is written out on its own, so the kernels that
+// take it compile as they did before the IMAD form existed.
+template <bool kImad = false>
 __device__ __forceinline__ void compress(uint32_t* st, const uint32_t* m) {
     uint32_t w[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) w[i] = m[i];
+    if constexpr (kImad) {
+        uint32_t v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = st[i];
+        sha256_rounds<true, 0>(v, w);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) st[i] += v[i];
+        return;
+    }
     uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
     uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll

@@ -23,10 +23,21 @@ operations each, :func:`int_ops`), against at most 176 bytes per lane
 (:func:`io_bytes`). So the operations bound it, about 0.015 ms for both
 at 32768 lanes with one commitment.
 
-:func:`expand` and :func:`finish` take the kernel for CUDA tensors and the
-plain twins (:func:`_expand`, :func:`_pbkdf2_second`, ported from the JAX
-package) only for CPU tensors; a kernel that fails to build or launch
-raises. ``expand_launches`` and ``finish_launches`` count kernel launches.
+:func:`finish_hash` is finish with the PoST proving hash as its epilogue,
+the verifier's recompute: each lane's thread hashes the label words it
+holds in registers (challenge, nonce, index, label: one Salsa20/8) and
+writes the (B,) values, the label words only when asked. It replaces the
+verifier's separate proving-hash launch (``ops/proving_cuda.py``,
+``spacemesh_tpu/ops/proving.py::proving_hash_jit`` in the JAX package);
+the hash adds :func:`~.proving_cuda.hash_int_ops` operations and 36 bytes
+read per lane to finish's bound.
+
+:func:`expand`, :func:`finish` and :func:`finish_hash` take the kernel for
+CUDA tensors and the plain twins (:func:`_expand`, :func:`_pbkdf2_second`,
+ported from the JAX package, and ``proving_hash_plain``) only for CPU
+tensors; a kernel that fails to build or launch raises.
+``expand_launches``, ``finish_launches`` and ``finish_hash_launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -37,11 +48,13 @@ import numpy as np
 import torch
 
 from . import _build, u32
+from .proving_cuda import hash_int_ops, hash_operands, proving_hash_plain
 from .sha256 import byteswap32, hmac_midstates, sha256_compress
 from .u32 import DTYPE
 
 expand_launches = 0
 finish_launches = 0
+finish_hash_launches = 0
 
 # integer operations of one SHA-256 compression on sm_90. Counted by hand,
 # with LOP3 doing any three-input logic (a three-way xor, Ch, Maj) and
@@ -55,25 +68,32 @@ finish_launches = 0
 COMPRESS_OPS = 1310
 MIDSTATE_COMPRESSIONS = 2         # HMAC inner and outer key blocks
 LANE_COMPRESSIONS = {"expand": 4 * 2,   # 4 x (inner, outer)
-                     "finish": 3 + 1}   # 3 inner blocks, outer
+                     "finish": 3 + 1,   # 3 inner blocks, outer
+                     "finish_hash": 3 + 1}
 
 
 def int_ops(lanes: int, entry: str, per_lane_commitment: bool) -> int:
-    """Integer operations of ``entry`` ("expand" or "finish") over
-    ``lanes`` lanes: its compressions, the midstates' once per commitment
-    (once for the batch when it shares one)."""
+    """Integer operations of ``entry`` ("expand", "finish" or
+    "finish_hash") over ``lanes`` lanes: its compressions, the midstates'
+    once per commitment (once for the batch when it shares one), and for
+    finish_hash one proving hash per lane."""
     keys = lanes if per_lane_commitment else 1
+    hashes = hash_int_ops(lanes) if entry == "finish_hash" else 0
     return (lanes * LANE_COMPRESSIONS[entry]
-            + keys * MIDSTATE_COMPRESSIONS) * COMPRESS_OPS
+            + keys * MIDSTATE_COMPRESSIONS) * COMPRESS_OPS + hashes
 
 
 def io_bytes(lanes: int, entry: str, per_lane_commitment: bool) -> int:
     """Bytes ``entry`` must move: the commitment (once, or once per lane),
     then expand reads two index words and writes 32 block words per lane,
-    and finish reads 32 block words and writes 4 label words per lane."""
-    cw = 32 * (lanes if per_lane_commitment else 1)
-    per = {"expand": 8 + 128, "finish": 128 + 16}
-    return cw + lanes * per[entry]
+    finish reads 32 block words and writes 4 label words per lane, and
+    finish_hash reads the block, two index words and the challenge and
+    nonce (per lane with per-lane commitments, else once) and writes one
+    value per lane (the label words only when asked for)."""
+    per = lanes if per_lane_commitment else 1
+    if entry == "finish_hash":
+        return 32 * per + 36 * per + lanes * (128 + 8 + 4)
+    return 32 * per + lanes * {"expand": 8 + 128, "finish": 128 + 16}[entry]
 
 
 # --- plain twins (spacemesh_tpu/ops/scrypt.py) --------------------------------
@@ -160,10 +180,17 @@ def _lib(entry: str):
     fn = getattr(_build.load("pbkdf2"), f"pbkdf2_{entry}_launch")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        ptrs = 3 if entry == "expand" else 2  # data pointers after cw
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * ptrs
-                       + [ctypes.c_longlong, ctypes.c_void_p])
+        key = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+        if entry == "finish_hash":
+            fn.argtypes = (key + [ctypes.c_void_p] * 2
+                           + [ctypes.c_longlong, ctypes.c_void_p]
+                           + [ctypes.c_longlong] * 2
+                           + [ctypes.c_void_p, ctypes.c_longlong,
+                              ctypes.c_uint32] + [ctypes.c_void_p] * 4)
+        else:
+            ptrs = 3 if entry == "expand" else 2  # data pointers after cw
+            fn.argtypes = (key + [ctypes.c_void_p] * ptrs
+                           + [ctypes.c_longlong, ctypes.c_void_p])
     return fn
 
 
@@ -222,3 +249,51 @@ def finish(commitment_words: torch.Tensor, blk: torch.Tensor
             finish_launches += 1
         _build.check(err, "pbkdf2_finish_launch")
     return out
+
+
+def finish_hash(commitment_words: torch.Tensor, blk: torch.Tensor,
+                challenge_words: torch.Tensor, nonce, idx_lo: torch.Tensor,
+                idx_hi: torch.Tensor, *, words_out: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`finish` over a (32, B) int32 LE ROMix output, then the
+    proving hash of each lane's label: ``challenge_words`` (8,) shared or
+    (8, B) per lane, ``nonce`` a u32 int or a (B,) or one-element tensor,
+    ``idx_lo``/``idx_hi`` the (B,) index halves. Returns the (B,) int32
+    hash values and, with ``words_out``, the (4, B) BE label words (else
+    None). One kernel launch on CUDA tensors; on CPU tensors the plain
+    finish, then ``proving_hash_plain`` over its big-endian words."""
+    global finish_hash_launches
+    shape = blk.shape
+    if len(shape) != 2 or shape[0] != 32:
+        raise ValueError(f"blk must be (32, B), got {tuple(shape)}")
+    b = shape[1]
+    if idx_lo.shape != (b,):
+        raise ValueError(f"idx_lo must be ({b},)")
+    dev, strides = _check(commitment_words, b, blk, idx_lo, idx_hi)
+    if dev.type == "cpu":
+        words = _pbkdf2_second(*_midstates(commitment_words), blk)[:4]
+        values = proving_hash_plain(challenge_words, nonce, idx_lo, idx_hi,
+                                    words, big_endian=True)
+        return values, (words if words_out else None)
+    ch, ch_strides, (nv, nls, nval) = hash_operands(
+        challenge_words, nonce, idx_lo, idx_hi, blk)
+    cw = commitment_words.contiguous()
+    blk = blk.contiguous()
+    idx_lo, idx_hi = idx_lo.contiguous(), idx_hi.contiguous()
+    values = torch.empty(b, dtype=DTYPE, device=dev)
+    words = (torch.empty((4, b), dtype=DTYPE, device=dev) if words_out
+             else None)
+    if b == 0:
+        return values, words
+    fn = _lib("finish_hash")
+    with torch.cuda.device(dev):
+        err = fn(cw.data_ptr(), *strides, blk.data_ptr(),
+                 None if words is None else words.data_ptr(), b,
+                 ch.data_ptr(), *ch_strides,
+                 None if nv is None else nv.data_ptr(), nls, nval,
+                 idx_lo.data_ptr(), idx_hi.data_ptr(), values.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        with _build.count_lock:
+            finish_hash_launches += 1
+        _build.check(err, "pbkdf2_finish_hash_launch")
+    return values, words

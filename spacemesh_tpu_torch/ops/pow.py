@@ -5,13 +5,15 @@
                                                  || le64(nonce))
     valid <=> pow_hash < difficulty     (32-byte big-endian compare)
 
-The search runs batches of nonces on the device through the bounded
-dispatch/retire window of ``runtime/engine.py``, each batch one launch of
-the search kernel on the card (``ops/pow_cuda.py``); batched verification
-is one launch of the verify kernel per batch. On the CPU both run the
-plain twins. A device error raises: the JAX package's host re-hash on a
-failed dispatch is not carried over. The single :func:`verify` and batches
-below ``min_device`` items use hashlib, as in the JAX package.
+The search runs windows of nonces through the bounded dispatch/retire
+window of ``runtime/engine.py``: each window is one launch of the window
+kernel on the card (``ops/pow_cuda.py:search_window``), which hashes block
+1 itself and lowers a (1,) cell shared by the search's windows to the
+smallest winner; retire reads that 8-byte cell. Batched verification is
+one launch of the verify kernel per batch. On the CPU both run the plain
+twins. A device error raises: the JAX package's host re-hash on a failed
+dispatch is not carried over. The single :func:`verify` and batches below
+``min_device`` items use hashlib, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ def _words_be(data: bytes) -> np.ndarray:
 
 
 def prefix_state(challenge: bytes, node_id: bytes) -> np.ndarray:
-    """Midstate after absorbing challenge||node_id (the first block)."""
+    """Midstate after absorbing challenge||node_id (the first block), on
+    the host through the plain twin: for the mask search and the tests;
+    :func:`search` leaves block 1 to the window kernel."""
     if len(challenge) != 32 or len(node_id) != 32:
         raise ValueError("challenge and node_id must be 32 bytes")
     block = u32.from_numpy(_words_be(challenge + node_id))[:, None]
@@ -49,37 +53,56 @@ def pow_hash(challenge: bytes, node_id: bytes, nonce: int) -> bytes:
         challenge + node_id + int(nonce).to_bytes(8, "little")).digest()
 
 
+# Nonces per window: a window with no winner is about 1 ms of kernel time
+# at full width on an H100, so a scheduler quantum stays short; a window is
+# a whole number of the caller's batches.
+WINDOW_NONCES = 1 << 24
+
+
 def search(challenge: bytes, node_id: bytes, difficulty: bytes,
            *, batch: int = 1 << 16, start: int = 0,
            max_batches: int = 1 << 16, inflight: int = 2,
            tenant: str = "-", device="cuda") -> int | None:
     """Smallest nonce >= ``start`` whose pow_hash is below ``difficulty``
-    (32-byte BE target), scanning ``batch`` nonces per device pass with
-    ``inflight`` passes enqueued; None when exhausted. ``tenant`` labels
-    the runtime metrics (``runtime/engine.py``)."""
+    (32-byte BE target) among ``batch * max_batches`` nonces; None when
+    exhausted. ``batch`` is the JAX package's nonces per device pass; a
+    window of whole batches (about :data:`WINDOW_NONCES`) is one launch,
+    ``inflight`` windows enqueued. ``tenant`` labels the runtime metrics
+    (``runtime/engine.py``)."""
     from ..runtime import engine
 
+    if len(challenge) != 32 or len(node_id) != 32:
+        raise ValueError("challenge and node_id must be 32 bytes")
     if len(difficulty) != 32:
         raise ValueError("difficulty must be 32 bytes")
     dev = resolve(device)
-    st = prefix_state(challenge, node_id)
+    block1 = _words_be(challenge + node_id)
     tgt = _words_be(difficulty)
+    found = pow_cuda.new_cell(dev)
+    per = max(WINDOW_NONCES // batch, 1)
 
-    def dispatch(base):
-        # enqueue only: the (B,) hit mask is awaited at retire
-        return base, HostCopy(pow_cuda.search_batch(st, tgt, base, batch,
-                                                    dev))
+    def windows():
+        for first in range(0, max_batches, per):
+            yield (start + first * batch,
+                   min(per, max_batches - first) * batch)
+
+    def dispatch(window):
+        # enqueue only: the cell's copy right behind this window (and
+        # before the next one) holds the winner of the windows up to it
+        lo, n = window
+        pow_cuda.search_window(block1, tgt, lo, n, found, dev)
+        return lo, n, HostCopy(found)
 
     def retire(ticket):
         # 0 is a valid winning nonce: the engine's early exit tests
-        # `is not None`, not truthiness
-        base, ok = ticket
-        hits = np.nonzero(ok.get().numpy())[0]
-        return int(base + int(hits[0])) if hits.size else None
+        # `is not None`, not truthiness. A value past this window is a
+        # later window's winner (the CPU twin shares the cell itself).
+        lo, n, cell = ticket
+        best = pow_cuda.cell_value(cell.get())
+        return best if lo <= best < lo + n else None
 
     pipe = engine.Pipeline(kind="k2pow", tenant=tenant, inflight=inflight)
-    return pipe.run((start + i * batch for i in range(max_batches)),
-                    dispatch, retire)
+    return pipe.run(windows(), dispatch, retire)
 
 
 def verify(challenge: bytes, node_id: bytes, difficulty: bytes,

@@ -12,14 +12,17 @@ nonce) pair (:func:`int_ops`) against 24 bytes read per label and
 n_nonces * (1 + 4/64) bytes written (:func:`io_bytes`), so the
 warp-instruction rate bounds it (132 SMs x 128 lanes per clock).
 
-:func:`proving_hash` is the verifier's hash, one Salsa20/8 per lane with
-the challenge and nonce shared or per lane. It replaces the XLA program of
+:func:`proving_hash` is the proving hash, one Salsa20/8 per lane with the
+challenge and nonce shared or per lane. It replaces the XLA program of
 ``spacemesh_tpu/ops/proving.py::proving_hash_jit`` (no Pallas kernel) with
 ``hash_kernel`` of the same source, one thread per lane at any batch size,
 which takes the label words little-endian or, with ``big_endian=True``,
-as ``ops/pbkdf2_cuda.py:finish`` leaves them on the card. Bound: about 390
-integer instructions per lane (:func:`hash_int_ops`) against at most 64
-bytes (:func:`hash_io_bytes`).
+as ``ops/pbkdf2_cuda.py:finish`` leaves them. It serves labels that come
+from the host (:func:`~.proving.proving_hashes`); the verifier's recompute
+runs the same hash as PBKDF2 finish's epilogue
+(``ops/pbkdf2_cuda.py:finish_hash``) and launches no hash of its own.
+Bound: about 390 integer instructions per lane (:func:`hash_int_ops`)
+against at most 64 bytes (:func:`hash_io_bytes`).
 
 :func:`scan` and :func:`proving_hash` take the kernel for CUDA tensors and
 their plain twins (:func:`scan_plain`, :func:`proving_hash_plain`) only
@@ -125,27 +128,10 @@ def proving_hash(challenge_words: torch.Tensor, nonce, idx_lo: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"proving_hash: unsupported device {dev}")
     b = idx_lo.shape[0]
-    ch = challenge_words
-    if tuple(ch.shape) not in ((8,), (8, b)):
-        raise ValueError(f"challenge_words must be (8,) or (8, {b}), got "
-                         f"{tuple(ch.shape)}")
-    if idx_hi.shape != (b,) or label_words.shape != (4, b):
+    if label_words.shape != (4, b):
         raise ValueError("idx_lo/idx_hi must be (B,) and label_words (4, B)")
-    tensors = [ch, idx_lo, idx_hi, label_words]
-    if isinstance(nonce, (int, np.integer)):
-        nv, nls, nval = None, 0, int(nonce) & 0xFFFFFFFF
-    else:
-        if nonce.numel() not in (1, b):
-            raise ValueError(f"nonce must have 1 or {b} elements")
-        nv, nls, nval = nonce.reshape(-1).contiguous(), 1, 0
-        if nonce.numel() == 1:
-            nls = 0
-        tensors.append(nv)
-    for t in tensors:
-        if t.dtype != DTYPE or t.device != dev:
-            raise ValueError("proving_hash inputs must be int32 on one device")
-    ch = ch.contiguous()
-    strides = (1, 0) if ch.dim() == 1 else (b, 1)
+    ch, strides, (nv, nls, nval) = hash_operands(
+        challenge_words, nonce, idx_lo, idx_hi, label_words)
     idx_lo, idx_hi = idx_lo.contiguous(), idx_hi.contiguous()
     label_words = label_words.contiguous()
     out = torch.empty(b, dtype=DTYPE, device=dev)
@@ -162,6 +148,37 @@ def proving_hash(challenge_words: torch.Tensor, nonce, idx_lo: torch.Tensor,
             hash_launches += 1
         _build.check(err, "proving_hash_launch")
     return out
+
+
+def hash_operands(challenge_words: torch.Tensor, nonce, idx_lo: torch.Tensor,
+                  idx_hi: torch.Tensor, *lane_tensors) -> tuple:
+    """The proving hash's challenge and nonce as a kernel takes them, for a
+    batch of ``idx_lo.shape[0]`` lanes on one device: (contiguous challenge
+    words, their (word, lane) strides, (contiguous nonce tensor or None,
+    nonce lane stride, nonce value)). Checks the shapes of these and of
+    ``idx_hi``, and that they and ``lane_tensors`` are int32 on one
+    device."""
+    b, dev = idx_lo.shape[0], idx_lo.device
+    ch = challenge_words
+    if tuple(ch.shape) not in ((8,), (8, b)):
+        raise ValueError(f"challenge_words must be (8,) or (8, {b}), got "
+                         f"{tuple(ch.shape)}")
+    if idx_hi.shape != (b,):
+        raise ValueError("idx_lo/idx_hi must be (B,)")
+    checked = [ch, idx_lo, idx_hi, *lane_tensors]
+    if isinstance(nonce, (int, np.integer)):
+        nonce_args = (None, 0, int(nonce) & 0xFFFFFFFF)
+    else:
+        if nonce.numel() not in (1, b):
+            raise ValueError(f"nonce must have 1 or {b} elements")
+        nv = nonce.reshape(-1).contiguous()
+        checked.append(nv)
+        nonce_args = (nv, int(nonce.numel() == b), 0)
+    for t in checked:
+        if t.dtype != DTYPE or t.device != dev:
+            raise ValueError("proving_hash inputs must be int32 on one device")
+    return (ch.contiguous(), (1, 0) if ch.dim() == 1 else (b, 1),
+            nonce_args)
 
 
 def _check(challenge_words, idx_lo, idx_hi, label_words, n_nonces):

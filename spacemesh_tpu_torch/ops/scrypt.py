@@ -9,7 +9,9 @@ bit-exact against ``hashlib.scrypt``. The pipeline is three kernels on
 the card, each with its plain twin on the CPU: PBKDF2-HMAC-SHA256 expand
 (``ops/pbkdf2_cuda.py``) -> ROMix (``ops/romix_cuda.py``) -> PBKDF2 finish
 (``ops/pbkdf2_cuda.py``), then optionally the VRF min-scan
-(:func:`_minscan`, tensor code).
+(:func:`_minscan`, tensor code). The verifier's recompute
+(:func:`scrypt_labels_hash`) ends in finish with the proving hash as its
+epilogue instead.
 Block state is (32, B) int32 bit patterns, lanes trailing, as in the JAX
 package. The JAX package's autotune plan and chunked/row ROMix variants
 exist for XLA's per-shape compiles and the TPU race; this port has
@@ -39,6 +41,22 @@ def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *,
     blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
     blk = romix_cuda.romix(blk, n)
     return pbkdf2_cuda.finish(commitment_words, blk)
+
+
+def scrypt_labels_hash(commitment_words, idx_lo, idx_hi, challenge_words,
+                       nonce, *, n: int, words_out: bool = False):
+    """Labels for (B,) index halves and the proving hash of each: the
+    verifier's recompute. Returns the (B,) int32 hash values and, with
+    ``words_out``, the (4, B) int32 BE label words (else None). On the
+    card three launches: PBKDF2 expand, ROMix, then PBKDF2 finish with the
+    hash as its epilogue (``ops/pbkdf2_cuda.py:finish_hash``).
+    ``challenge_words`` and ``nonce`` as ``ops/proving_cuda.py``'s
+    proving hash takes them."""
+    blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
+    blk = romix_cuda.romix(blk, n)
+    return pbkdf2_cuda.finish_hash(commitment_words, blk, challenge_words,
+                                   nonce, idx_lo, idx_hi,
+                                   words_out=words_out)
 
 
 def scrypt_labels_packed(commitment_words, idx_lo, idx_hi, *,

@@ -2,13 +2,12 @@
 
 Port of the single-device branch of ``spacemesh_tpu/post/verifier.py``. All
 spot-checked (proof, index) pairs are flattened into one label recompute
-(per-lane commitments, ``ops/scrypt.py:scrypt_labels_words``: the PBKDF2
-and ROMix kernels on the card) and one proving-hash pass over the label
-words where the recompute left them (the hash kernel reads them
-big-endian), so only the (B,) hash values come back to the host; then
-each proof's values are held against its threshold. The K3 spot-check
-subset is drawn from the verifier's seed; the k2pow witness is checked
-with hashlib.
+with the proving hash (per-lane commitments, challenges and nonces,
+``ops/scrypt.py:scrypt_labels_hash``: on the card PBKDF2 expand, ROMix,
+and PBKDF2 finish, which hashes each label in the registers that hold it),
+so only the (B,) hash values come back to the host; then each proof's
+values are held against its threshold. The K3 spot-check subset is drawn
+from the verifier's seed; the k2pow witness is checked with hashlib.
 """
 
 from __future__ import annotations
@@ -59,10 +58,9 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
     is drawn per call. Pass one only for reproducible verification.
     ``timing``, when given, gains the host seconds of each stage: ``prep``
     (structure, k2pow and K3 checks, the per-lane arrays), ``labels`` (the
-    label recompute: its inputs' copies and three kernel launches on the
-    card), ``hash`` (the proving-hash launch, the wait for the recompute
-    and the hash, and the values' copy to the host) and ``check`` (the
-    thresholds)."""
+    recompute: its inputs' copies and three kernel launches on the card,
+    the last of which also hashes), ``hash`` (the wait for those kernels
+    and the values' copy to the host) and ``check`` (the thresholds)."""
     dev = resolve(device)
     t0 = time.perf_counter()
     p = params or ProofParams()
@@ -89,7 +87,7 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
         _lap(timing, "prep", t0)
         return results
 
-    # 2) one label recompute + proving-hash pass per scrypt N (usually 1)
+    # 2) one label recompute with the proving hash per scrypt N (usually 1)
     owners = np.array(flat_owner)
     idx = np.array(flat_idx, dtype=np.uint64)
     commits = np.stack([scrypt.commitment_to_words(items[o].commitment)
@@ -104,14 +102,11 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
         sel = np.array([items[o].scrypt_n == n for o in flat_owner])
         lo, hi = (u32.from_numpy(h, dev)
                   for h in scrypt.split_indices(idx[sel]))
-        # (4, B) BE label words, left on the inputs' device
-        words = scrypt.scrypt_labels_words(
-            u32.from_numpy(commits[:, sel], dev), lo, hi, n=n)
-        t0 = _lap(timing, "labels", t0)
-        vals = proving.proving_hash(
+        vals, _ = scrypt.scrypt_labels_hash(
+            u32.from_numpy(commits[:, sel], dev), lo, hi,
             u32.from_numpy(chals[:, sel], dev),
-            u32.from_numpy(nonces[sel], dev), lo, hi, words,
-            big_endian=True)
+            u32.from_numpy(nonces[sel], dev), n=n)
+        t0 = _lap(timing, "labels", t0)
         values[sel] = u32.to_numpy(vals)
         t0 = _lap(timing, "hash", t0)
 

@@ -12,7 +12,7 @@ Port of ``spacemesh_tpu/runtime/workloads.py``. The kinds:
 * ``prove_scan``   — the prover's scan step (``post/prover.py``).
 * ``verify``       — the batched verifier's label recompute (per-lane
                      commitments) and proving hash.
-* ``k2pow``        — the SHA-256 nonce-search batch (``ops/pow.py``).
+* ``k2pow``        — the SHA-256 nonce-search window (``ops/pow.py``).
 * ``k2pow_verify`` — the per-item k2pow witness verification batch.
 
 Each kind carries a ``warm(n, batch, device="cuda")`` recipe that runs
@@ -177,15 +177,15 @@ def _warm_k2pow(n: int, batch: int, device="cuda") -> dict:
     import numpy as np
 
     from ..device import resolve
-    from ..ops import pow as k2pow
     from ..ops import pow_cuda
 
+    # one search window of ``batch`` nonces, its first nonce the winner
     dev = resolve(device)
-    st = k2pow.prefix_state(bytes(32), bytes(32))
+    block1 = np.zeros(16, dtype=np.uint32)
     tgt = np.full(8, 0xFFFFFFFF, dtype=np.uint32)
     doc: dict = {}
-    _timed(doc, "pow_batch", dev, lambda: pow_cuda.search_batch(
-        st, tgt, 0, batch, dev))
+    _timed(doc, "pow_window", dev, lambda: pow_cuda.search_window(
+        block1, tgt, 0, batch, pow_cuda.new_cell(dev), dev))
     return doc
 
 
@@ -222,7 +222,7 @@ VERIFY = register(WorkloadKind(
     "verify", "batched POST verify recompute (per-lane labels + hash)",
     _warm_verify))
 K2POW = register(WorkloadKind(
-    "k2pow", "SHA-256 k2pow nonce-search batch", _warm_k2pow))
+    "k2pow", "SHA-256 k2pow nonce-search window", _warm_k2pow))
 K2POW_VERIFY = register(WorkloadKind(
     "k2pow_verify", "per-item-prefix k2pow witness verification batch",
     _warm_k2pow_verify))

@@ -78,11 +78,13 @@ def busy_us(intervals) -> float:
     return busy
 
 
-def kernel_ms(fn, name: str, reps: int) -> float | None:
-    """Mean device milliseconds per launch of the kernels whose name holds
-    ``name`` over ``reps`` calls of ``fn`` after one warm-up, from the
-    profiler's kernel times, without the host's call cost between them;
-    None when the profiler recorded no such kernel."""
+def kernel_ms(fn, name: str, reps: int, per_call: bool = False
+              ) -> float | None:
+    """Mean device milliseconds per launch (``per_call``: per call of
+    ``fn``, summing its launches) of the kernels whose name holds ``name``
+    over ``reps`` calls of ``fn`` after one warm-up, from the profiler's
+    kernel times, without the host's call cost between them; None when the
+    profiler recorded no such kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -96,4 +98,4 @@ def kernel_ms(fn, name: str, reps: int) -> float | None:
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
+    return sum(us) / (reps if per_call else len(us)) / 1e3 if us else None

@@ -233,17 +233,18 @@ def _farm_verdicts(wl, device, reqs, **kw):
 def test_farm_batch_on_the_card_equals_the_cpu_twin(dev, verify_wl):
     """Every kind through the farm on the card (POST and k2pow batches on
     streams of the farm's pool) and on the CPU: equal verdicts, equal to
-    inline verification; the POST batches launch all three kernels, every
-    stream is back in the pool afterwards, and no device tensor outlives
-    its batch."""
+    inline verification; the POST batches launch all three kernels (PBKDF2
+    expand, ROMix, PBKDF2 finish with the proving hash), every stream is
+    back in the pool afterwards, and no device tensor outlives its
+    batch."""
     before = (romix_cuda.launches, pbkdf2_cuda.expand_launches,
-              pbkdf2_cuda.finish_launches)
+              pbkdf2_cuda.finish_hash_launches)
     allocated = torch.cuda.memory_allocated(dev)
     card, farm = _farm_verdicts(verify_wl, dev, verify_wl.requests,
                                 max_batch=4)
     assert torch.cuda.memory_allocated(dev) <= allocated
     after = (romix_cuda.launches, pbkdf2_cuda.expand_launches,
-             pbkdf2_cuda.finish_launches)
+             pbkdf2_cuda.finish_hash_launches)
     cpu, _ = _farm_verdicts(verify_wl, "cpu", verify_wl.requests)
     assert card == cpu == verify_wl.inline_all()
     assert all(a > b for a, b in zip(after, before))
@@ -290,12 +291,88 @@ def test_k2pow_search_kernel_matches_plain_and_hashlib(dev):
     pre = k2pow.prefix_state(ch, node)
     tgt = np.frombuffer(diff, dtype=">u4").astype(np.uint32)
     base, count = 2**32 - 2**15, 2**16
-    before = pow_cuda.search_launches
+    before = pow_cuda.mask_launches
     got = pow_cuda.search_batch(pre, tgt, base, count, dev)
-    assert pow_cuda.search_launches == before + 1
+    assert pow_cuda.mask_launches == before + 1
     assert torch.equal(got, pow_cuda.search_plain(pre, tgt, base, count, dev))
     hits = torch.nonzero(got).flatten().tolist()
     assert hits and all(k2pow.verify(ch, node, diff, base + h) for h in hits)
+
+
+def _first_hit(ch, node, diff, start):
+    return next(n for n in range(start, start + (1 << 20))
+                if k2pow.pow_hash(ch, node, n) < diff)
+
+
+@pytest.mark.parametrize("imad", [True, False])
+def test_k2pow_window_kernel_matches_plain_and_hashlib(dev, imad):
+    """Both forms of the window kernel against its plain twin on the card
+    and hashlib: a winner inside a window of 2^20 nonces, no winner (a zero
+    target), a window across nonce_hi = 1, and a window behind a winner
+    (the cell stays)."""
+    ch = hashlib.sha256(b"cuda-window-ch").digest()
+    node = hashlib.sha256(b"cuda-window-node").digest()
+    block1 = np.frombuffer(ch + node, dtype=">u4").astype(np.uint32)
+    hard = bytes([0, 4]) + bytes([255]) * 30
+    easy = bytes([0, 255]) + bytes([255]) * 30
+    cases = [(hard, 0, 1 << 20), (bytes(32), 5, 1 << 20),
+             (easy, 2**32 - 8, 1 << 20)]
+    for diff, start, count in cases:
+        tgt = np.frombuffer(diff, dtype=">u4").astype(np.uint32)
+        got, want = pow_cuda.new_cell(dev), pow_cuda.new_cell(dev)
+        before = pow_cuda.search_launches
+        pow_cuda.search_window(block1, tgt, start, count, got, dev,
+                               imad=imad)
+        assert pow_cuda.search_launches == before + 1
+        pow_cuda.search_window_plain(block1, tgt, start, count, want,
+                                     chunk=1 << 16)
+        assert torch.equal(got, want)
+        value = pow_cuda.cell_value(got.cpu())
+        if diff == bytes(32):
+            assert value == pow_cuda.NO_WINNER
+        else:
+            assert value == _first_hit(ch, node, diff, start)
+            # the window behind the winner leaves the cell as it is
+            pow_cuda.search_window(block1, tgt, start + count, count, got,
+                                   dev, imad=imad)
+            assert pow_cuda.cell_value(got.cpu()) == value
+    assert _first_hit(ch, node, easy, 2**32 - 8) >= 2**32
+
+
+def test_search_on_the_card_matches_hashlib(dev):
+    """``ops.pow.search`` at the prover's default difficulty: the smallest
+    hit, in one window and the speculative one behind it."""
+    ch = hashlib.sha256(b"cuda-search-ch").digest()
+    diff = bytes([0, 255]) + bytes([255]) * 30
+    before = pow_cuda.search_launches
+    assert k2pow.search(ch, COMMIT, diff, device=dev) == _first_hit(
+        ch, COMMIT, diff, 0)
+    assert pow_cuda.search_launches == before + 2
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("b", [37, 9472])
+def test_finish_hash_kernel_matches_plain(dev, per_lane, b):
+    """PBKDF2 finish with the proving hash as its epilogue against finish's
+    plain twin then the hash's, per-lane or shared commitment, challenge
+    and nonce; the words out only when asked for."""
+    rng = np.random.default_rng(100 + b + per_lane)
+    rand = (lambda *shape: u32.from_numpy(
+        rng.integers(0, 2**32, shape, dtype=np.uint32), dev))
+    cw = rand(8, b) if per_lane else rand(8)
+    ch = rand(8, b) if per_lane else rand(8)
+    nonce = rand(b) if per_lane else int(rng.integers(0, 2**32))
+    lo, hi, blk = rand(b), rand(b), rand(32, b)
+    words = pbkdf2_cuda._pbkdf2_second(*pbkdf2_cuda._midstates(cw), blk)[:4]
+    want = proving_cuda.proving_hash_plain(ch, nonce, lo, hi, words,
+                                           big_endian=True)
+    before = pbkdf2_cuda.finish_hash_launches
+    values, got_words = pbkdf2_cuda.finish_hash(cw, blk, ch, nonce, lo, hi,
+                                                words_out=True)
+    only, none = pbkdf2_cuda.finish_hash(cw, blk, ch, nonce, lo, hi)
+    assert pbkdf2_cuda.finish_hash_launches == before + 2
+    assert torch.equal(values, want) and torch.equal(only, want)
+    assert torch.equal(got_words, words) and none is None
 
 
 @pytest.mark.parametrize("b", [64, 4096])
@@ -325,36 +402,39 @@ def test_k2pow_verify_kernel_matches_plain_and_hashlib(dev, b):
 
 def test_verify_many_and_search_on_the_card_never_reach_the_plain_twins(
         dev, verify_wl, monkeypatch):
-    """With the plain twins made to raise on a CUDA tensor, verify_many and
-    the k2pow search still run on the card (through the kernels) and give
+    """With the plain twins and the standalone proving hash made to raise,
+    verify_many (expand, ROMix, finish with the hash) and the k2pow search
+    (the window kernel, block 1 included) still run on the card and give
     the CPU twin's answers."""
+    from spacemesh_tpu_torch.ops import proving as tproving
     from spacemesh_tpu_torch.post import verifier
     from spacemesh_tpu_torch.verify.farm import PostRequest
 
-    def forbid(name, fn):
+    items = [r.item for r in verify_wl.requests if isinstance(r, PostRequest)]
+    want = verifier.verify_many(items, verify_wl.post_params,
+                                seed=verify_wl.post_seed, device="cpu")
+    diff = bytes([0, 8]) + bytes([255]) * 30
+    want_nonce = k2pow.search(COMMIT, COMMIT, diff, batch=1 << 12,
+                              device="cpu")
+
+    def forbid(name):
         def twin(*args, **kwargs):
-            assert not any(isinstance(a, torch.Tensor) and a.is_cuda
-                           for a in args), f"{name} ran on a CUDA tensor"
-            return fn(*args, **kwargs)
+            raise AssertionError(f"{name} ran on a card path")
         return twin
 
     for key, mod in list(sys.modules.items()):
         if key.startswith("spacemesh_tpu_torch"):
             for name in ("salsa20_8", "blockmix_r1", "sha256_compress"):
-                fn = getattr(mod, name, None)
-                if callable(fn):
-                    monkeypatch.setattr(mod, name, forbid(name, fn))
-    items = [r.item for r in verify_wl.requests if isinstance(r, PostRequest)]
-    want = verifier.verify_many(items, verify_wl.post_params,
-                                seed=verify_wl.post_seed, device="cpu")
-    before = proving_cuda.hash_launches
+                if callable(getattr(mod, name, None)):
+                    monkeypatch.setattr(mod, name, forbid(name))
+    for mod in (proving_cuda, tproving):
+        monkeypatch.setattr(mod, "proving_hash", forbid("proving_hash"))
+    before = pbkdf2_cuda.finish_hash_launches
     assert verifier.verify_many(items, verify_wl.post_params,
                                 seed=verify_wl.post_seed, device=dev) == want
-    assert proving_cuda.hash_launches > before and any(want)
-    diff = bytes([0, 8]) + bytes([255]) * 30
+    assert pbkdf2_cuda.finish_hash_launches > before and any(want)
     before = pow_cuda.search_launches
     nonce = k2pow.search(COMMIT, COMMIT, diff, device=dev)
     assert pow_cuda.search_launches > before
-    assert nonce == k2pow.search(COMMIT, COMMIT, diff, batch=1 << 12,
-                                 device="cpu")
+    assert nonce == want_nonce
     assert k2pow.verify(COMMIT, COMMIT, diff, nonce)

@@ -165,6 +165,156 @@ def test_k2pow_wrappers_reject_other_devices():
                                           device="meta"))
 
 
+# --- the k2pow search window -------------------------------------------------
+
+DEFAULT_DIFF = bytes([0, 255]) + bytes([255]) * 30   # the prover's default
+BLOCK1 = np.frombuffer(CH + NODE, dtype=">u4").astype(np.uint32)
+
+
+def _first_hit(diff, start, limit=1 << 16):
+    """The smallest nonce >= start below ``diff``, by hashlib."""
+    return next(n for n in range(start, start + limit)
+                if tpow.pow_hash(CH, NODE, n) < diff)
+
+
+def _window(diff, start, count, cell):
+    pow_cuda.search_window(BLOCK1, np.frombuffer(diff, dtype=">u4")
+                           .astype(np.uint32), start, count, cell, "cpu")
+    return pow_cuda.cell_value(cell)
+
+
+@pytest.mark.parametrize("diff", [DEFAULT_DIFF, bytes([8]) + bytes([255]) * 31,
+                                  bytes([255]) * 32])
+def test_search_window_plain_folds_the_smallest_hit(diff):
+    """One window, then the next window of the same search sharing the
+    cell: the smallest hit, as hashlib has it; a fresh cell holds
+    NO_WINNER; a window behind the winner leaves the cell as it is."""
+    cell = pow_cuda.new_cell("cpu")
+    assert pow_cuda.cell_value(cell) == pow_cuda.NO_WINNER
+    want = _first_hit(diff, 0)
+    assert _window(diff, 0, 4096, cell) == want
+    assert _window(diff, 4096, 4096, cell) == want
+    # the JAX package's serial search agrees
+    assert jpow.search(CH, NODE, diff, batch=64) == want
+
+
+def test_search_window_with_a_zero_target_finds_nothing():
+    cell = pow_cuda.new_cell("cpu")
+    assert _window(bytes(32), 2**32 - 100, 300, cell) == pow_cuda.NO_WINNER
+
+
+def test_search_window_behind_a_winner_hashes_nothing(monkeypatch):
+    """The speculative window launched behind a window that hit: it reads
+    the cell and stops, block 1 included."""
+    cell = pow_cuda.new_cell("cpu")
+    want = _window(DEFAULT_DIFF, 0, 4096, cell)
+
+    def boom(*args, **kwargs):
+        raise AssertionError("hashed behind a winner")
+
+    monkeypatch.setattr(pow_cuda, "sha256_compress", boom)
+    assert _window(DEFAULT_DIFF, 4096, 4096, cell) == want
+
+
+def test_search_window_rejects_bad_cells_and_ranges():
+    tgt = np.full(8, 0xFFFFFFFF, dtype=np.uint32)
+    with pytest.raises(ValueError, match="cell"):
+        pow_cuda.search_window(BLOCK1, tgt, 0, 8, torch.zeros(2, dtype=torch
+                                                              .int64), "cpu")
+    with pytest.raises(ValueError, match="unsigned 64-bit"):
+        pow_cuda.search_window(BLOCK1, tgt, 2**64 - 4, 8,
+                               pow_cuda.new_cell("cpu"), "cpu")
+    with pytest.raises(ValueError, match="16 u32 words"):
+        pow_cuda.search_window(BLOCK1[:8], tgt, 0, 8, pow_cuda.new_cell("cpu"),
+                               "cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pow_cuda.search_window(BLOCK1, tgt, 0, 8, pow_cuda.new_cell("cpu"),
+                               "meta")
+
+
+def _search_cases():
+    """(name, difficulty, start): a winner at nonce 0, at the last nonce
+    of a window and at the first of the next (windows of 128 nonces), and
+    past the 2^32 carry."""
+    d8 = bytes([8]) + bytes([255]) * 31
+    h = _first_hit(d8, 1000)
+    carry = next(s for s in range(2**32 - 64, 2**32 - 8)
+                 if _first_hit(d8, s) >= 2**32)
+    return [("winner at nonce 0", bytes([255]) * 32, 0),
+            ("default difficulty", DEFAULT_DIFF, 0),
+            ("last nonce of a window", d8, h - 127),
+            ("first nonce of the next window", d8, h - 128),
+            ("across the 2^32 carry", d8, carry)]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_search_over_windows_equals_jax_and_hashlib(case, monkeypatch):
+    """``ops.pow.search`` on the CPU, windows of two batches of 64, held to
+    the JAX package's search and to hashlib; the window that follows the
+    winner's is dispatched too (inflight 2) and changes nothing."""
+    name, diff, start = _search_cases()[case]
+    monkeypatch.setattr(tpow, "WINDOW_NONCES", 128)
+    launches = []
+    real = pow_cuda.search_window
+    monkeypatch.setattr(pow_cuda, "search_window",
+                        lambda *a, **k: launches.append(a[2]) or real(*a, **k))
+    got = tpow.search(CH, NODE, diff, batch=64, start=start, device="cpu")
+    assert got == jpow.search(CH, NODE, diff, batch=64, start=start) \
+        == _first_hit(diff, start), name
+    assert tpow.verify(CH, NODE, diff, got)
+    first = (got - start) // 128 * 128 + start  # the winner's window
+    assert launches[-2:] == [first, first + 128], name
+
+
+def test_search_exhausted_returns_none_like_jax():
+    got = tpow.search(CH, NODE, bytes(32), batch=64, start=5, max_batches=3,
+                      device="cpu")
+    assert got is None
+    assert jpow.search(CH, NODE, bytes(32), batch=64, start=5,
+                       max_batches=3) is None
+
+
+def test_search_on_the_card_compresses_nothing_on_the_host(monkeypatch):
+    """``ops.pow.search(device="cuda")`` hands block 1 to the window kernel:
+    with every ``sha256_compress`` of the port made to raise and a stub
+    standing in for the window launch (hashlib in place of the kernel, a
+    host cell in place of the device one), the search still answers, in
+    one window and the speculative one behind it."""
+    import sys
+
+    def boom(*args, **kwargs):
+        raise AssertionError("host SHA-256 compression on the card's path")
+
+    for key, mod in list(sys.modules.items()):
+        if key.startswith("spacemesh_tpu_torch") and hasattr(
+                mod, "sha256_compress"):
+            monkeypatch.setattr(mod, "sha256_compress", boom)
+    launches = []
+
+    def stub(block1, target, start, count, found, device, **kwargs):
+        assert torch.device(device).type == "cuda"
+        launches.append(start)
+        prefix = np.asarray(block1, dtype=">u4").tobytes()
+        diff = np.asarray(target, dtype=">u4").tobytes()
+        best = pow_cuda.cell_value(found)
+        for nonce in range(start, min(start + count, best)):
+            if hashlib.sha256(prefix + nonce.to_bytes(8, "little")
+                              ).digest() < diff:
+                found.fill_(nonce)
+                break
+
+    monkeypatch.setattr(pow_cuda, "search_window", stub)
+    monkeypatch.setattr(pow_cuda, "new_cell",
+                        lambda device: torch.full((1,), -1,
+                                                  dtype=torch.int64))
+    monkeypatch.setattr(tpow, "resolve", torch.device)
+    got = tpow.search(CH, NODE, DEFAULT_DIFF, device="cuda")
+    assert got == _first_hit(DEFAULT_DIFF, 0)
+    assert launches == [0, tpow.WINDOW_NONCES]
+    with pytest.raises(AssertionError, match="host SHA-256"):
+        tpow.prefix_state(CH, NODE)
+
+
 # --- the verifier's label words --------------------------------------------
 
 
@@ -199,6 +349,59 @@ def test_verifier_label_words_are_big_endian_and_hash_like_jax():
     # read little-endian instead, the words would hash to other values
     wrong = proving_cuda.proving_hash(T(ch), T(nonce), T(lo), T(hi), words)
     assert not np.array_equal(N_(wrong), np.asarray(want))
+
+
+@pytest.mark.parametrize("per_lane_challenge", [False, True])
+@pytest.mark.parametrize("per_lane_commitment", [False, True])
+def test_finish_hash_equals_finish_then_the_hash_and_jax(per_lane_challenge,
+                                                         per_lane_commitment):
+    """PBKDF2 finish with the proving hash as its epilogue (its CPU path):
+    the values equal finish -> proving_hash_plain over the big-endian words
+    and the JAX package's proving_hash_jit over labels_to_words(labels);
+    the words, when asked for, equal finish's."""
+    b, n = 16, 2
+    rng = np.random.default_rng(20 + 2 * per_lane_challenge
+                                + per_lane_commitment)
+    commits = rng.integers(0, 256, (b if per_lane_commitment else 1, 32),
+                           dtype=np.uint8)
+    idx = rng.integers(0, 2**64, b, dtype=np.uint64)
+    idx[:2] = [2**32 - 1, 2**32]
+    lo, hi = tscrypt.split_indices(idx)
+    cw = np.stack([tscrypt.commitment_to_words(bytes(c))
+                   for c in commits]).T
+    cw = cw if per_lane_commitment else cw[:, 0]
+    ch = _rand_u32((8, b) if per_lane_challenge else (8,), 21)
+    nonce = _rand_u32(b, 22) if per_lane_challenge else 7
+    tn = T(nonce) if per_lane_challenge else nonce
+    blk = romix_cuda.romix(pbkdf2_cuda.expand(T(cw), T(lo), T(hi)), n)
+    values, words = pbkdf2_cuda.finish_hash(T(cw), blk, T(ch), tn, T(lo),
+                                            T(hi), words_out=True)
+    want_words = pbkdf2_cuda.finish(T(cw), blk)
+    assert torch.equal(words, want_words)
+    assert torch.equal(values, proving_cuda.proving_hash_plain(
+        T(ch), tn, T(lo), T(hi), want_words, big_endian=True))
+    jlabels = np.asarray(jscrypt.scrypt_labels_multi(
+        np.repeat(commits, b // len(commits), axis=0), idx, n=n))
+    jvals = _jax_hash(ch, nonce, lo, hi, jscrypt.labels_to_words(jlabels))
+    assert np.array_equal(N_(values), np.asarray(jvals))
+    only, none = pbkdf2_cuda.finish_hash(T(cw), blk, T(ch), tn, T(lo), T(hi))
+    assert none is None and torch.equal(only, values)
+    # the whole recompute, as the verifier calls it
+    got, _ = tscrypt.scrypt_labels_hash(T(cw), T(lo), T(hi), T(ch), tn, n=n)
+    assert torch.equal(got, values)
+
+
+def test_finish_hash_rejects_bad_shapes_and_devices():
+    b = 4
+    cw, lo, hi = T(_rand_u32(8, 1)), T(_rand_u32(b, 2)), T(_rand_u32(b, 3))
+    blk, ch = T(_rand_u32((32, b), 4)), T(_rand_u32(8, 5))
+    with pytest.raises(ValueError, match="blk must be"):
+        pbkdf2_cuda.finish_hash(cw, blk[:16], ch, 1, lo, hi)
+    with pytest.raises(ValueError, match="idx_lo"):
+        pbkdf2_cuda.finish_hash(cw, blk, ch, 1, lo[:2], hi)
+    meta = [t.to("meta") for t in (cw, blk, ch, lo, hi)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        pbkdf2_cuda.finish_hash(meta[0], meta[1], meta[2], 1, *meta[3:])
 
 
 @pytest.fixture(scope="module")
@@ -248,18 +451,53 @@ def test_verify_many_matches_jax_across_scrypt_n_and_tampering(
     assert set(timing) == {"prep", "labels", "hash", "check"}
 
 
+def test_verify_many_recomputes_through_scrypt_labels_hash(workload_store,
+                                                           monkeypatch):
+    """verify_many hashes the labels in PBKDF2 finish's epilogue: with the
+    standalone proving hash made to raise, its verdicts over honest and
+    tampered proofs still equal the JAX verifier's, and each scrypt N is
+    one scrypt_labels_hash call."""
+    from spacemesh_tpu_torch.ops import proving as tproving
+
+    d, jp = workload_store
+    proof = jp.prove(jworkload.CHALLENGE)
+    total = jp.meta.total_labels
+    seed = b"\x0b" * 32
+    other_nonce = dataclasses.replace(proof, nonce=proof.nonce + 1)
+    cases = [(proof, jworkload.COMMITMENT, 2),
+             (other_nonce, jworkload.COMMITMENT, 2),
+             (proof, jworkload.COMMITMENT, 4)]
+    want = jverifier.verify_many(_items(jverifier, cases, total),
+                                 jworkload.PARAMS, seed=seed)
+
+    def boom(*args, **kwargs):
+        raise AssertionError("the standalone proving hash ran")
+
+    for mod in (proving_cuda, tproving):
+        monkeypatch.setattr(mod, "proving_hash", boom)
+    calls = []
+    real = tscrypt.scrypt_labels_hash
+    monkeypatch.setattr(tscrypt, "scrypt_labels_hash",
+                        lambda *a, **k: calls.append(k["n"]) or real(*a, **k))
+    tcases = [(tprover.Proof.from_dict(dataclasses.asdict(p)), c, n)
+              for p, c, n in cases]
+    got = tverifier.verify_many(_items(tverifier, tcases, total),
+                                tworkload.PARAMS, seed=seed, device="cpu")
+    assert got == want == [True, False, False]
+    assert calls == [2, 4]
+
+
 # --- routing: the plain twins are reached only through the wrappers --------
 
 
 class _Route:
     """Spies on the kernel wrappers (recording each call) and on the plain
-    twins (recording each call made outside every wrapper and outside the
-    host midstate helper ``ops.pow.prefix_state``, which hashes a CPU
-    tensor it makes itself)."""
+    twins (recording each call made outside every wrapper)."""
 
-    WRAPPERS = [(proving_cuda, "proving_hash"), (pow_cuda, "search_batch"),
-                (pow_cuda, "verify_batch"), (pbkdf2_cuda, "expand"),
-                (pbkdf2_cuda, "finish"), (romix_cuda, "romix")]
+    WRAPPERS = [(proving_cuda, "proving_hash"), (pow_cuda, "search_window"),
+                (pow_cuda, "search_batch"), (pow_cuda, "verify_batch"),
+                (pbkdf2_cuda, "expand"), (pbkdf2_cuda, "finish"),
+                (pbkdf2_cuda, "finish_hash"), (romix_cuda, "romix")]
     TWINS = ("salsa20_8", "sha256_compress", "blockmix_r1")
 
     def __init__(self, monkeypatch):
@@ -268,7 +506,7 @@ class _Route:
         self.calls: list = []
         self.stray: list = []
         self.local = threading.local()
-        for mod, name in self.WRAPPERS + [(tpow, "prefix_state")]:
+        for mod, name in self.WRAPPERS:
             monkeypatch.setattr(mod, name, self._wrap(name,
                                                       getattr(mod, name)))
         from spacemesh_tpu_torch.ops import proving as tproving
@@ -319,14 +557,14 @@ def test_verify_many_search_and_the_farm_pow_kind_route_through_wrappers(
         total_labels=jp.meta.total_labels)
     assert tverifier.verify_many([item, item], tworkload.PARAMS,
                                  device="cpu") == [True, True]
-    assert route.names() == ["expand", "romix", "finish", "proving_hash"]
-    assert route.calls[-1] == ("proving_hash", {"big_endian": True})
+    assert route.names() == ["expand", "romix", "finish_hash"]
+    assert route.calls[-1] == ("finish_hash", {"words_out": False})
 
     del route.calls[:]
     diff = bytes([9]) + bytes([255]) * 31
     nonce = tpow.search(CH, NODE, diff, batch=64, device="cpu")
     assert tpow.verify(CH, NODE, diff, nonce)
-    assert set(route.names()) == {"search_batch", "prefix_state"}
+    assert set(route.names()) == {"search_window"}
 
     del route.calls[:]
     reqs = [PowRequest(c, n, d_, x) for c, n, d_, x in _witnesses(40, 4)]
