@@ -117,7 +117,38 @@ package. Phases, each printed as it runs:
    the port's verifyd-outage, fleet and byzantine-verifyd drills, twice
    on the card (``ok``, the same digest; under the guard) and once on the
    host CPU (outside it);
-10. a JSON line of per-kernel launches, times and bounds, each time taken
+10. [trace] instrumentation and self-healing: (a) init of 2^19 labels at
+   the main path's width with tracing off, on, and on with the
+   ``torch.profiler`` bridge inside a profiler capture, twice each in the
+   turns off, on, bridge, bridge, on, off after a warm-up, every store
+   equal; (b) one capture of init -> prove -> verify_many -> one farm
+   request with the bridge on: the capture validates, every span name of
+   the JAX package's path appears, and every expand, ROMix, finish (and
+   finish_hash), scan and search-window kernel event joins its launch by
+   the profiler's correlation and the launch lies inside a host span of
+   the launching thread (the profiler keeps ``record_function`` ranges of
+   the main thread only, so three ``trace.clock`` spans put the ring on
+   the profiler's clock and each other thread is matched to the tracer
+   thread whose spans enclose its launches most tightly); the span counts
+   and ``render_summary``'s top 20; (c) 2560 of ``[verifyd]``'s proofs
+   through a fresh ``VerifydService`` under capture: verdicts == serial
+   inline, the linkage verifyd.request -> verifyd.drain -> farm.request ->
+   farm.batch for every request, and a POST batch broken down: its stages,
+   its launch span and the CUDA runtime calls inside it, every runtime
+   call of the farm's threads; (d) ``[fleet]``'s load through three
+   ``python -m spacemesh_tpu_torch.verifyd`` processes on the card behind
+   ``fleet_from_urls``, captures started and pulled over ``/debug/trace``
+   and merged: it validates, one proc per replica role, every link token
+   resolved into a ``fleet.remote -> verifyd.request`` edge, verdicts ==
+   serial inline; (e) a ``HealthEngine`` with a flight spool over the main
+   path's watchdogs while a prove's window is held on a gate: ``/readyz``
+   of a verifyd server on the card goes 503 and back to 200, and the
+   stall's flight bundle validates; (f) a packed init of 4 identities,
+   their proves and k2pow and 1024 of ``[verifyd]``'s proofs with the
+   race, registry-thread and slow-callback sanitizers armed: no race,
+   lock-order or registry-thread violation, the slow callbacks counted;
+   ``runtime_fallbacks_total`` 0 over the whole run;
+11. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``, the PBKDF2 pair's packed-init
    shape under ``perlane``), with each later path's launches beside the
@@ -138,6 +169,7 @@ limit; N, the label width and k1/k2/k3 are not cut.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -2434,6 +2466,982 @@ def phase_fleet(ctx: dict) -> None:
     ctx["fleet"] = dict(launches=launches)
 
 
+# --- [trace]: instrumentation and self-healing on the card -----------------
+
+TRACE_LABELS = 1 << 19    # (a)/(b): labels per init, at the main path's width
+TRACE_ROUNDS = 2          # (a): rounds of the three modes, in turns
+TRACE_POSTS = 2560        # (c): [verifyd]'s proofs under capture
+TRACE_STALL_S = 2.0       # (e): the prove watchdog's deadline
+SANITIZE_TENANTS = 4      # (f): identities of the sanitized scheduler run
+SANITIZE_POSTS = 1024     # (f): [verifyd]'s proofs through a sanitized service
+# the kernels of (b)'s path by the substring of their name the profiler
+# records, and the wrappers' launch counters of each (finish_kernel covers
+# finish and finish_hash): every launch and every event must lie inside a
+# host span
+TRACE_KERNELS = {"expand_kernel": ("pbkdf2_expand",),
+                 "romix_kernel": ("romix",),
+                 "finish_kernel": ("pbkdf2_finish", "pbkdf2_finish_hash"),
+                 "scan_kernel": ("scan",),
+                 "window_kernel": ("k2pow_search",)}
+# the JAX package's span names on init -> prove -> verify + a farm run
+# (tests/test_tracing.py:267), and the k2pow gate's
+TRACE_SPANS = ("init.run", "init.dispatch", "init.fetch", "init.write",
+               "prove.run", "prove.window", "prove.read_io",
+               "prove.dispatch", "prove.retire", "romix.dispatch",
+               "farm.request", "farm.batch", "prove.k2pow", "pow.dispatch")
+
+
+def trace_ids() -> tuple:
+    return (hashlib.sha256(b"chip-smoke-trace-node").digest(),
+            hashlib.sha256(b"chip-smoke-trace-commitment").digest(),
+            hashlib.sha256(b"chip-smoke-trace-challenge").digest())
+
+
+def trace_init(d: str, mode: str):
+    """One init of ``TRACE_LABELS`` at the main path's width with tracing
+    ``off``, ``on``, or ``bridge`` (on, each span a ``record_function``,
+    inside a ``torch.profiler`` capture of the CPU and the card)."""
+    import torch
+    from spacemesh_tpu_torch.post import initializer
+    from spacemesh_tpu_torch.utils import tracing
+
+    node, commitment, _ = trace_ids()
+    prof = None
+    if mode == "off":
+        tracing.stop()
+    else:
+        tracing.start(capacity=1 << 16, torch_bridge=mode == "bridge")
+    if mode == "bridge":
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+    try:
+        with prof or contextlib.nullcontext():
+            meta, res = initializer.initialize(
+                d, node_id=node, commitment=commitment, num_units=1,
+                labels_per_unit=TRACE_LABELS, scrypt_n=N_MAIN,
+                batch_size=INIT_BATCH, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        tracing.stop()
+    require(meta.labels_written == TRACE_LABELS, f"[trace] {mode} init "
+            "wrote every label")
+    return meta, res
+
+
+def trace_cost() -> dict:
+    """(a) init's rate with tracing off, on, and on with the bridge inside
+    a profiler capture: after an untimed warm-up, ``TRACE_ROUNDS`` of each
+    in the turns off, on, bridge, bridge, on, off; every store the same
+    bytes."""
+    rates: dict = {"off": [], "on": [], "bridge": []}
+    with tempfile.TemporaryDirectory(prefix="chip-trace-") as d:
+        _, warm = trace_init(d, "off")  # the process's first V at this size
+        digest = store_digests(d)
+    order = list(rates) + list(reversed(rates))
+    for mode in order * (TRACE_ROUNDS // 2):
+        with tempfile.TemporaryDirectory(prefix="chip-trace-") as d:
+            _, res = trace_init(d, mode)
+            got = store_digests(d)
+        require(got == digest, f"[trace] the {mode} init's store == the "
+                "untraced one's")
+        rates[mode].append(res.labels_per_s)
+    mean = {k: statistics.mean(v) for k, v in rates.items()}
+    log(f"[trace] (a) init of {TRACE_LABELS} labels at N={N_MAIN}, batches "
+        f"of {INIT_BATCH}, after an untimed warm-up ({warm.labels_per_s:.0f} "
+        f"labels/s), in turns {', '.join(order)}: " + "; ".join(
+            f"{k} {', '.join(f'{r:.0f}' for r in v)} labels/s (mean "
+            f"{mean[k]:.0f}, {mean[k] / mean['off']:.4f}x off)"
+            for k, v in rates.items()) + "; every store sha256-equal")
+    return dict(rates=rates, ratio={k: mean[k] / mean["off"] for k in mean})
+
+
+def chrome_trace(prof) -> list:
+    """The profiler's events as Chrome trace-event dicts."""
+    with tempfile.TemporaryDirectory(prefix="chip-trace-prof-") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    return doc["traceEvents"] if isinstance(doc, dict) else doc
+
+
+def clock_marks() -> None:
+    """Three ``trace.clock`` spans on the main thread with the bridge on:
+    each is in the ring and, as a ``record_function`` range, in the
+    profiler's capture; :func:`profiler_offset_us` pairs them."""
+    from spacemesh_tpu_torch.utils import tracing
+
+    for _ in range(3):
+        with tracing.span("trace.clock"):
+            pass
+
+
+def profiler_offset_us(events: list, doc: dict) -> tuple:
+    """The profiler's clock minus the tracer's, in microseconds, and the
+    slack a span's edges need on the profiler's clock, from the
+    ``trace.clock`` spans (:func:`clock_marks`) paired in order with their
+    ``record_function`` ranges. The range opens before the span reads its
+    clock and closes after, so the offset is the median difference of
+    their midpoints and the slack the largest half of their length
+    difference, plus 2 us."""
+    ours = sorted((e for e in doc["traceEvents"] if e.get("ph") == "X"
+                   and e["name"] == "trace.clock"), key=lambda e: e["ts"])
+    theirs = sorted((e for e in events if e.get("ph") == "X"
+                     and e.get("cat") == "user_annotation"
+                     and e["name"] == "trace.clock"), key=lambda e: e["ts"])
+    require(ours and len(ours) == len(theirs), f"[trace] the clock marks "
+            f"pair ({len(ours)} spans, {len(theirs)} ranges)")
+    off = statistics.median((t["ts"] + t["dur"] / 2) - (o["ts"] + o["dur"] / 2)
+                            for t, o in zip(theirs, ours))
+    slack = max(max(t["dur"] - o["dur"], 0) / 2
+                for t, o in zip(theirs, ours)) + 2
+    return off, slack
+
+
+def path_launches(events: list) -> dict:
+    """{correlation: the CUDA runtime or driver launch event} of every
+    kernel event of ``TRACE_KERNELS``."""
+    corrs = {(e.get("args") or {}).get("correlation") for e in events
+             if e.get("ph") == "X" and e.get("cat") == "kernel"
+             and any(n in e["name"] for n in TRACE_KERNELS)}
+    return {(e.get("args") or {}).get("correlation"): e for e in events
+            if e.get("ph") == "X"
+            and e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and (e.get("args") or {}).get("correlation") in corrs}
+
+
+def span_threads(events: list, doc: dict) -> tuple:
+    """The tracer's spans on the profiler's clock by thread, and which
+    tracer thread each profiler thread that launched a path kernel is.
+    The profiler names the thread that started it by its system id and
+    others by an id of CUPTI's own, so such a thread is matched to the
+    tracer thread whose spans enclose every one of its launches most
+    tightly (the median length of the innermost enclosing span: a thread
+    parked in a long span elsewhere encloses them too, loosely). The main
+    thread goes by its system id. Returns ({tracer thread: [(t0, t1,
+    name)]}, {profiler thread: tracer thread}); each span widened by the
+    clock pairing's slack."""
+    import threading
+
+    off, slack = profiler_offset_us(events, doc)
+    spans: dict = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e["name"] != "trace.clock":
+            spans.setdefault(e["tid"], []).append(
+                (e["ts"] + off - slack, e["ts"] + off + e["dur"] + slack,
+                 e["name"], e["args"]["id"]))
+    by_thread: dict = {}
+    for e in path_launches(events).values():
+        by_thread.setdefault(e["tid"], []).append(e)
+    main = threading.main_thread()
+    which = {main.native_id: main.ident}
+    for tid, evs in by_thread.items():
+        if tid in which:
+            continue
+        best, tightest = None, float("inf")
+        for ident, sp in spans.items():
+            if ident == main.ident:
+                continue
+            lengths = []
+            for e in evs:
+                inner = [s[1] - s[0] for s in sp if s[0] <= e["ts"]
+                         and e["ts"] + e.get("dur", 0) <= s[1]]
+                if not inner:
+                    break
+                lengths.append(min(inner))
+            else:
+                med = statistics.median(lengths)
+                if med < tightest:
+                    best, tightest = ident, med
+        if best is not None:
+            which[tid] = best
+    return spans, which
+
+
+def enclosing(spans: dict, which: dict, e: dict):
+    """The innermost tracer span on ``e``'s thread that encloses it, or
+    None."""
+    t0, t1 = e["ts"], e["ts"] + e.get("dur", 0)
+    inner = [s for s in spans.get(which.get(e["tid"]), ())
+             if s[0] <= t0 and t1 <= s[1]]
+    return min(inner, key=lambda s: s[1] - s[0]) if inner else None
+
+
+class LaunchTap:
+    """Stands in for ``ops._build.count_lock`` while (b) runs. Every
+    wrapper takes that lock just where it counts a launch, and nowhere
+    else, so on release the tap records which counter moved and the
+    tracer's current span on the launching thread (the innermost span
+    open there). Unlike the profiler's view, it misses no launch."""
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.taps: list = []
+        self._last = launch_counts()
+
+    def __enter__(self):
+        self.lock.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        from spacemesh_tpu_torch.utils import tracing
+
+        try:
+            now = launch_counts()
+            moved = [k for k in now if now[k] != self._last[k]]
+            self._last = now
+            self.taps.append((moved, tracing.current_id()))
+        finally:
+            self.lock.release()
+        return False
+
+
+def tapped_spans(tap: LaunchTap, doc: dict) -> dict:
+    """{kernel of ``TRACE_KERNELS`` or counter name: [id of the span each
+    launch was made in, None outside every span]}."""
+    known = {e["args"]["id"] for e in doc["traceEvents"]
+             if e.get("ph") == "X"}
+    out: dict = {}
+    for moved, sid in tap.taps:
+        key = moved[0] if len(moved) == 1 else "+".join(moved)
+        kernel = next((n for n, keys in TRACE_KERNELS.items()
+                       if key in keys), key)
+        out.setdefault(kernel, []).append(sid if sid in known else None)
+    return out
+
+
+def span_label(doc: dict, sid: int) -> str:
+    """``name #k under parent``: the span's place among its parent's
+    children of its name (``#k`` counts from 0 in time order)."""
+    spans = {e["args"]["id"]: e for e in doc["traceEvents"]
+             if e.get("ph") == "X"}
+    e = spans[sid]
+    par = e["args"].get("parent")
+    sibs = sorted((x["ts"], i) for i, x in spans.items()
+                  if x["name"] == e["name"] and x["args"].get("parent") == par)
+    k = [i for _, i in sibs].index(sid)
+    where = spans[par]["name"] if par in spans else "no span"
+    return f"{e['name']} #{k} under {where}"
+
+
+def join_kernels(events: list, doc: dict) -> dict:
+    """Each of the paths' kernel events (``TRACE_KERNELS``) joined to its
+    launch through the profiler's launch correlation, and the launch to
+    the innermost host span of the tracer (``doc``) on the launching
+    thread that encloses it. Per kernel: events, joined launches,
+    launches inside a span, and those spans' names and ids."""
+    launches = path_launches(events)
+    spans, which = span_threads(events, doc)
+    out: dict = {}
+    for k in events:
+        if k.get("ph") != "X" or k.get("cat") != "kernel":
+            continue
+        name = next((n for n in TRACE_KERNELS if n in k["name"]), None)
+        if name is None:
+            continue
+        ent = out.setdefault(name, {"events": 0, "joined": 0, "in_span": 0,
+                                    "spans": {}, "ids": []})
+        ent["events"] += 1
+        launch = launches.get((k.get("args") or {}).get("correlation"))
+        if launch is None:
+            continue
+        ent["joined"] += 1
+        span = enclosing(spans, which, launch)
+        if span is not None:
+            ent["in_span"] += 1
+            ent["spans"][span[2]] = ent["spans"].get(span[2], 0) + 1
+            ent["ids"].append(span[3])
+    return out
+
+
+def trace_capture() -> dict:
+    """(b) one capture of init -> prove -> verify (+ one farm request) with
+    the bridge on inside a profiler capture, under the guard."""
+    import asyncio
+
+    import torch
+    from spacemesh_tpu_torch.ops import proving
+    from spacemesh_tpu_torch.post import initializer, prover, verifier
+    from spacemesh_tpu_torch.utils import tracing
+    from spacemesh_tpu_torch.verify.farm import PostRequest, VerificationFarm
+
+    from spacemesh_tpu_torch.ops import _build
+
+    node, commitment, challenge = trace_ids()
+    params = prover.ProofParams()
+    tracing.set_process_identity("chip-smoke")
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with tempfile.TemporaryDirectory(prefix="chip-trace-") as d:
+        GUARD.start()
+        tracing.start(capacity=1 << 17, torch_bridge=True)
+        before = launch_counts()
+        tap = _build.count_lock = LaunchTap(_build.count_lock)
+        t0 = time.perf_counter()
+        try:
+            with prof:
+                clock_marks()
+                meta, _ = initializer.initialize(
+                    d, node_id=node, commitment=commitment, num_units=1,
+                    labels_per_unit=TRACE_LABELS, scrypt_n=N_MAIN,
+                    batch_size=INIT_BATCH, device="cuda")
+                pv = prover.Prover(d, params, batch_labels=PROVE_BATCH,
+                                   device="cuda")
+                proof = pv.prove(challenge)
+                item = verifier.VerifyItem(
+                    proof=proof, challenge=challenge, node_id=node,
+                    commitment=commitment, scrypt_n=N_MAIN,
+                    total_labels=meta.total_labels)
+                with GUARD.paused():
+                    bad = dataclasses.replace(proof,
+                                              indices=list(proof.indices))
+                    bad.indices[0] = replacement_index(
+                        proof, commitment, challenge,
+                        proving.threshold_u32(params.k1, TRACE_LABELS),
+                        TRACE_LABELS)
+                verdicts = verifier.verify_many(
+                    [item, dataclasses.replace(item, proof=bad)], params,
+                    device="cuda")
+
+                async def farm_leg():
+                    farm = VerificationFarm(post_params=params,
+                                            device="cuda")
+                    try:
+                        return await farm.submit(PostRequest(item))
+                    finally:
+                        await farm.aclose()
+
+                farm_ok = asyncio.run(farm_leg())
+                torch.cuda.synchronize()
+                clock_marks()
+        finally:
+            _build.count_lock = tap.lock
+            tracing.stop()
+        wall = time.perf_counter() - t0
+        after = launch_counts()
+        guard = GUARD.stop()
+    require_no_twins(guard, "[trace] capture")
+    require(verdicts == [True, False] and farm_ok, f"[trace] verdicts "
+            f"{verdicts} + farm {farm_ok} == [True, False] + True")
+    doc = tracing.export()
+    problems = tracing.validate(doc)
+    require(problems == [], f"[trace] the capture validates ({problems})")
+    counts: dict = {}
+    for e in doc["traceEvents"]:
+        if e["ph"] in ("X", "i"):
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    missing = [n for n in TRACE_SPANS if n not in counts]
+    require(not missing, f"[trace] every span of the path recorded "
+            f"(missing {missing})")
+    tapped = tapped_spans(tap, doc)
+    require(len(tap.taps) == sum(after[k] - before[k] for k in after),
+            f"[trace] the tap saw every counted launch ({len(tap.taps)})")
+    names = {e["args"]["id"]: e["name"] for e in doc["traceEvents"]
+             if e.get("ph") == "X"}
+    outside = {k: v.count(None) for k, v in tapped.items() if None in v}
+    require(not outside, f"[trace] every kernel launch lies inside a host "
+            f"span (outside: {outside})")
+    t1 = time.perf_counter()
+    events = chrome_trace(prof)
+    joined = join_kernels(events, doc)
+    join_s = time.perf_counter() - t1
+    for name, keys in TRACE_KERNELS.items():
+        ent = joined.get(name)
+        launched = sum(after[k] - before[k] for k in keys)
+        require(launched > 0 and len(tapped.get(name, ())) == launched,
+                f"[trace] the path launched {name} ({launched})")
+        require(ent is not None and ent["events"] > 0,
+                f"[trace] the profiler recorded {name} events")
+        require(ent["joined"] == ent["events"], f"[trace] every {name} "
+                f"event joins a launch by correlation ({ent})")
+        require(ent["in_span"] == ent["events"], f"[trace] every {name} "
+                f"event's launch lies inside a host span ({ent})")
+        seen = collections.Counter(names[sid] for sid in tapped[name])
+        seen.subtract(ent["spans"])
+        require(min(seen.values()) >= 0, f"[trace] the profiler puts each "
+                f"{name} launch in the span the tracer saw it in ({ent})")
+        ent["launches"] = launched
+        missed = collections.Counter(tapped[name])
+        missed.subtract(ent["ids"])
+        ent["missed"] = sorted(span_label(doc, sid)
+                               for sid, v in missed.items() for _ in range(v))
+    log(f"[trace] (b) one capture, bridge on inside torch.profiler: init "
+        f"{TRACE_LABELS} labels -> prove (nonce {proof.nonce}) -> "
+        f"verify_many {verdicts} -> one farm request ({farm_ok}) in "
+        f"{wall:.2f} s; tracing.validate: no problems; "
+        f"{sum(counts.values())} spans: {json.dumps(dict(sorted(counts.items())))}")
+    log("[trace] (b) every kernel launch the wrappers counted, by the "
+        "tracer's span on its thread: " + "; ".join(
+            f"{n} {len(v)} in "
+            f"{json.dumps(collections.Counter(names[i] for i in v), sort_keys=True)}"
+            for n, v in sorted(tapped.items())))
+    log("[trace] (b) kernel events joined to their launch (correlation) and "
+        "the launch to its innermost host span: " + "; ".join(
+            f"{n} {e['in_span']}/{e['events']} of {e['launches']} launches in "
+            f"{json.dumps(e['spans'], sort_keys=True)}"
+            + (f", not recorded by the profiler: {json.dumps(e['missed'])}"
+               if e["missed"] else "")
+            for n, e in sorted(joined.items())) + f" ({join_s:.1f} s)")
+    log("[trace] (b) render_summary(summarize(doc)), top 20:\n"
+        + tracing.render_summary(tracing.summarize(doc, top=20)))
+    return dict(counts=counts, joined=joined)
+
+
+def launch_span_calls(events: list, doc: dict) -> tuple:
+    """The CUDA runtime calls of the threads that launched the path's
+    kernels off the main thread (the farm's backend threads): those inside
+    the ``romix.dispatch`` spans and all of them, each {API name: [calls,
+    us]}, and the us inside the spans in all."""
+    import threading
+
+    spans, which = span_threads(events, doc)
+    main = threading.main_thread().native_id
+    calls: dict = {}
+    on_thread: dict = {}
+    inside_us = 0.0
+    for e in events:
+        if (e.get("ph") != "X" or e.get("cat") not in ("cuda_runtime",
+                                                        "cuda_driver")
+                or e["tid"] == main or e["tid"] not in which):
+            continue
+        c = on_thread.setdefault(e["name"], [0, 0.0])
+        c[0] += 1
+        c[1] += e.get("dur", 0)
+        span = enclosing(spans, which, e)
+        if span is not None and span[2] == "romix.dispatch":
+            c = calls.setdefault(e["name"], [0, 0.0])
+            c[0] += 1
+            c[1] += e.get("dur", 0)
+            inside_us += e.get("dur", 0)
+    return calls, on_thread, inside_us
+
+
+def trace_verifyd(ctx: dict) -> dict:
+    """(c) ``TRACE_POSTS`` of ``[verifyd]``'s proofs through a fresh
+    ``VerifydService`` with the bridge on inside a profiler capture: the
+    request -> drain -> farm.request -> farm.batch linkage, the POST batch
+    broken down by the spans and by the CUDA runtime calls inside the
+    launch span, verdicts == ``[verifyd]``'s serial ones."""
+    import asyncio
+
+    import torch
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.utils import tracing
+    from spacemesh_tpu_torch.verifyd import VerifydService
+
+    v = ctx["verifyd"]
+    posts, serial = v["posts"][:TRACE_POSTS], v["serial"][:TRACE_POSTS]
+    clients = [f"node{c}" for c in range(VERIFYD_CLIENTS)]
+    chunks = [posts[i:i + VERIFYD_REQUEST]
+              for i in range(0, len(posts), VERIFYD_REQUEST)]
+
+    async def go():
+        svc = VerifydService(post_params=prover.ProofParams(),
+                             post_seed=VERIFYD_SEED)
+        try:
+            await svc.start()
+            for c in clients:
+                svc.register_client(c, rate=1e9, burst=1e9)
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(
+                svc.verify(clients[k % len(clients)], c)
+                for k, c in enumerate(chunks)))
+            return got, time.perf_counter() - t0, dict(svc.farm.post_timing)
+        finally:
+            await svc.aclose()
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    GUARD.start()
+    tracing.start(capacity=1 << 17, torch_bridge=True)
+    try:
+        with prof:
+            clock_marks()
+            got, wall, timing = asyncio.run(go())
+            torch.cuda.synchronize()
+            clock_marks()
+    finally:
+        tracing.stop()
+    guard = GUARD.stop()
+    torch.cuda.empty_cache()
+    require_no_twins(guard, "[trace] verifyd under capture")
+    verdicts = [x for part in got for x in part]
+    require(verdicts == serial, "[trace] verifyd under capture: every "
+            "verdict == [verifyd]'s serial inline verdict")
+    doc = tracing.export()
+    problems = tracing.validate(doc)
+    require(problems == [], f"[trace] the verifyd capture validates "
+            f"({problems})")
+    evs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    by_id = {e["args"]["id"]: e for e in evs}
+    named = {}
+    for e in evs:
+        named.setdefault(e["name"], []).append(e)
+
+    def parent(e):
+        return by_id.get(e["args"].get("parent"), {}).get("name")
+
+    reqs = named.get("verifyd.request", [])
+    require(len(reqs) == len(chunks), f"[trace] one verifyd.request span per "
+            f"request ({len(reqs)} of {len(chunks)})")
+    require(all(parent(e) == "verifyd.request"
+                for e in named.get("verifyd.drain", ())),
+            "[trace] verifyd.drain under verifyd.request")
+    fr = named.get("farm.request", [])
+    require(len(fr) == len(posts)
+            and all(parent(e) == "verifyd.drain" for e in fr),
+            "[trace] every farm.request under verifyd.drain")
+    require(all(by_id[e["args"]["batch"]]["name"] == "farm.batch"
+                and e["args"]["id"] in by_id[e["args"]["batch"]]["args"][
+                    "members"] for e in fr),
+            "[trace] every farm.request linked to its farm.batch both ways")
+    batches = [e for e in named["farm.batch"] if e["args"]["kind"] == "post"]
+    nb = len(batches)
+    romix = [e for e in named.get("romix.dispatch", ())
+             if parent(e) == "farm.batch"]
+    require(len(romix) == nb, f"[trace] one romix.dispatch per POST batch "
+            f"under its farm.batch ({len(romix)} of {nb})")
+    waits = [e["args"].get("queue_wait_ms", 0.0) for e in fr]
+    batch_ms = sum(e["dur"] for e in batches) / nb / 1e3
+    launch_ms = sum(e["dur"] for e in romix) / nb / 1e3
+    calls, on_thread, inside_us = launch_span_calls(chrome_trace(prof), doc)
+    annot_us = sum(a["dur"] for a in romix)
+    launched = calls.get("cudaLaunchKernel", [0])[0]
+    require(launched == 3 * nb, f"[trace] the three launches of every POST "
+            f"batch lie inside its romix.dispatch span ({launched} of "
+            f"{3 * nb})")
+    stages = {k: s / nb * 1e3 for k, s in timing.items()}
+    top = sorted(calls.items(), key=lambda kv: -kv[1][1])[:6]
+    thread_top = sorted(on_thread.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"[trace] (c) {len(posts)} of [verifyd]'s proofs ({len(chunks)} "
+        f"requests of {VERIFYD_REQUEST}, {VERIFYD_CLIENTS} clients) through "
+        f"VerifydService under capture in {wall:.3f} s "
+        f"({len(posts) / wall:.0f}/s with the profiler on); verdicts == "
+        f"serial inline; linkage verifyd.request -> verifyd.drain -> "
+        f"farm.request -> farm.batch holds for every request "
+        f"({len(reqs)} requests, {len(fr)} farm requests, {nb} POST batches)")
+    log(f"[trace] (c) per POST batch: farm.batch {batch_ms:.2f} ms host wall; "
+        f"stages (verify_many timing) " + ", ".join(
+            f"{k} {ms:.2f} ms" for k, ms in stages.items())
+        + f"; the launch span romix.dispatch {launch_ms:.2f} ms, of which CUDA"
+        f" runtime calls {inside_us / max(annot_us, 1e-9):.1%} ("
+        + ", ".join(f"{n} x{c} {us / nb / 1e3:.3f} ms" for n, (c, us) in top)
+        + f" per batch) and the rest Python under the interpreter lock; "
+        f"waiting on the card (the hash stage: the kernels' wait and the "
+        f"values' copy) {stages.get('hash', 0.0):.2f} ms; farm queue wait "
+        f"p50 {statistics.median(waits):.2f} ms, max {max(waits):.2f} ms")
+    log(f"[trace] (c) every CUDA runtime call of the farm's backend threads, "
+        f"per POST batch: " + ", ".join(
+            f"{n} x{c / nb:.1f} {us / nb / 1e3:.3f} ms"
+            for n, (c, us) in thread_top)
+        + f"; {sum(us for _, us in on_thread.values()) / nb / 1e3:.2f} ms "
+        f"in all of the batch's {batch_ms:.2f} ms")
+    return dict(batch_ms=batch_ms, launch_ms=launch_ms, stages=stages,
+                runtime_share=inside_us / max(annot_us, 1e-9),
+                calls={n: c for n, c in top})
+
+
+def boot_replicas(n: int) -> list:
+    """``n`` verifyd replicas of the port, each ``python -m
+    spacemesh_tpu_torch.verifyd`` in its own process on the card (mainnet
+    POST parameters), started together; [(process, url)]."""
+    import threading
+
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "spacemesh_tpu_torch.verifyd", "--listen",
+         "127.0.0.1:0", "--workers", "4", "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        cwd=REPO) for _ in range(n)]
+    docs = [{} for _ in procs]
+
+    def read(p, doc):
+        line = p.stdout.readline()
+        if line:
+            doc.update(json.loads(line))
+
+    readers = [threading.Thread(target=read, args=pd, daemon=True)
+               for pd in zip(procs, docs)]
+    for t in readers:
+        t.start()
+    for t in readers:
+        t.join(120)
+    if not all(docs):
+        for p in procs:
+            p.kill()
+        raise RuntimeError("a verifyd replica did not boot in 120 s")
+    return [(p, "http://" + d["listening"]) for p, d in zip(procs, docs)]
+
+
+def trace_fleet(ctx: dict) -> dict:
+    """(d) the fleet trace plane over ``FLEET_REPLICAS`` replicas in their
+    own processes: captures started and pulled over ``/debug/trace``,
+    ``[fleet]``'s requests from ``FLEET_CALLERS`` callers in between, one
+    merged timeline with each replica's role and resolved links."""
+    import asyncio
+
+    from spacemesh_tpu_torch.obs.federate import FEDERATION
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.utils import tracing
+    from spacemesh_tpu_torch.verify.farm import Lane, VerificationFarm
+    from spacemesh_tpu_torch.verifyd import fleet_from_urls
+
+    v = ctx["verifyd"]
+    posts, mix = v["posts"], v["mix"]
+    clients = [tid for tid, _, _ in ctx["tenants"]["ids"]]
+    requests = fleet_requests(posts, mix, clients)
+    t0 = time.perf_counter()
+    replicas = boot_replicas(FLEET_REPLICAS)
+    boot_s = time.perf_counter() - t0
+
+    async def go():
+        local = VerificationFarm(post_params=prover.ProofParams(),
+                                 post_seed=VERIFYD_SEED,
+                                 max_inflight=FLEET_LOCAL_INFLIGHT)
+        fv = fleet_from_urls([u for _, u in replicas], farm=local)
+        try:
+            fv.start()
+            started = await fv.router.start_captures(capacity=1 << 17)
+            tracing.set_process_identity("fleet-parent")
+            tracing.start(capacity=1 << 17, torch_bridge=False)
+            out = [None] * len(requests)
+            nxt = iter(range(len(requests)))
+
+            async def caller():
+                for i in nxt:
+                    cid, reqs, _, _ = requests[i]
+                    out[i] = await fv.verify_batch(reqs, Lane.GOSSIP,
+                                                   client_id=cid)
+
+            t1 = time.perf_counter()
+            await asyncio.gather(*(caller() for _ in range(FLEET_CALLERS)))
+            wall = time.perf_counter() - t1
+            tracing.stop()
+            pulled = await fv.router.pull_captures()
+            merged = fv.router.merged_capture(parent=tracing.export())
+            return started, pulled, merged, out, wall, dict(fv.stats)
+        finally:
+            tracing.stop()
+            await fv.aclose()
+            await local.aclose()
+
+    try:
+        started, pulled, merged, out, wall, stats = asyncio.run(go())
+    finally:
+        for p, _ in replicas:
+            p.terminate()
+        for p, _ in replicas:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+        FEDERATION.clear()
+    post_v, mix_v = [None] * len(posts), [None] * len(mix.requests)
+    for (_, reqs, at, idx), got in zip(requests, out):
+        if at is not None:
+            post_v[at:at + len(reqs)] = got
+        else:
+            for i, x in zip(idx, got):
+                mix_v[i] = x
+    require(post_v == v["serial"] and mix_v == v["mix_inline"],
+            "[trace] (d) every verdict through the replica processes == "
+            "serial inline")
+    names = [f"r{i}" for i in range(FLEET_REPLICAS)]
+    require(sorted(started) == names and all(
+        started[r] and started[r]["role"] == f"replica-{r}" for r in names),
+        f"[trace] a capture started on every replica ({started})")
+    require(sorted(pulled) == [f"replica-{r}" for r in names],
+            f"[trace] every replica's capture pulled ({sorted(pulled)})")
+    for proc, doc in pulled.items():
+        require(doc["otherData"]["proc"]["role"] == proc,
+                f"[trace] {proc} carries its own role")
+    problems = tracing.validate(merged)
+    od = merged["otherData"]
+    roles = [p["role"] for p in od["procs"]]
+    require(problems == [], f"[trace] the merged fleet capture validates "
+            f"({problems})")
+    require(roles == ["fleet-parent"] + [f"replica-{r}" for r in names],
+            f"[trace] one proc per role ({roles})")
+    links = od["links"]
+    summary = tracing.summarize(merged)
+    pairs = summary["cross_proc_links"]["pairs"]
+    remote = stats["remote_ok"]
+    require(links["unresolved"] == 0 and links["resolved"] >= remote,
+            f"[trace] every link token resolved into a cross-replica parent "
+            f"edge ({links}, {remote} remote batches)")
+    require(pairs.get("fleet.remote->verifyd.request", 0) >= remote,
+            f"[trace] fleet.remote -> verifyd.request edges ({pairs})")
+    log(f"[trace] (d) {FLEET_REPLICAS} verifyd replicas in their own "
+        f"processes on the card (booted together in {boot_s:.1f} s); "
+        f"[fleet]'s {len(requests)} requests from {FLEET_CALLERS} callers "
+        f"through fleet_from_urls in {wall:.3f} s "
+        f"({len(posts) / wall:.0f} proofs/s, captures on); verdicts == "
+        f"serial inline; fleet stats {json.dumps(stats)}")
+    log(f"[trace] (d) merged capture validates: procs " + ", ".join(
+        f"{p['role']} {p['captured_spans']} spans" for p in od["procs"])
+        + f"; links {json.dumps(links)}; cross-process edges "
+        f"{json.dumps(pairs)}")
+    return dict(links=links, roles=roles, boot_s=boot_s)
+
+
+def trace_health(ctx: dict) -> dict:
+    """(e) a ``HealthEngine`` with a flight spool over the main path's
+    watchdogs while a prove's window is held on a gate: the ``post.prove``
+    stall flips ``/readyz`` of a verifyd server on the card to 503 and,
+    after the gate opens, back to 200; the stall's flight bundle
+    validates."""
+    import asyncio
+    import threading
+    import urllib.request
+
+    from spacemesh_tpu_torch.obs import flight as flight_mod
+    from spacemesh_tpu_torch.obs import health as health_mod
+    from spacemesh_tpu_torch.post import initializer, prover
+    from spacemesh_tpu_torch.utils import tracing
+    from spacemesh_tpu_torch.verifyd import VerifydServer
+
+    node, commitment, challenge = trace_ids()
+    gate = threading.Event()
+    seen = set()
+    statuses = []
+    with tempfile.TemporaryDirectory(prefix="chip-trace-health-") as d:
+        spool = os.path.join(d, "flight")
+        engine = health_mod.HealthEngine(spool_dir=spool)
+        tracing.set_process_identity("chip-smoke")
+        tracing.start(capacity=1 << 16, torch_bridge=False)
+        stop = threading.Event()
+
+        def ticker():
+            while not stop.is_set():
+                rep = engine.tick()
+                seen.update(rep["components"])
+                stop.wait(0.1)
+
+        tick_thread = threading.Thread(target=ticker, daemon=True)
+        tick_thread.start()
+        try:
+            store = os.path.join(d, "post")
+            initializer.initialize(
+                store, node_id=node, commitment=commitment, num_units=1,
+                labels_per_unit=TRACE_LABELS, scrypt_n=N_MAIN,
+                batch_size=INIT_BATCH, device="cuda")
+            pv = prover.Prover(store, prover.ProofParams(),
+                               batch_labels=PROVE_BATCH, device="cuda")
+            pv.stall_deadline_s = TRACE_STALL_S
+            real_read = pv.store.read_labels
+
+            def gated(start, count):
+                gate.wait(120)
+                return real_read(start, count)
+
+            pv.store.read_labels = gated
+
+            async def go():
+                server = VerifydServer()
+                server.health_engine.interval_s = 0.25
+                port = await server.start()
+                url = f"http://127.0.0.1:{port}/readyz"
+
+                def readyz():
+                    try:
+                        with urllib.request.urlopen(url, timeout=10) as r:
+                            return r.status, json.loads(r.read())
+                    except urllib.error.HTTPError as e:
+                        return e.code, json.loads(e.read())
+
+                try:
+                    prove = asyncio.ensure_future(
+                        asyncio.to_thread(pv.prove, challenge))
+                    t0 = time.perf_counter()
+                    while time.perf_counter() - t0 < 60:
+                        status, doc = await asyncio.to_thread(readyz)
+                        statuses.append(status)
+                        if status == 503:
+                            reason = doc["components"]["post.prove"]
+                            break
+                        await asyncio.sleep(0.25)
+                    else:
+                        raise RuntimeError("check failed: /readyz never "
+                                           "went 503 during the stall")
+                    flipped = time.perf_counter() - t0
+                    gate.set()
+                    proof = await prove
+                    t1 = time.perf_counter()
+                    while time.perf_counter() - t1 < 60:
+                        status, _ = await asyncio.to_thread(readyz)
+                        statuses.append(status)
+                        if status == 200:
+                            break
+                        await asyncio.sleep(0.25)
+                    return (proof, reason, flipped,
+                            time.perf_counter() - t1)
+                finally:
+                    gate.set()
+                    await server.close()
+
+            proof, reason, flipped_s, back_s = asyncio.run(go())
+        finally:
+            gate.set()
+            stop.set()
+            tick_thread.join(10)
+            tracing.stop()
+        require(statuses[-1] == 200, f"[trace] /readyz back to 200 after "
+                f"the gate opened ({statuses})")
+        require("stalled" in reason["reason"], f"[trace] the post.prove "
+                f"reason names the stall ({reason})")
+        want = {"post.init", "post.writer", "post.store", "post.prove"}
+        require(want <= seen, f"[trace] the engine watched the main path's "
+                f"probes ({sorted(seen)})")
+        bundles = engine.recorder.bundles()
+        require(bundles, "[trace] the stall spooled a flight bundle")
+        bundle = flight_mod.read_bundle(bundles[-1])  # validates trace.json
+        require("stall:post.prove" in bundle["manifest"]["reason"],
+                f"[trace] the bundle's reason ({bundle['manifest']['reason']})")
+        names = {e["name"] for e in bundle["trace"]["traceEvents"]}
+        # spans record when they end: the stalled window's are still open
+        require({"init.run", "init.dispatch", "prove.k2pow"} <= names,
+                "[trace] the bundle's trace holds the path's spans")
+        files = sorted(os.listdir(bundles[-1]))
+        log(f"[trace] (e) HealthEngine over {sorted(seen)}: a prove's window "
+            f"held on a gate with a {TRACE_STALL_S:.0f} s watchdog deadline; "
+            f"verifyd /readyz on the card went 503 after {flipped_s:.2f} s "
+            f"({reason['reason']}), and 200 again {back_s:.2f} s after the "
+            f"gate opened (nonce {proof.nonce}; statuses {statuses}); flight "
+            f"bundle {os.path.basename(bundles[-1])} ({', '.join(files)}) "
+            f"validates: reason {bundle['manifest']['reason']!r}, "
+            f"{len(bundle['trace']['traceEvents'])} trace events, "
+            f"{bundle['metrics_samples']} metric samples")
+    return dict(flipped_s=flipped_s, back_s=back_s)
+
+
+def trace_sanitize(ctx: dict) -> dict:
+    """(f) the ``[tenants]`` and ``[verifyd]`` share of ``[trace]`` with the
+    sanitizers armed (race, registry-thread, slow-callback) before the
+    objects are built: a packed init of ``SANITIZE_TENANTS`` identities,
+    their proves and k2pow searches through the scheduler, and
+    ``SANITIZE_POSTS`` of ``[verifyd]``'s proofs through a fresh service."""
+    import asyncio
+
+    import torch
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.runtime import TenantScheduler
+    from spacemesh_tpu_torch.utils import metrics, sanitize
+    from spacemesh_tpu_torch.verifyd import VerifydService
+
+    v = ctx["verifyd"]
+    posts, serial = v["posts"][:SANITIZE_POSTS], v["serial"][:SANITIZE_POSTS]
+    ids = tenant_ids(b"sanitize")[:SANITIZE_TENANTS]
+    params = prover.ProofParams()
+    sanitize.clear_violations()
+    sanitize.enable(modes=["race", "registry-thread", "slow-callback"])
+    t0 = time.perf_counter()
+    try:
+        GUARD.start()
+        with tempfile.TemporaryDirectory(prefix="chip-trace-san-") as d:
+            with TenantScheduler(device="cuda") as sched:
+                require(isinstance(sched._lock, sanitize.TrackedLock),
+                        "[trace] the scheduler's lock is tracked")
+                for tid, _, _ in ids:
+                    sched.register_tenant(tid)
+                metas = [h.result(timeout=600)
+                         for h in submit_inits(sched, d, ids, TENANT_LABELS)]
+                proofs = [h.result(timeout=600) for h in [
+                    sched.submit_prove(tid, os.path.join(d, tid),
+                                       ctx["tenants"]["challenge"], params)
+                    for tid, _, _ in ids]]
+                pows = [h.result(timeout=600) for h in [
+                    sched.submit_pow(tid, ctx["tenants"]["challenge"], node,
+                                     params.pow_difficulty)
+                    for tid, node, _ in ids]]
+                for tid, _, _ in ids:
+                    sched.unregister_tenant(tid)
+
+        async def go():
+            svc = VerifydService(post_params=params, post_seed=VERIFYD_SEED)
+            try:
+                await svc.start()
+                for c in range(VERIFYD_CLIENTS):
+                    svc.register_client(f"node{c}", rate=1e9, burst=1e9)
+                got = await asyncio.gather(*(
+                    svc.verify(f"node{k % VERIFYD_CLIENTS}",
+                               posts[i:i + VERIFYD_REQUEST])
+                    for k, i in enumerate(range(0, len(posts),
+                                                VERIFYD_REQUEST))))
+                return [x for part in got for x in part]
+            finally:
+                await svc.aclose()
+
+        verdicts = asyncio.run(go())
+        torch.cuda.synchronize()
+        guard = GUARD.stop()
+    finally:
+        sanitize.disable()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    found = sanitize.violations()
+    sanitize.clear_violations()
+    require_no_twins(guard, "[trace] sanitized tenants and verifyd")
+    require(all(m.labels_written == TENANT_LABELS for m in metas)
+            and all(p is not None for p in proofs)
+            and all(p is not None for p in pows),
+            "[trace] the sanitized scheduler run finished every job")
+    require(verdicts == serial, "[trace] sanitized verifyd: every verdict "
+            "== serial inline")
+    kinds: dict = {}
+    for x in found:
+        kinds[x.kind] = kinds.get(x.kind, 0) + 1
+    fatal = [x for x in found if x.kind != sanitize.KIND_SLOW]
+    require(not fatal, "[trace] no race/registry-thread violation: " + "; ".join(
+        f"{x.kind}: {x.detail} [{x.stack}]" for x in fatal[:5]))
+    slow = [x for x in found if x.kind == sanitize.KIND_SLOW]
+    log(f"[trace] (f) sanitizers race + registry-thread + slow-callback "
+        f"armed: {SANITIZE_TENANTS} identities x {TENANT_LABELS} labels of "
+        f"packed init, {len(proofs)} proves and {len(pows)} k2pow through "
+        f"TenantScheduler, {len(posts)} of [verifyd]'s proofs through "
+        f"VerifydService (verdicts == serial) in {secs:.1f} s: violations "
+        f"{json.dumps(kinds)}; 0 race, 0 lock-order, 0 registry-thread; "
+        f"slow-callback {len(slow)}"
+        + (f" (longest {max(x.seconds for x in slow) * 1e3:.0f} ms: "
+           f"{max(slow, key=lambda x: x.seconds).detail[:160]})"
+           if slow else ""))
+    return dict(violations=kinds, slow=len(slow))
+
+
+def runtime_fallbacks() -> float:
+    from spacemesh_tpu_torch.utils import metrics
+
+    return sum(metrics.runtime_fallbacks.sample().values())
+
+
+def phase_trace(ctx: dict) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    parts = {}
+    for key, fn in (("cost", lambda: trace_cost()),
+                    ("capture", lambda: trace_capture()),
+                    ("verifyd", lambda: trace_verifyd(ctx)),
+                    ("fleet", lambda: trace_fleet(ctx)),
+                    ("health", lambda: trace_health(ctx)),
+                    ("sanitize", lambda: trace_sanitize(ctx))):
+        t0 = time.perf_counter()
+        parts[key] = fn()
+        parts[key]["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    fallbacks = runtime_fallbacks()
+    require(fallbacks == 0, f"runtime_fallbacks_total reads 0 on every path "
+            f"({fallbacks})")
+    log(f"[trace] runtime_fallbacks_total {fallbacks:.0f} over every path "
+        f"of the run; phase {time.perf_counter() - t_phase:.1f} s (" + ", ".join(
+            f"{k} {p['s']:.1f} s" for k, p in parts.items()) + ")")
+    log(f"[trace] {ctx['smi']}")
+    ctx["trace"] = parts
+
+
 def path_twins(widest: dict) -> dict:
     """The verify path's kernels against their plain twins at the
     ``[verifyd]`` path's two shapes, on the widest farm recompute's real
@@ -2600,6 +3608,7 @@ def main() -> int:
     phase_tenants(ctx)
     phase_verifyd(ctx)
     phase_fleet(ctx)
+    phase_trace(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
              "scan": {"full_width": {k: ctx["scan_full"][k] for k in (

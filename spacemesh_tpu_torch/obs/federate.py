@@ -1,24 +1,25 @@
-"""Fleet-wide observability: the metric half of the cross-process
-collection plane (port of ``spacemesh_tpu/obs/federate.py``).
+"""Fleet-wide observability: the cross-process collection plane (port of
+``spacemesh_tpu/obs/federate.py``).
 
-Children ship full registry snapshots (``Registry.sample()``, or
-Prometheus exposition text over HTTP, as a verifyd replica's
-``/metrics`` gives it) and the parent re-exposes every series under a
-``proc=`` label with strict cardinality hygiene:
-``FEDERATION.drop(proc)`` removes a process's entire snapshot the moment
-it exits or unregisters (the verifyd fleet's ``unregister_replica`` drops
-``replica-<name>``), while a CRASHED process's last snapshot is retained
-and flagged so its final counters survive for forensics.
+* **Metrics**: children ship full registry snapshots
+  (``Registry.sample()``, or Prometheus exposition text over HTTP, as a
+  verifyd replica's ``/metrics`` gives it) and the parent re-exposes
+  every series under a ``proc=`` label with strict cardinality hygiene:
+  ``FEDERATION.drop(proc)`` removes a process's entire snapshot the
+  moment it exits or unregisters (the verifyd fleet's
+  ``unregister_replica`` drops ``replica-<name>``), while a CRASHED
+  process's last snapshot is retained and flagged so its final counters
+  survive for forensics.
+* **Traces**: capture documents collected here (the fleet router's
+  ``pull_captures``) feed ``tracing.merge_captures()`` into one validated
+  timeline (:meth:`Federation.merged_capture`); the per-proc trace and
+  metrics pairs also land in flight bundles' ``procs/`` subdir
+  (obs/flight.py).
 
 The exposition parser is the STRICT escape-aware one: label values in
 the wild carry quotes, backslashes and newlines (peer ids, error
 reasons), and a sloppy regex split corrupts exactly the scrape you
 need during an incident.
-
-Each entry keeps a slot for the process's trace capture, as in the JAX
-package; merging captures into one timeline (``merged_capture``,
-``tracing.merge_captures``) and the flight-bundle payloads wait for the
-port's instrumentation item.
 """
 
 from __future__ import annotations
@@ -210,6 +211,24 @@ class Federation:
             ent = self._procs.get(proc)
             return ent["trace"] if ent else None
 
+    def captures(self) -> dict[str, dict]:
+        """{proc: trace export doc} for every proc that shipped one —
+        the input half of ``tracing.merge_captures()``."""
+        with self._lock:
+            return {p: e["trace"] for p, e in self._procs.items()
+                    if e["trace"] is not None}
+
+    def flight_procs(self) -> dict[str, dict]:
+        """Per-proc payloads for a flight bundle's ``procs/`` subdir:
+        {proc: {"trace": doc|None, "metrics": exposition text,
+        "crashed": bool}}."""
+        with self._lock:
+            items = [(p, dict(e)) for p, e in self._procs.items()]
+        return {p: {"trace": e["trace"],
+                    "metrics": self._expose_proc(p, e),
+                    "crashed": e["crashed"]}
+                for p, e in items}
+
     @staticmethod
     def _expose_proc(proc: str, ent: dict) -> str:
         lines = []
@@ -237,6 +256,18 @@ class Federation:
             if chunk:
                 lines.append(chunk.rstrip("\n"))
         return "\n".join(lines) + ("\n" if lines else "")
+
+    def merged_capture(self, parent: dict | None = None) -> dict | None:
+        """Merge the parent's capture (if given) with every federated
+        child capture into one timeline; None when nothing federated
+        and no parent given."""
+        from ..utils import tracing
+
+        captures = [] if parent is None else [parent]
+        captures.extend(doc for _, doc in sorted(self.captures().items()))
+        if not captures:
+            return None
+        return tracing.merge_captures(captures)
 
 
 FEDERATION = Federation()

@@ -12,7 +12,10 @@ kernel on the card (``ops/pow_cuda.py:search_window``), which hashes block
 smallest winner; retire reads that 8-byte cell. Batched verification is
 one launch of the verify kernel per batch. On the CPU both run the plain
 twins. A device error raises: the JAX package's host re-hash on a failed
-dispatch is not carried over. The single :func:`verify` and batches below
+dispatch (its engine ``fallback=``) is not carried over, on purpose: on
+the card it would hide a failing kernel behind the plain twin. Each
+launch runs inside the engine's ``pow.dispatch`` / ``pow_verify.dispatch``
+span. The single :func:`verify` and batches below
 ``min_device`` items use hashlib, as in the JAX package.
 """
 
@@ -101,7 +104,8 @@ def search(challenge: bytes, node_id: bytes, difficulty: bytes,
         best = pow_cuda.cell_value(cell.get())
         return best if lo <= best < lo + n else None
 
-    pipe = engine.Pipeline(kind="k2pow", tenant=tenant, inflight=inflight)
+    pipe = engine.Pipeline(kind="k2pow", tenant=tenant, inflight=inflight,
+                           span="pow")
     return pipe.run(windows(), dispatch, retire)
 
 
@@ -169,7 +173,7 @@ def verify_many(items: list, *, batch: int = 1 << 12, inflight: int = 2,
         return None
 
     pipe = engine.Pipeline(kind="k2pow_verify", tenant=tenant,
-                           inflight=inflight)
+                           inflight=inflight, span="pow_verify")
     pipe.run(((i, min(i + batch, n)) for i in range(0, n, batch)),
              dispatch, retire)
     return results.tolist()

@@ -15,7 +15,12 @@ epilogue instead.
 Block state is (32, B) int32 bit patterns, lanes trailing, as in the JAX
 package. The JAX package's autotune plan and chunked/row ROMix variants
 exist for XLA's per-shape compiles and the TPU race; this port has
-neither, and ragged batches run at their own size.
+neither, and ragged batches run at their own size (so the sanitizer's
+``jit-shape`` hook has no call site here).
+
+Each batch's launches run inside a ``romix.dispatch`` span (the enqueue;
+the kernels' device time shows in a ``torch.profiler`` capture, which the
+``SPACEMESH_TRACE_TORCH`` bridge lines the spans up against).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import pbkdf2_cuda, romix_cuda, u32
 from .romix_cuda import check_n as _check_n
 from .romix_cuda import romix_r1  # noqa: F401  (the plain ROMix, re-exported)
@@ -33,14 +39,21 @@ from .u32 import flip, s32
 LABEL_BYTES = 16  # reference: 16-byte labels, 2^32 per 64 GiB unit
 
 
+def _dispatch_span(n: int, idx_lo, **attrs):
+    return tracing.span("romix.dispatch",
+                        {"n": n, "batch": int(idx_lo.shape[0]), **attrs}
+                        if tracing.is_enabled() else None)
+
+
 def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *,
                         n: int) -> torch.Tensor:
     """Labels for (B,) index halves -> (4, B) int32 BE words (batch minor);
     the port of ``scrypt_labels_jit``. Runs on the inputs' device: on the
     card, as three kernel launches."""
-    blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
-    blk = romix_cuda.romix(blk, n)
-    return pbkdf2_cuda.finish(commitment_words, blk)
+    with _dispatch_span(n, idx_lo):
+        blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
+        blk = romix_cuda.romix(blk, n)
+        return pbkdf2_cuda.finish(commitment_words, blk)
 
 
 def scrypt_labels_hash(commitment_words, idx_lo, idx_hi, challenge_words,
@@ -52,11 +65,12 @@ def scrypt_labels_hash(commitment_words, idx_lo, idx_hi, challenge_words,
     hash as its epilogue (``ops/pbkdf2_cuda.py:finish_hash``).
     ``challenge_words`` and ``nonce`` as ``ops/proving_cuda.py``'s
     proving hash takes them."""
-    blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
-    blk = romix_cuda.romix(blk, n)
-    return pbkdf2_cuda.finish_hash(commitment_words, blk, challenge_words,
-                                   nonce, idx_lo, idx_hi,
-                                   words_out=words_out)
+    with _dispatch_span(n, idx_lo, hash=True):
+        blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
+        blk = romix_cuda.romix(blk, n)
+        return pbkdf2_cuda.finish_hash(commitment_words, blk,
+                                       challenge_words, nonce, idx_lo,
+                                       idx_hi, words_out=words_out)
 
 
 def scrypt_labels_packed(commitment_words, idx_lo, idx_hi, *,

@@ -15,10 +15,11 @@ byte-identical, so a store written by either package opens in the other:
   pipeline at exact operation counts;
 * ENOSPC in the writer pool parks instead of failing: the pool retries on
   an interval, ``LabelWriter.degraded()`` says why, and the init resumes
-  when space returns.
-
-Left out against the JAX package: the race sanitizer's hooks and the
-tracing spans.
+  when space returns;
+* the writer's cursors, the reader's state and the store's fd cache are
+  declared shared to the race sanitizer (``utils/sanitize.py``); the pool
+  threads record ``init.write`` / ``prove.read_io`` spans under the
+  submitting side's span, and reopen records ``init.recover``.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import zlib
 from pathlib import Path
 
 from ..ops.scrypt import LABEL_BYTES
-from ..utils import fsio, metrics
+from ..utils import fsio, metrics, sanitize, tracing
 
 METADATA_FILE = "postdata_metadata.json"
 
@@ -119,7 +120,7 @@ class LabelStore:
         self.meta = meta
         self.fs = fs if fs is not None else fsio.REAL
         self.dir.mkdir(parents=True, exist_ok=True)
-        self._fd_lock = threading.Lock()
+        self._fd_lock = sanitize.lock("post.data.LabelStore.fds")
         self._read_fds: dict[int, int] = {}
         self._dirty: set[int] = set()  # file indices written, not fsynced
 
@@ -286,8 +287,13 @@ class LabelWriter:
         self.enospc_wait = enospc_wait
         self.enospc_retry_s = enospc_retry_s
         self._q: queue.Queue = queue.Queue(maxsize=max(queue_depth, 1))
-        self._lock = threading.Lock()
-        self._idle = threading.Condition(self._lock)
+        self._lock = sanitize.lock("post.data.LabelWriter")
+        self._idle = sanitize.condition("post.data.LabelWriter.idle",
+                                        self._lock)
+        # the cursors and their completion map are declared shared to the
+        # lockset sanitizer: the dispatch thread, the pool threads and the
+        # watchdog all meet here, always under _lock
+        self._shared = sanitize.SharedField("post.data.LabelWriter.cursor")
         self._done: dict[int, tuple[int, bytes]] = {}  # start -> (end, bytes)
         self._flushed = store.meta.labels_written
         self._durable = store.meta.labels_written
@@ -314,41 +320,57 @@ class LabelWriter:
         attempts, so a dead pool cannot deadlock it."""
         self._raise_if_failed()
         with self._lock:
+            self._shared.touch()
             if self._closed:
                 raise RuntimeError("writer is closed")
             self._inflight += 1
         self.labels_submitted += len(labels) // LABEL_BYTES
+        # pool threads are long-lived and cannot inherit the submitter's
+        # contextvars; the span parent rides along with the work item
+        item = (start_index, labels, tracing.current_id())
         while True:
             try:
-                self._q.put((start_index, labels), timeout=0.2)
+                self._q.put(item, timeout=0.2)
                 return
             except queue.Full:
                 try:
                     self._raise_if_failed()
                 except LabelWriteError:
                     with self._lock:
+                        self._shared.touch()
                         self._inflight -= 1
                     raise
 
     def flushed(self) -> int:
         """Label index up to which every label was handed to the OS."""
         with self._lock:
+            self._shared.touch()
             return self._flushed
 
     def durable(self) -> int:
         """Label index up to which every label is fsynced."""
         with self._lock:
+            self._shared.touch()
             return self._durable
+
+    def pending(self) -> int:
+        """Writes submitted but not yet on disk: the stall watchdog's
+        activity gate (``obs/health.py:writer_watchdog``)."""
+        with self._lock:
+            self._shared.touch(write=False)
+            return self._inflight
 
     def degraded(self) -> str | None:
         """Why the pool is parked (ENOSPC), or None while healthy."""
         with self._lock:
+            self._shared.touch()
             return self._degraded
 
     def kick(self) -> None:
         """Wake a parked ENOSPC retry now (the operator's "space is
         free" signal, and tests)."""
         with self._idle:
+            self._shared.touch()
             self._idle.notify_all()
 
     def wait_for_space(self, what: str) -> None:
@@ -357,6 +379,7 @@ class LabelWriter:
         :meth:`kick`. The pool's writes park here, and the initializer's
         checkpoint and metadata saves too."""
         with self._idle:
+            self._shared.touch()
             if self._closed:
                 raise LabelWriteError("writer closed while waiting "
                                       "for disk space",
@@ -368,6 +391,7 @@ class LabelWriter:
 
     def clear_degraded(self) -> None:
         with self._idle:
+            self._shared.touch()
             was = self._degraded is not None
             self._degraded = None
         if was:
@@ -379,6 +403,7 @@ class LabelWriter:
         parked while the fsync runs, so the CRC cut lands exactly at the
         durable cursor."""
         with self._lock:
+            self._shared.touch()
             self._ckpt_active = True
             f = self._flushed
             crc = self._crc
@@ -386,11 +411,13 @@ class LabelWriter:
             self.store.sync()
         except BaseException:
             with self._idle:
+                self._shared.touch()
                 self._ckpt_active = False
                 self._advance_locked()
                 self._idle.notify_all()
             raise
         with self._idle:
+            self._shared.touch()
             self._durable = f
             self._crc = 0
             self._ckpt_active = False
@@ -402,10 +429,12 @@ class LabelWriter:
         """Block until every submitted write is durably on disk. Does not
         cut the checkpoint CRC interval."""
         with self._idle:
+            self._shared.touch()
             while self._inflight > 0 and self._error is None:
                 self._idle.wait(timeout=0.1)
         self._raise_if_failed()
         with self._lock:
+            self._shared.touch()
             f = self._flushed
         while True:
             try:
@@ -417,11 +446,13 @@ class LabelWriter:
                 self.wait_for_space("label fsync at drain")
         self.clear_degraded()
         with self._lock:
+            self._shared.touch()
             self._durable = f
 
     def close(self, drain: bool = True) -> None:
         try:
             with self._lock:
+                self._shared.touch()
                 if self._closed:
                     return
                 failed = self._error is not None
@@ -431,6 +462,7 @@ class LabelWriter:
             # a worker parked on ENOSPC is kicked awake (it sees _closed
             # and fails), so a full queue makes room for the sentinels
             with self._lock:
+                self._shared.touch()
                 self._closed = True
             self.kick()
             for _ in self._threads:
@@ -445,6 +477,7 @@ class LabelWriter:
 
     def _raise_if_failed(self) -> None:
         with self._lock:
+            self._shared.touch()
             error = self._error
         if error is not None:
             raise LabelWriteError(
@@ -469,12 +502,18 @@ class LabelWriter:
             item = self._q.get()
             if item is self._STOP:
                 return
-            start, labels = item
+            start, labels, parent = item
             t0 = time.perf_counter()
             try:
-                self._write_with_enospc_wait(start, labels)
+                with tracing.span("init.write",
+                                  {"start": start,
+                                   "labels": len(labels) // LABEL_BYTES}
+                                  if tracing.is_enabled() else None,
+                                  parent=parent):
+                    self._write_with_enospc_wait(start, labels)
             except BaseException as e:  # noqa: BLE001 — surfaced to caller
                 with self._idle:
+                    self._shared.touch()
                     if self._error is None:
                         self._error = e
                     self._inflight -= 1
@@ -482,6 +521,7 @@ class LabelWriter:
                 continue
             count = len(labels) // LABEL_BYTES
             with self._idle:
+                self._shared.touch()
                 self.write_seconds += time.perf_counter() - t0
                 self._done[start] = (start + count, labels)
                 self._advance_locked()
@@ -512,7 +552,11 @@ class LabelReader:
                  depth: int = 4):
         self.store = store
         self.ranges: list[tuple[int, int]] = list(ranges)
-        self._cond = threading.Condition()
+        # pool threads cannot inherit contextvars; reads parent under the
+        # span that planned the pass (the prover's window span)
+        self._trace_parent = tracing.current_id()
+        self._cond = sanitize.condition("post.data.LabelReader")
+        self._shared = sanitize.SharedField("post.data.LabelReader.state")
         self._results: dict[int, bytes] = {}
         self._claim = 0          # next plan slot a worker may take
         self._consume = 0        # next plan slot get() returns
@@ -531,6 +575,7 @@ class LabelReader:
         """Bytes of the next range in plan order; blocks until read. A
         background failure surfaces on the first range actually missing."""
         with self._cond:
+            self._shared.touch()
             while (self._consume not in self._results
                    and self._error is None):
                 if self._consume >= len(self.ranges):
@@ -548,6 +593,7 @@ class LabelReader:
     def close(self) -> None:
         """Stop the pool; safe mid-plan (an early exit drops reads)."""
         with self._cond:
+            self._shared.touch()
             self._closed = True
             self._cond.notify_all()
         for t in self._threads:
@@ -556,6 +602,7 @@ class LabelReader:
     def _worker(self) -> None:
         while True:
             with self._cond:
+                self._shared.touch()
                 while (not self._closed and self._error is None
                        and (self._budget <= 0
                             or self._claim >= len(self.ranges))):
@@ -570,14 +617,20 @@ class LabelReader:
             start, count = self.ranges[slot]
             t0 = time.perf_counter()
             try:
-                data = self.store.read_labels(start, count)
+                with tracing.span("prove.read_io",
+                                  {"start": start, "count": count}
+                                  if tracing.is_enabled() else None,
+                                  parent=self._trace_parent):
+                    data = self.store.read_labels(start, count)
             except BaseException as e:  # noqa: BLE001 — surfaced via get()
                 with self._cond:
+                    self._shared.touch()
                     if self._error is None:
                         self._error = e
                     self._cond.notify_all()
                 return
             with self._cond:
+                self._shared.touch()
                 self.read_seconds += time.perf_counter() - t0
                 self._results[slot] = data
                 self._cond.notify_all()
@@ -644,10 +697,14 @@ def recover_store(data_dir: str | Path, meta: PostMetadata,
        past it, fsync what was touched.
     4. Persist the repaired metadata.
 
-    Repairs count in the ``post_store_recovery_*`` metrics.
+    Repairs count in the ``post_store_recovery_*`` metrics; the pass is
+    an ``init.recover`` span.
     """
     st = LabelStore(data_dir, meta, fs=fs)
     report = RecoveryReport()
+    span = tracing.span("init.recover", {"dir": str(data_dir)}
+                        if tracing.is_enabled() else None)
+    span.__enter__()
     try:
         total = meta.total_labels
         lpf = meta.labels_per_file
@@ -726,4 +783,5 @@ def recover_store(data_dir: str | Path, meta: PostMetadata,
                 report.intervals_dropped)
         return report
     finally:
+        span.__exit__(None, None, None)
         st.close()

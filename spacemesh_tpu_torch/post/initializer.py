@@ -27,10 +27,18 @@ it.
 multi-tenant scheduler's packed init (``runtime/scheduler.py``) shares
 :func:`open_or_create_meta` with this module.
 
+While a session runs, three probes sit on ``obs.health.HEALTH``:
+``post.init`` (the fetch frontier must advance within
+:data:`STALL_DEADLINE_S`), ``post.writer`` (the writer's flushed/durable
+cursors) and ``post.store`` (ENOSPC parking), with ``restart_component``
+hooks that stop the session. The spans are the JAX package's:
+``init.run``, ``init.dispatch`` (the engine's), ``init.fetch``,
+``init.write_stall``, ``init.write`` (writer threads, parented across the
+pool), ``init.drain_stall`` and ``init.save_meta``.
+
 Left out against the JAX package: the device mesh, the autotuned kernel
-plan, the ``writer_queue`` option (no caller sets it:
-the queue depth is :data:`DEFAULT_WRITER_QUEUE`), and the health,
-remediation, pipeline-metrics and tracing hooks.
+plan, the ``writer_queue`` option (no caller sets it: the queue depth is
+:data:`DEFAULT_WRITER_QUEUE`), and the ``post_pipeline_*`` metrics.
 """
 
 from __future__ import annotations
@@ -46,8 +54,11 @@ from typing import Callable
 import numpy as np
 
 from ..device import HostCopy, resolve
+from ..obs import health as health_mod
+from ..obs import remediate as remediate_mod
 from ..ops import scrypt, u32
 from ..runtime import engine
+from ..utils import metrics, tracing
 from .data import LabelStore, LabelWriter, PostMetadata, recover_store
 
 # labels per device batch: ROMix scratch is batch * N * 128 bytes, 32 GiB
@@ -59,6 +70,8 @@ DEFAULT_WRITER_QUEUE = 8  # pending writes before dispatch backpressure
 # metadata is rewritten when either interval has passed since the last save
 META_INTERVAL_S = 5.0
 META_INTERVAL_LABELS = 1 << 20
+# the init and writer watchdogs' deadline (obs/health.py)
+STALL_DEADLINE_S = 30.0
 
 
 class Status(enum.Enum):
@@ -136,6 +149,7 @@ class Initializer:
             else meta_interval_labels)
         self.enospc_retry_s = enospc_retry_s
         self.save_barrier = save_barrier
+        self._fetched = meta.labels_written  # fetch frontier (watchdog)
         self._resume_at = meta.labels_written  # submit-frontier base
         self.status = (Status.COMPLETE
                        if meta.labels_written >= meta.total_labels
@@ -174,6 +188,34 @@ class Initializer:
             enospc_retry_s=self.enospc_retry_s)
         self._last_save_t = time.monotonic()
         self._last_save_labels = written0
+        # liveness: the fetch frontier and the writer's cursors must keep
+        # advancing while the session runs; an ENOSPC park is post.store's
+        # DEGRADED verdict, not an init stall, so it pauses the init probe
+        init_wd = health_mod.Watchdog(
+            "post.init", progress=lambda: self._fetched,
+            deadline_s=STALL_DEADLINE_S,
+            active=lambda: (self.status == Status.IN_PROGRESS
+                            and not writer.degraded()))
+        writer_wd = health_mod.writer_watchdog(writer,
+                                               deadline_s=STALL_DEADLINE_S)
+        store_probe = health_mod.store_probe(writer)
+        health_mod.HEALTH.register("post.init", init_wd.check)
+        health_mod.HEALTH.register("post.writer", writer_wd.check)
+        health_mod.HEALTH.register("post.store", store_probe)
+        # a stalled-init verdict stops the session: init resumes from the
+        # durable cursor, so a clean stop hands the restart to the owner
+        remediate_mod.ACTIONS.register("post.init",
+                                       remediate_mod.RESTART_COMPONENT,
+                                       self.stop)
+        remediate_mod.ACTIONS.register("post.writer",
+                                       remediate_mod.RESTART_COMPONENT,
+                                       self.stop)
+        session = tracing.span("init.run",
+                               {"total": total, "resume_at": written0,
+                                "batch": self.batch, "devices": 1,
+                                "tenant": self.tenant}
+                               if tracing.is_enabled() else None)
+        session.__enter__()
 
         def batches():
             dispatched = written0
@@ -196,23 +238,35 @@ class Initializer:
             self._maybe_save(writer, stats)
             return None
 
-        pipe = engine.Pipeline(kind="init", tenant=self.tenant,
-                               inflight=self.inflight,
-                               stop=lambda: self._stop)
+        pipe = engine.Pipeline(
+            kind="init", tenant=self.tenant, inflight=self.inflight,
+            stop=lambda: self._stop, span="init",
+            attrs=lambda item: {"start": item[0], "count": item[1]})
         try:
             pipe.run(batches(), dispatch, retire)
             if pipe.stats.stopped:
                 self.status = Status.STOPPED
             tw = time.perf_counter()
-            writer.drain()
+            with tracing.span("init.drain_stall"):
+                writer.drain()
             stats.write_stall_s += time.perf_counter() - tw
             self._save_meta(writer, stats)
         finally:
+            session.__exit__(None, None, None)
             stats.batches = pipe.stats.batches
             stats.dispatch_s = pipe.stats.dispatch_s
             stats.first_dispatch_s = pipe.stats.first_dispatch_s
             stats.write_s = writer.write_seconds
             writer.close(drain=False)
+            health_mod.HEALTH.unregister("post.init", init_wd.check)
+            health_mod.HEALTH.unregister("post.writer", writer_wd.check)
+            health_mod.HEALTH.unregister("post.store", store_probe)
+            remediate_mod.ACTIONS.unregister(
+                "post.init", remediate_mod.RESTART_COMPONENT, self.stop)
+            remediate_mod.ACTIONS.unregister(
+                "post.writer", remediate_mod.RESTART_COMPONENT, self.stop)
+            # clears the degraded gauge only if this session's writer set
+            # it (the gauge is process-global)
             writer.clear_degraded()
 
         if meta.labels_written >= total:
@@ -230,14 +284,19 @@ class Initializer:
     def _retire(self, item, writer: LabelWriter, stats: PipelineStats) -> None:
         """Fetch the oldest in-flight batch and hand it to the writers."""
         start, count, words, snap = item
-        tf = time.perf_counter()
-        data = scrypt.labels_to_bytes(words.get())  # waits for this batch
-        self._snapshot = u32.to_numpy(snap.get())
-        ts = time.perf_counter()
-        writer.submit(start, data)
-        stall = time.perf_counter() - ts
+        with tracing.span("init.fetch", {"start": start, "count": count}
+                          if tracing.is_enabled() else None):
+            tf = time.perf_counter()
+            data = scrypt.labels_to_bytes(words.get())  # waits for it
+            self._snapshot = u32.to_numpy(snap.get())
+            ts = time.perf_counter()
+            with tracing.span("init.write_stall"):
+                writer.submit(start, data)
+            stall = time.perf_counter() - ts
         stats.fetch_s += ts - tf
         stats.write_stall_s += stall
+        metrics.post_pipeline_labels.inc(count)
+        self._fetched = start + count
         if self.progress:
             self.progress(start + count, self.meta.total_labels)
 
@@ -281,14 +340,16 @@ class Initializer:
             meta.vrf_nonce = idx
             meta.vrf_nonce_value = (
                 lo.to_bytes(8, "little") + hi.to_bytes(8, "little")).hex()
-        while True:
-            try:
-                meta.save(self.store.dir, fs=self.store.fs)
-                break
-            except OSError as e:
-                if e.errno != errno.ENOSPC or not writer.enospc_wait:
-                    raise
-                writer.wait_for_space("metadata save")
+        with tracing.span("init.save_meta", {"durable": durable}
+                          if tracing.is_enabled() else None):
+            while True:
+                try:
+                    meta.save(self.store.dir, fs=self.store.fs)
+                    break
+                except OSError as e:
+                    if e.errno != errno.ENOSPC or not writer.enospc_wait:
+                        raise
+                    writer.wait_for_space("metadata save")
         writer.clear_degraded()
         stats.meta_saves += 1
         stats.save_s += time.perf_counter() - t0

@@ -30,6 +30,14 @@ is the injectable I/O layer (``utils/fsio.py``).
 A proof for challenge ``ch`` is: nonce (the winning proving nonce), indices
 (the first k2 label indices qualifying under it) and pow_nonce (the k2pow
 witness for (ch, node_id), ``ops/pow.py``).
+
+The spans are the JAX package's: ``prove.run`` per session,
+``prove.k2pow``, ``prove.window`` per disk pass, and per batch
+``prove.read_wait``, ``prove.dispatch`` (the engine's), ``prove.retire``
+and the readers' ``prove.read_io``, all carrying the pass's ``window``
+(its base nonce); ``prove.early_exit`` marks where a pass stopped. While
+a window scans, the ``post.prove`` watchdog on ``obs.health.HEALTH``
+requires the batch counter to advance within :data:`STALL_DEADLINE_S`.
 """
 
 from __future__ import annotations
@@ -42,9 +50,11 @@ from pathlib import Path
 import numpy as np
 
 from ..device import HostCopy, resolve
+from ..obs import health as health_mod
 from ..ops import pow as k2pow
 from ..ops import proving, scrypt, u32
 from ..runtime import engine
+from ..utils import metrics, tracing
 from .data import LabelStore, PostMetadata
 
 NONCE_GROUP = 16          # nonces per group; a window is G groups
@@ -52,6 +62,8 @@ DEFAULT_INFLIGHT = 3      # device batches in flight before the oldest retires
 DEFAULT_READERS = 2       # background reader threads
 DEFAULT_READER_QUEUE = 4  # prefetched batches before reader backpressure
 MAX_GROUPS = 1025         # nonce search gives up past this many groups
+# the post.prove watchdog's deadline (obs/health.py)
+STALL_DEADLINE_S = 30.0
 
 
 def _env_int(name: str, default: int) -> int:
@@ -116,6 +128,7 @@ class Prover:
                  reader_queue: int | None = None,
                  fs=None, device="cuda"):
         self.device = resolve(device)
+        self.stall_deadline_s = STALL_DEADLINE_S
         self.meta = PostMetadata.load(data_dir, fs=fs)
         if self.meta.labels_written < self.meta.total_labels:
             raise ValueError("POST data is not fully initialized")
@@ -180,10 +193,12 @@ class Prover:
         finally:
             self.store.close()
 
-    def _pow(self, challenge: bytes) -> int:
-        pow_nonce = k2pow.search(challenge, bytes.fromhex(self.meta.node_id),
-                                 self.params.pow_difficulty,
-                                 device=self.device)
+    def _pow(self, challenge: bytes, parent: int | None = None) -> int:
+        with tracing.span("prove.k2pow", parent=parent):
+            pow_nonce = k2pow.search(challenge,
+                                     bytes.fromhex(self.meta.node_id),
+                                     self.params.pow_difficulty,
+                                     device=self.device)
         if pow_nonce is None:
             raise RuntimeError("k2pow search exhausted")
         return pow_nonce
@@ -224,28 +239,41 @@ class Prover:
     # -- streaming pipeline -------------------------------------------------
 
     def _scan_window(self, cw, thr: int, nonce_base: int, groups: int,
-                     stats: ProverStats, tenant: str = "-"):
+                     stats: ProverStats, tenant: str = "-",
+                     parent: int | None = None):
         """One disk pass over the store scanning the ``groups * 16`` nonces
         from ``nonce_base``, in one scan launch per batch. Returns
-        (winner_nonce, indices) or (None, None)."""
+        (winner_nonce, indices) or (None, None). ``parent`` is the
+        session's span."""
         meta, p = self.meta, self.params
         dev = self.device
         total = meta.total_labels
         b = self.batch_labels
         cap = max(p.k2, 1)
         nn = groups * NONCE_GROUP
-        ranges = [(s, min(b, total - s)) for s in range(0, total, b)]
-        state = list(proving.init_hit_state(nn, cap, dev))
-        host_counts = np.zeros(nn, dtype=np.int64)
-        stats.windows += 1
-        retired_end = [0]
-        reader = self.store.start_reader(ranges, self.readers,
-                                         self.reader_queue)
+        traced = tracing.is_enabled()
+        wsp = tracing.span("prove.window",
+                           {"window": nonce_base, "groups": groups,
+                            "labels": total} if traced else None,
+                           parent=parent)
+        wsp.__enter__()
+        reader = None
         try:
+            ranges = [(s, min(b, total - s)) for s in range(0, total, b)]
+            state = list(proving.init_hit_state(nn, cap, dev))
+            host_counts = np.zeros(nn, dtype=np.int64)
+            stats.windows += 1
+            retired_end = [0]
+            reader = self.store.start_reader(ranges, self.readers,
+                                             self.reader_queue)
+
             def dispatch(item):
                 start, count = item
                 tr = time.perf_counter()
-                raw = reader.get()
+                with tracing.span("prove.read_wait",
+                                  {"window": nonce_base, "start": start}
+                                  if traced else None):
+                    raw = reader.get()
                 stats.read_wait_s += time.perf_counter() - tr
                 labels = np.frombuffer(raw, dtype=np.uint8).reshape(
                     count, scrypt.LABEL_BYTES)
@@ -267,12 +295,16 @@ class Prover:
 
             def retire(ticket):
                 retired_end[0] = ticket[0]
-                if self._retire(ticket, host_counts, total, stats):
+                if self._retire(ticket, host_counts, total, stats,
+                                nonce_base):
                     return ticket[0]  # sound early exit: scanned_end
                 return None
 
-            pipe = engine.Pipeline(kind="prove", tenant=tenant,
-                                   inflight=self.inflight)
+            pipe = engine.Pipeline(
+                kind="prove", tenant=tenant, inflight=self.inflight,
+                span="prove",
+                attrs=lambda it: {"window": nonce_base, "start": it[0],
+                                  "count": it[1]})
             rw0 = stats.read_wait_s
             res = pipe.run(ranges, dispatch, retire)
             exited = res is not None
@@ -280,8 +312,10 @@ class Prover:
                 pipe.stats.dispatch_s - (stats.read_wait_s - rw0), 0.0)
             scanned = retired_end[0] if exited else total
         finally:
-            reader.close()
-            stats.read_io_s += reader.read_seconds
+            if reader is not None:
+                reader.close()
+                stats.read_io_s += reader.read_seconds
+            wsp.__exit__(None, None, None)
         if exited:
             stats.early_exited = True
         stats.labels_swept += scanned
@@ -294,15 +328,19 @@ class Prover:
         stats.d2h_bytes += (carry.numel() + counts.numel()) * 4
         return nonce_base + w, indices
 
-    def _retire(self, item, host_counts, total, stats) -> bool:
+    def _retire(self, item, host_counts, total, stats,
+                nonce_base: int = 0) -> bool:
         """Fold one batch's per-nonce counts in; True on a sound early
         exit: some nonce has k2 hits and every lower nonce of the window
         cannot reach k2 with the labels left in this pass."""
         scanned_end, bc = item
         p = self.params
         tr = time.perf_counter()
-        vec = bc.get().numpy()
-        host_counts += vec
+        with tracing.span("prove.retire",
+                          {"window": nonce_base, "end": scanned_end}
+                          if tracing.is_enabled() else None):
+            vec = bc.get().numpy()
+            host_counts += vec
         stats.d2h_bytes += vec.nbytes
         stats.retire_s += time.perf_counter() - tr
         qualified = host_counts >= p.k2
@@ -310,7 +348,14 @@ class Prover:
             return False
         w = int(np.argmax(qualified))
         remaining = total - scanned_end
-        return bool(np.all(host_counts[:w] + remaining < p.k2))
+        exit_now = bool(np.all(host_counts[:w] + remaining < p.k2))
+        if exit_now:
+            # where the pass stopped, on the timeline
+            tracing.instant("prove.early_exit",
+                            {"window": nonce_base, "nonce": nonce_base + w,
+                             "scanned": scanned_end}
+                            if tracing.is_enabled() else None)
+        return exit_now
 
 
 class ProveSession:
@@ -318,7 +363,9 @@ class ProveSession:
 
     ``step()`` runs one quantum (the k2pow gate on the first call, then one
     disk pass per nonce window) and returns the Proof once decided.
-    ``close()`` is idempotent and drops the store's cached read fds."""
+    ``close()`` is idempotent and must run on every path: it ends the
+    ``prove.run`` span, unregisters the ``post.prove`` watchdog and drops
+    the store's cached read fds."""
 
     def __init__(self, prover: Prover, challenge: bytes, tenant: str = "-"):
         self.prover = prover
@@ -332,6 +379,24 @@ class ProveSession:
         self._base = 0
         self._max_nonce = MAX_GROUPS * NONCE_GROUP
         self._closed = False
+        self._scanning = False
+        self._span = tracing.span(
+            "prove.run",
+            {"challenge": challenge.hex()[:16],
+             "labels": prover.meta.total_labels, "tenant": tenant}
+            if tracing.is_enabled() else None).begin()
+        # detached: a scheduler may step and close the session on another
+        # worker thread than the one that opened it; close() ends it on
+        # every path
+        # liveness: progress advances per batch, and only while a window
+        # scans (a session parked between quanta, or searching k2pow, has
+        # no batch counter to advance)
+        self._wd = health_mod.Watchdog(
+            "post.prove",
+            progress=lambda: (self.stats.batches, self.stats.labels_swept),
+            deadline_s=prover.stall_deadline_s,
+            active=lambda: self._scanning)
+        health_mod.HEALTH.register("post.prove", self._wd.check)
 
     def step(self) -> Proof | None:
         if self._closed:
@@ -340,7 +405,7 @@ class ProveSession:
             return self.proof
         p = self.prover
         if self.pow_nonce is None:
-            self.pow_nonce = p._pow(self.challenge)
+            self.pow_nonce = p._pow(self.challenge, parent=self._span.id)
             return None
         if self._base >= self._max_nonce:
             raise RuntimeError("no winning nonce found (k1/k2 mismatch?)")
@@ -350,8 +415,15 @@ class ProveSession:
         # both paths search the same nonce range
         groups = min(p.window_groups,
                      (self._max_nonce - self._base) // NONCE_GROUP)
-        winner, indices = p._scan_window(cw, thr, self._base, groups,
-                                         self.stats, tenant=self.tenant)
+        tw = time.perf_counter()
+        self._scanning = True
+        try:
+            winner, indices = p._scan_window(cw, thr, self._base, groups,
+                                             self.stats, tenant=self.tenant,
+                                             parent=self._span.id)
+        finally:
+            self._scanning = False
+        metrics.post_prove_window_seconds.observe(time.perf_counter() - tw)
         self._base += groups * NONCE_GROUP
         if winner is None:
             return None
@@ -363,5 +435,7 @@ class ProveSession:
         if self._closed:
             return
         self._closed = True
+        health_mod.HEALTH.unregister("post.prove", self._wd.check)
+        self._span.end()
         self.stats.elapsed_s = time.monotonic() - self._t0
         self.prover.store.close()

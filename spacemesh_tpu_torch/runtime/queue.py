@@ -16,8 +16,8 @@ Two pieces:
   highest-priority-first draining, earliest-deadline lookup, and
   promote-on-dedup removal.
 
-Left out against the JAX package: the sanitizer's ``SharedField``
-owner-write check (the lane state is loop-only by contract; no lock).
+The lane state is loop-only by contract (no lock); the race sanitizer's
+owner-write ``SharedField`` checks that no other thread mutates it.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from __future__ import annotations
 import asyncio
 from collections import deque
 from typing import Callable, Optional
+
+from ..utils import sanitize
 
 
 class QueueClosed(RuntimeError):
@@ -52,7 +54,10 @@ class LaneGroup:
         self.closed = False
         self._loop: asyncio.AbstractEventLoop | None = None
         # lane counts/waiters/dedup are loop-affine BY CONTRACT (no
-        # lock anywhere in this class): no worker thread mutates them
+        # lock anywhere in this class); the owner-write declaration is
+        # the runtime check that no worker thread ever mutates them
+        self._shared = sanitize.SharedField("runtime.queue.lanegroup",
+                                            mode="owner-write")
         self._count: dict = {lane: 0 for lane in lanes}
         self._waiters: dict = {lane: deque() for lane in lanes}
         self.dedup: dict = {}
@@ -69,6 +74,9 @@ class LaneGroup:
         self._count = {lane: 0 for lane in self.lanes}
         self._waiters = {lane: deque() for lane in self.lanes}
         self.dedup = {}
+        # a rebind is a sanctioned ownership handoff: the new loop may run
+        # on a different thread
+        self._shared.reset()
         return True
 
     def fail_waiters(self) -> None:
@@ -91,6 +99,7 @@ class LaneGroup:
     def add(self, lane) -> int:
         """Unconditional occupancy increment (post-acquire, or a dedup
         promote that already holds a slot elsewhere)."""
+        self._shared.touch()
         self._count[lane] += 1
         depth = self._count[lane]
         if self._on_depth is not None:
@@ -99,6 +108,7 @@ class LaneGroup:
 
     def release(self, lane) -> None:
         """Free one slot and hand it to the next live waiter."""
+        self._shared.touch()
         self._count[lane] -= 1
         if self._on_depth is not None:
             self._on_depth(lane, self._count[lane])

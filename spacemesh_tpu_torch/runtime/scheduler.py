@@ -38,10 +38,13 @@ quantum, so nothing crosses streams. The scheduler takes ``device=``
 (default ``"cuda"``; it raises without a card) and runs every quantum and
 pack there.
 
+The locks and conditions are the race sanitizer's (``utils/sanitize.py``)
+and the tenant tables are declared shared to it; each quantum is a
+``runtime.quantum`` span, each pack's launches a ``runtime.pack.dispatch``
+span and each tenant's share of a retired pack a ``runtime.segment`` span.
+
 Left out against the JAX package: the autotuned mesh routing of packs
-(the port dispatches every pack on its one device), the sanitizer's lock
-and shared-field wrappers (plain ``threading`` primitives here), and the
-tracing spans.
+(the port dispatches every pack on its one device).
 
 The scheduler is thread-based and needs no event loop.
 """
@@ -59,7 +62,7 @@ from collections import deque
 from pathlib import Path
 
 from ..device import resolve
-from ..utils import metrics
+from ..utils import metrics, sanitize, tracing
 from . import engine, workloads
 
 DEFAULT_PACK_LANES = 4096  # the JAX package's pack width, kept on the CPU
@@ -251,10 +254,17 @@ class TenantScheduler:
         self._defaults = (default_weight, default_max_inflight,
                           default_max_queued)
         self._now = time_source
-        self._lock = threading.Lock()
-        self._work = threading.Condition(self._lock)       # workers wait
-        self._pack_work = threading.Condition(self._lock)  # the packer waits
-        self._idle = threading.Condition(self._lock)       # drain() waits
+        self._lock = sanitize.lock("runtime.scheduler")
+        self._work = sanitize.condition(  # workers wait here
+            "runtime.scheduler.work", self._lock)
+        self._pack_work = sanitize.condition(  # the packer waits
+            "runtime.scheduler.pack_work", self._lock)
+        self._idle = sanitize.condition(  # drain() waits
+            "runtime.scheduler.idle", self._lock)
+        # the tenant tables are declared shared to the lockset sanitizer:
+        # submitters, workers, the packer and close() all meet here,
+        # always under _lock
+        self._shared = sanitize.SharedField("runtime.scheduler.tenants")
         self._tenants: dict[str, _Tenant] = {}
         self._jobs: dict[str, object] = {}  # live job id -> job
         self._ids = itertools.count(1)
@@ -287,6 +297,7 @@ class TenantScheduler:
         call twice. Running quanta finish, and their jobs then resolve as
         closed."""
         with self._lock:
+            self._shared.touch()
             if self._closed:
                 return
             self._closed = True
@@ -307,6 +318,7 @@ class TenantScheduler:
         # left mid-flight (writers drained and closed, futures failed), so
         # close() never strands a handle
         with self._lock:
+            self._shared.touch()
             leftovers = list(self._jobs.values())
         closed_exc = SchedulerClosed("scheduler closed")
         for job in leftovers:
@@ -326,6 +338,7 @@ class TenantScheduler:
         """Block until every submitted job resolved; False on timeout."""
         deadline = None if timeout is None else self._now() + timeout
         with self._idle:
+            self._shared.touch()
             while self._jobs:
                 left = None if deadline is None else deadline - self._now()
                 if left is not None and left <= 0:
@@ -351,6 +364,7 @@ class TenantScheduler:
         :meth:`unregister_tenant` when the identity goes away."""
         dw, di, dq = self._defaults
         with self._lock:
+            self._shared.touch()
             t = self._tenants.get(tid)
             if t is None:
                 t = self._tenants[tid] = _Tenant(
@@ -376,6 +390,7 @@ class TenantScheduler:
         its per-tenant metric series leave the registry."""
         exc = SchedulerClosed(f"tenant {tid} unregistered")
         with self._lock:
+            self._shared.touch()
             t = self._tenants.pop(tid, None)
             if t is None:
                 return
@@ -406,6 +421,7 @@ class TenantScheduler:
 
     def tenants(self) -> list[str]:
         with self._lock:
+            self._shared.touch()
             return sorted(self._tenants)
 
     def namespaced(self, shard: str) -> "ShardScheduler":
@@ -437,6 +453,7 @@ class TenantScheduler:
     def _enqueue(self, tid: str, kind: str, fn, deadline_s: float | None,
                  gang: bool = False, abort=None) -> JobHandle:
         with self._lock:
+            self._shared.touch()
             t, handle = self._admit(tid, kind)
             job = _Job(handle, t, kind, fn,
                        None if deadline_s is None
@@ -531,6 +548,7 @@ class TenantScheduler:
         cw = scrypt.commitment_to_words(commitment)
         try:
             with self._lock:
+                self._shared.touch()
                 t, handle = self._admit(tid, "init")
                 writer = (store.start_writer(self.writer_threads,
                                              queue_depth=8)
@@ -557,6 +575,7 @@ class TenantScheduler:
 
     def _cancel(self, handle: JobHandle) -> bool:
         with self._lock:
+            self._shared.touch()
             job = self._jobs.get(handle.id)
             if job is None:
                 return False
@@ -581,6 +600,7 @@ class TenantScheduler:
                  cancelled: bool = False) -> None:
         handle = job.handle
         with self._lock:
+            self._shared.touch()
             if self._jobs.pop(handle.id, None) is None:
                 return  # already resolved
             # the job's own tenant, if still registered: a tenant id
@@ -643,6 +663,7 @@ class TenantScheduler:
         with self._stream():
             while True:
                 with self._lock:
+                    self._shared.touch()
                     job = None
                     while not self._closed:
                         job = self._pick_job()
@@ -662,15 +683,20 @@ class TenantScheduler:
         if job.gang:
             self._gang.acquire()
         try:
-            try:
-                outcome, result = job.fn()
-            except Exception as exc:  # noqa: BLE001 — the job fails, the pool survives
-                outcome, error = "error", exc
+            with tracing.span("runtime.quantum",
+                              {"tenant": job.tenant.id, "kind": job.kind,
+                               "job": job.handle.id}
+                              if tracing.is_enabled() else None):
+                try:
+                    outcome, result = job.fn()
+                except Exception as exc:  # noqa: BLE001 — the job fails, the pool survives
+                    outcome, error = "error", exc
         finally:
             if job.gang:
                 self._gang.release()
             dt = time.perf_counter() - t0
             with self._lock:
+                self._shared.touch()
                 # unregistered while this quantum ran: the detached tenant
                 # is never picked again (the JAX package requeues onto it,
                 # stranding the handle and a prove job's open session)
@@ -721,6 +747,7 @@ class TenantScheduler:
         (``block`` False) a pack under half full is deferred: the engine
         retires meanwhile and the lanes join the next, fuller pack."""
         with self._lock:
+            self._shared.touch()
             while True:
                 if self._closed:
                     return None
@@ -814,6 +841,7 @@ class TenantScheduler:
         # the EMA feeds the provisional charge in _compose_pack, which
         # reads it under the lock
         with self._lock:
+            self._shared.touch()
             self._lane_cost_ema += 0.25 * (dt / max(lanes, 1)
                                            - self._lane_cost_ema)
         st.packs += 1
@@ -824,31 +852,36 @@ class TenantScheduler:
         finalize: list[_InitJob] = []
         for s in segments:
             job: _InitJob = s.job
-            try:
-                if job.error is None and not job.cancelled:
-                    data = pack_bytes[s.lane0 * scrypt.LABEL_BYTES:
-                                      (s.lane0 + s.count)
-                                      * scrypt.LABEL_BYTES]
-                    tw = time.perf_counter()
-                    if job.writer is not None:
-                        job.writer.submit(s.start, data)
-                    else:
-                        job.store.write_labels(s.start, data)
-                        job.crc = zlib.crc32(data, job.crc)
-                    tm = time.perf_counter()
-                    job.min_carry = workloads.fold_min_host(
-                        job.min_carry, data, s.start)
-                    st.write_s += tm - tw
-                    st.fold_s += time.perf_counter() - tm
-                    job.written = max(job.written, s.start + s.count)
-                    if self._tenants.get(job.tenant.id) is job.tenant:
-                        metrics.runtime_tenant_labels.inc(
-                            s.count, tenant=job.tenant.id)
-                    if job.progress is not None:
-                        job.progress(job.written, job.total)
-            except Exception as exc:  # noqa: BLE001 — fail this job, not the pack
-                job.error = exc
+            with tracing.span("runtime.segment",
+                              {"tenant": job.tenant.id, "start": s.start,
+                               "count": s.count}
+                              if tracing.is_enabled() else None):
+                try:
+                    if job.error is None and not job.cancelled:
+                        data = pack_bytes[s.lane0 * scrypt.LABEL_BYTES:
+                                          (s.lane0 + s.count)
+                                          * scrypt.LABEL_BYTES]
+                        tw = time.perf_counter()
+                        if job.writer is not None:
+                            job.writer.submit(s.start, data)
+                        else:
+                            job.store.write_labels(s.start, data)
+                            job.crc = zlib.crc32(data, job.crc)
+                        tm = time.perf_counter()
+                        job.min_carry = workloads.fold_min_host(
+                            job.min_carry, data, s.start)
+                        st.write_s += tm - tw
+                        st.fold_s += time.perf_counter() - tm
+                        job.written = max(job.written, s.start + s.count)
+                        if self._tenants.get(job.tenant.id) is job.tenant:
+                            metrics.runtime_tenant_labels.inc(
+                                s.count, tenant=job.tenant.id)
+                        if job.progress is not None:
+                            job.progress(job.written, job.total)
+                except Exception as exc:  # noqa: BLE001 — fail this job, not the pack
+                    job.error = exc
             with self._lock:
+                self._shared.touch()
                 job.outstanding -= s.count
                 if job.error is not None or job.cancelled:
                     # packable is 0 now: drop the queued remainder so the
@@ -867,6 +900,7 @@ class TenantScheduler:
         # idempotent: unregister, close and retire can race to finalize a
         # job; only the first pass drains, closes and resolves it
         with self._lock:
+            self._shared.touch()
             if job.finalized:
                 return
             job.finalized = True
@@ -910,7 +944,11 @@ class TenantScheduler:
         cross-tenant packs, kept ``inflight`` deep for the scheduler's
         whole life, so tenant boundaries never drain the device."""
         pipe = engine.Pipeline(kind="init_pack", tenant="*",
-                               inflight=self.inflight,
+                               inflight=self.inflight, span="runtime.pack",
+                               attrs=lambda p: {
+                                   "lanes": sum(s.count for s in p[0]),
+                                   "tenants": len({s.job.tenant.id
+                                                   for s in p[0]})},
                                stop=lambda: self._closed)
 
         def packs():
@@ -934,6 +972,7 @@ class TenantScheduler:
                 pipe.run(packs(), self._dispatch_pack, self._retire_pack)
         except Exception as exc:  # noqa: BLE001 — fail the init jobs, not the thread
             with self._lock:
+                self._shared.touch()
                 jobs = [j for j in self._jobs.values()
                         if isinstance(j, _InitJob)]
             for j in jobs:

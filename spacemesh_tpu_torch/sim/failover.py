@@ -21,10 +21,15 @@ outage (asserted from windowed SLIs on the virtual clock — zero
 sleeps), and, once the transport returns, half-open-probe its way back
 to remote serving (failback).
 
-**runtime-degrade** needs the runtime engine's breaker and host
-``fallback`` (``runtime/engine.py`` ``Pipeline(breaker=...)``), which the
-port's engine does not have yet (ROADMAP [7]); that mode raises
-``NotImplementedError``.
+**runtime-degrade** — the runtime engine's device-dispatch path
+(runtime/engine.py ``Pipeline(breaker=...)``) under a seeded
+device-fault plan: dispatch fails for a scripted span of batches.  The
+breaker must open after exactly the configured failure budget (N device
+attempts for an M>>N-batch outage, not M), the host fallback must carry
+every batch bit-identically, and device recovery must re-close the
+breaker through a half-open probe.  The drill's "device" is a stand-in
+callback (no card is touched), so it runs the same on any ``device``; no
+entry point of the port wires a fallback (``runtime/engine.py``).
 """
 
 from __future__ import annotations
@@ -294,15 +299,147 @@ def _run_verifyd_outage(script: dict, device) -> FailoverResult:
         stats={"hub": hub, "failover": stats}, events=events)
 
 
+# --- runtime-degrade ----------------------------------------------------
+
+
+def _label(seed: int, i: int) -> str:
+    """The batch's 'result': one deterministic digest the device and
+    host paths both compute — bit-identity is equality."""
+    return hashlib.sha256(b"rt-degrade:%d:%d" % (seed, i)).hexdigest()[:16]
+
+
+def _run_runtime_degrade(script: dict) -> FailoverResult:
+    from ..runtime import engine
+
+    seed = int(script.get("seed", 3))
+    batches = int(script.get("batches", 60))
+    step = float(script.get("step_s", 0.5))
+    fault = dict(script.get("fault") or {})
+    f_start = int(fault.get("start", batches // 4))
+    f_end = int(fault.get("end", (3 * batches) // 4))
+    br_cfg = dict(script.get("breaker") or {})
+    clock = _VClock()
+    events: list = []
+    attempts = {"device": 0, "device_in_fault": 0}
+
+    def on_transition(frm: str, to: str) -> None:
+        events.append({"breaker": to, "from": frm,
+                       "t": round(clock.now(), 6)})
+
+    breaker = remediate_mod.CircuitBreaker(
+        "runtime.device",
+        failure_budget=int(br_cfg.get("failure_budget", 3)),
+        window_s=float(br_cfg.get("window_s", 120.0)),
+        cooldown_s=float(br_cfg.get("cooldown_s", 5.0)),
+        cooldown_cap_s=float(br_cfg.get("cooldown_cap_s", 20.0)),
+        seed=seed, time_source=clock.now, on_transition=on_transition)
+    remediate_mod.BREAKERS.register(breaker)
+    try:
+        def items():
+            for i in range(batches):
+                yield i
+                clock.advance(step)
+
+        def dispatch(i: int):
+            attempts["device"] += 1
+            if f_start <= i < f_end:
+                attempts["device_in_fault"] += 1
+                raise RuntimeError("injected device fault")
+            return ("device", i, _label(seed, i))
+
+        def fallback(i: int, exc: Exception):
+            return ("host", i, _label(seed, i))
+
+        results: list = []
+
+        def retire(ticket):
+            path, i, digest = ticket
+            results.append(ticket)
+            events.append({"batch": i, "path": path, "digest": digest,
+                           "t": round(clock.now(), 6)})
+            return None
+
+        pipe = engine.Pipeline(kind="simdev",
+                               inflight=int(script.get("inflight", 3)),
+                               fallback=fallback, breaker=breaker)
+        pipe.run(items(), dispatch, retire)
+        final_state = breaker.state
+        stats = {
+            "device_attempts": attempts["device"],
+            "device_attempts_in_fault": attempts["device_in_fault"],
+            "fallbacks": pipe.stats.fallbacks,
+            "batches": pipe.stats.batches,
+            "breaker": breaker.state_doc(),
+        }
+    finally:
+        remediate_mod.BREAKERS.unregister(breaker)
+
+    reference = {i: _label(seed, i) for i in range(batches)}
+    wrong = [e for e in events if "batch" in e
+             and e["digest"] != reference[e["batch"]]]
+    tail = [e for e in events if "batch" in e
+            and e["batch"] >= f_end + max(
+                int(br_cfg.get("recover_slack", 12)), 1)]
+    asserts = []
+    for spec in script.get("asserts") or [{"kind": "bit_identical"}]:
+        kind = spec.get("kind")
+        ent = dict(spec)
+        if kind == "bit_identical":
+            n = sum(1 for e in events if "batch" in e)
+            ent["ok"] = n == batches and not wrong
+            ent["detail"] = f"{n}/{batches} batches, {len(wrong)} wrong"
+        elif kind == "device_attempts_bounded":
+            # the regression the breaker fixes: a dead device is paid
+            # budget + probe attempts across the WHOLE fault span, not
+            # once per batch
+            n = stats["device_attempts_in_fault"]
+            ent["ok"] = n <= int(spec["max"])
+            ent["detail"] = (f"{n} device attempts across a "
+                             f"{f_end - f_start}-batch fault span")
+        elif kind == "fallbacks":
+            ent["ok"] = stats["fallbacks"] >= int(spec.get("min", 1))
+            ent["detail"] = f"{stats['fallbacks']} fallbacks"
+        elif kind == "breaker_recloses":
+            ent["ok"] = (final_state == remediate_mod.CLOSED
+                         and bool(tail)
+                         and all(e["path"] == "device" for e in tail))
+            ent["detail"] = (f"final={final_state}, "
+                             f"{len(tail)} post-recovery device batches")
+        elif kind == "breaker_sequence":
+            transitions = [e["breaker"] for e in events if "breaker" in e]
+            want = ["open", "half_open", "closed"]
+            it = iter(transitions)
+            ent["ok"] = all(any(t == step for t in it) for step in want)
+            ent["detail"] = f"transitions: {transitions}"
+        else:
+            ent["ok"] = False
+            ent["detail"] = f"unknown assert kind {kind!r}"
+        asserts.append(ent)
+    hub = {
+        "batches": batches,
+        "device": sum(1 for e in events
+                      if e.get("path") == "device"),
+        "host": sum(1 for e in events if e.get("path") == "host"),
+        "device_attempts": stats["device_attempts"],
+    }
+    return FailoverResult(
+        name=str(script.get("name", "runtime-degrade")), seed=seed,
+        digest=_digest_of(script, events, asserts),
+        ok=all(a["ok"] for a in asserts), asserts=asserts, slis={},
+        stats={"hub": hub, "runtime": stats}, events=events)
+
+
 def run_scenario(script: dict, device="cuda") -> FailoverResult:
-    """Run one failover script on ``device`` (mode selects the drill)."""
+    """Run one failover script on ``device`` (mode selects the drill;
+    like every entry point, it raises without a card unless ``device``
+    says ``"cpu"``, even for the runtime-degrade drill, which touches no
+    device)."""
     from ..device import resolve
 
+    dev = resolve(device)
     mode = script.get("mode", "verifyd-outage")
     if mode == "verifyd-outage":
-        return _run_verifyd_outage(script, resolve(device))
+        return _run_verifyd_outage(script, dev)
     if mode == "runtime-degrade":
-        raise NotImplementedError(
-            "the runtime-degrade drill needs the runtime engine's breaker "
-            "and host fallback, not ported yet (ROADMAP [7])")
+        return _run_runtime_degrade(script)
     raise ValueError(f"unknown failover mode {mode!r}")

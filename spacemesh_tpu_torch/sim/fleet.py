@@ -35,9 +35,9 @@ What the drill must prove, all from one script:
   SLIs into load scores and the ``fleet_desired_replicas`` gauge; the
   script asserts the signal reacts to the hot span.
 
-Left out against the JAX package: the drill's span capture and its
-``merged_capture`` assert (the trace plane, the port's instrumentation
-item); an assert of that kind is judged unknown, not ok.
+The whole drill runs under a span capture (an already-running capture
+is used as-is), merged into one timeline that the ``merged_capture``
+assert judges: it validates, carries spans and resolves every link.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ import random
 
 from ..obs import remediate as remediate_mod
 from ..obs import sli as sli_mod
-from ..utils import metrics
+from ..utils import metrics, tracing
 from ..verify.farm import Lane
 from ..verifyd import protocol
 from ..verifyd.fleet import FleetRouter, FleetVerifier
@@ -333,7 +333,7 @@ async def _run(script: dict, pools: dict, clock: _VClock, events: list,
 
 
 def _evaluate(script: dict, events: list, stats: dict,
-              slis: dict) -> list:
+              slis: dict, merged: dict | None = None) -> list:
     served = [e for e in events if e.get("outcome") == "ok"]
     shed = [e for e in events
             if str(e.get("outcome", "")).startswith("shed:")]
@@ -451,6 +451,25 @@ def _evaluate(script: dict, events: list, stats: dict,
         elif kind == "sli_present":
             ent["ok"] = spec.get("name") in slis
             ent["detail"] = f"slis: {sorted(slis)}"
+        elif kind == "merged_capture":
+            # digest-stable merged-timeline facts: the run's capture
+            # validates clean, carries spans, and resolves every
+            # cross-process link token it saw ("detail", excluded from
+            # the digest, carries the raw numbers)
+            od = (merged or {}).get("otherData") or {}
+            links = dict(od.get("links") or {})
+            clean = merged is not None
+            if clean:
+                try:
+                    tracing.validate(merged)
+                except Exception:  # noqa: BLE001 — judged, not raised
+                    clean = False
+            spans = int(od.get("captured_spans") or 0)
+            ent["ok"] = (clean and spans >= int(spec.get("min_spans", 1))
+                         and int(links.get("unresolved", 0)) == 0)
+            ent["detail"] = (f"{spans} spans over "
+                             f"{len(od.get('procs') or [])} procs, "
+                             f"unresolved={links.get('unresolved', 0)}")
         else:
             ent["ok"] = False
             ent["detail"] = f"unknown assert kind {kind!r}"
@@ -470,11 +489,22 @@ def run_scenario(script: dict, device="cuda") -> FleetSimResult:
     stats: dict = {}
     slis: dict = {}
     clock = _VClock()
-    with tempfile.TemporaryDirectory() as d:
-        pools = _build_pools(script, d, device)
-        asyncio.run(_run(script, pools, clock, events, stats, slis,
-                         device))
-    asserts = _evaluate(script, events, stats, slis)
+    # capture the whole drill so merged_capture asserts can judge the
+    # timeline; an already-running outer capture is used as-is
+    own_trace = not tracing.is_enabled()
+    if own_trace:
+        tracing.set_process_identity("fleet-sim")
+        tracing.start(capacity=1 << 16)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            pools = _build_pools(script, d, device)
+            asyncio.run(_run(script, pools, clock, events, stats, slis,
+                             device))
+        merged = tracing.merge_captures([tracing.export()])
+    finally:
+        if own_trace:
+            tracing.stop()
+    asserts = _evaluate(script, events, stats, slis, merged=merged)
     served = [e for e in events if e.get("outcome") == "ok"]
     hub = {
         "requests": sum(1 for e in events if "client" in e),

@@ -1,5 +1,6 @@
-"""Built-in scripts of the port's drills (the four of
-``spacemesh_tpu/sim/scenarios.py`` the verifyd fleet's acceptance runs).
+"""Built-in scripts of the port's drills (the five of
+``spacemesh_tpu/sim/scenarios.py`` the verifyd fleet and the runtime
+engine's self-healing acceptance runs).
 
 Each function below returns a plain script dict; ``builtin(name, **overrides)``
 is the registry. All numbers are DETERMINISTIC functions of the seed —
@@ -20,6 +21,10 @@ script to its engine (``sim/verifyd_load.py``, ``sim/failover.py``,
   blackout served locally, failback.
 * ``byzantine-verifyd`` — one replica flips every verdict; the verdict
   audit trips it and no wrong verdict reaches a caller.
+* ``runtime-degrade`` — a seeded device-fault plan through the runtime
+  engine's breaker: it opens after the failure budget, the host fallback
+  carries the fault span bit-identically, and device recovery re-closes
+  it.
 """
 
 from __future__ import annotations
@@ -151,9 +156,7 @@ def fleet(seed: int = 7) -> dict:
              "name": "fleet_replica_r0_shed_per_sec"},
             {"kind": "slo_green", "name": "fleet_block_p99",
              "target": 0.25},
-            # the JAX script's last assert, {"kind": "merged_capture",
-            # "min_spans": 1}, judges the drill's merged span capture:
-            # the trace plane is not ported yet, so it is left out here
+            {"kind": "merged_capture", "min_spans": 1},
         ],
     }
 
@@ -206,11 +209,34 @@ def byzantine_verifyd(seed: int = 9) -> dict:
     }
 
 
+def runtime_degrade(seed: int = 3) -> dict:
+    """Seeded device-dispatch fault plan through the runtime engine's
+    breaker: open after the failure budget, host fallback carries the
+    fault span bit-identically, device recovery re-closes."""
+    return {
+        "name": "runtime-degrade", "engine": "failover",
+        "mode": "runtime-degrade", "seed": seed,
+        "batches": 80, "inflight": 3, "step_s": 0.5,
+        "fault": {"start": 10, "end": 30},
+        "breaker": {"failure_budget": 3, "window_s": 120.0,
+                    "cooldown_s": 2.0, "cooldown_cap_s": 6.0,
+                    "recover_slack": 14},
+        "asserts": [
+            {"kind": "bit_identical"},
+            {"kind": "device_attempts_bounded", "max": 10},
+            {"kind": "fallbacks", "min": 15},
+            {"kind": "breaker_sequence"},
+            {"kind": "breaker_recloses"},
+        ],
+    }
+
+
 _BUILTINS = {
     "verifyd-load": verifyd_load,
     "verifyd-outage": verifyd_outage,
     "fleet": fleet,
     "byzantine-verifyd": byzantine_verifyd,
+    "runtime-degrade": runtime_degrade,
 }
 
 

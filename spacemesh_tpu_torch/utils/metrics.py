@@ -8,8 +8,20 @@ recovery, ENOSPC parking), ``post_prove_inflight`` (the gRPC worker's
 proving sessions), the ``runtime_*`` family (the device-job engine and
 the multi-tenant scheduler, ``runtime/``), the verification farm's and
 verifyd's, the breakers' and the verifyd fleet's (``failover_*``,
-``fleet_*``, ``federated_procs``). ``Registry.sample()`` and scrape-time
-collectors feed the windowed SLIs (``obs/sli.py``).
+``fleet_*``, ``federated_procs``), and the instrumentation's: the span
+tracer's capture state (``trace_*``), the sanitizers'
+(``sanitize_violations_total``), the health engine's (``slo_*``,
+``component_*``, the event-loop lag), the flight recorder's
+(``flight_bundles_total``), the remediation engine's and the engine's
+host fallbacks (``runtime_fallbacks_total``), and the PoST path's SLI
+substrate (``post_pipeline_labels_total``,
+``post_prove_window_seconds``). ``Registry.sample()`` and
+scrape-time collectors feed the windowed SLIs (``obs/sli.py``).
+
+Every instrument's series map is declared shared to the lockset
+sanitizer (``utils/sanitize.py``, ``race``), and the registry asserts
+that instruments are created on the thread that built it
+(``registry-thread``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,10 +29,14 @@ from __future__ import annotations
 import threading
 from collections import defaultdict
 
+from . import sanitize
+
 
 def _escape(value) -> str:
-    """Escape a label value per the text exposition format: backslash,
-    double quote and newline."""
+    """Escape a label VALUE per the Prometheus text exposition format:
+    backslash, double-quote and newline must be escaped inside the
+    quoted value, or one peer id / reason string containing a quote
+    corrupts the entire /metrics scrape."""
     return (str(value).replace("\\", "\\\\").replace('"', '\\"')
             .replace("\n", "\\n"))
 
@@ -33,17 +49,24 @@ class _Instrument:
     def __init__(self, name: str, help_: str):
         self.name = name
         self.help = help_
-        self._lock = threading.Lock()
+        # series maps are DECLARED SHARED to the lockset sanitizer
+        # (SPACEMESH_SANITIZE=race): every access must hold this lock,
+        # which the tracked twin feeds into the per-thread held-lockset
+        self._lock = sanitize.lock(f"metrics.{name}")
+        self._shared = sanitize.SharedField(f"metrics.{name}.series")
 
     def _series_map(self) -> dict:
         return self._values  # Histogram overrides (its map is _series)
 
     def remove_matching(self, **labels) -> int:
         """Drop every labelset containing these label items (all of a gone
-        tenant's series, whatever labels ride with it). Returns the number
-        of series removed."""
+        tenant's series, whatever labels ride with it): when the entity
+        goes away, all of its series must leave the scrape, or a churn of
+        short-lived clients grows the registry without bound. Returns the
+        number of series removed."""
         items = set(labels.items())
         with self._lock:
+            self._shared.touch()
             m = self._series_map()
             gone = [k for k in m if items.issubset(set(k))]
             for k in gone:
@@ -58,11 +81,13 @@ class Counter(_Instrument):
 
     def inc(self, value: float = 1.0, **labels) -> None:
         with self._lock:
+            self._shared.touch()
             self._values[tuple(sorted(labels.items()))] += value
 
     def sample(self) -> dict[tuple, float]:
-        """Point-in-time {labelset: value} snapshot."""
+        """Point-in-time {labelset: value} snapshot (obs/sli.py sampler)."""
         with self._lock:
+            self._shared.touch(write=False)
             return dict(self._values)
 
     def expose(self) -> list[str]:
@@ -83,15 +108,20 @@ class Gauge(_Instrument):
 
     def set(self, value: float, **labels) -> None:
         with self._lock:
+            self._shared.touch()
             self._values[tuple(sorted(labels.items()))] = value
 
     def remove(self, **labels) -> None:
-        """Drop one labelset's series."""
+        """Drop one labelset's series — a gauge describing something
+        that no longer exists (an unregistered health component) must
+        disappear from the scrape, not pin its last value forever."""
         with self._lock:
+            self._shared.touch()
             self._values.pop(tuple(sorted(labels.items())), None)
 
     def sample(self) -> dict[tuple, float]:
         with self._lock:
+            self._shared.touch(write=False)
             return dict(self._values)
 
     def expose(self) -> list[str]:
@@ -106,8 +136,10 @@ class Gauge(_Instrument):
 
 
 class Histogram(_Instrument):
-    """Bucketed distribution; each labelset carries its own buckets, sum
-    and count series."""
+    """Bucketed distribution with label support: each distinct labelset
+    carries its own buckets/sum/count series (like Counter/Gauge), so
+    e.g. verify-farm dispatch timings split per request kind instead of
+    blending signatures and POST proofs into one histogram."""
 
     DEFAULT_BUCKETS = (0.005, 0.05, 0.5, 5.0, 50.0, float("inf"))
 
@@ -123,6 +155,7 @@ class Histogram(_Instrument):
     def observe(self, value: float, **labels) -> None:
         key = tuple(sorted(labels.items()))
         with self._lock:
+            self._shared.touch()
             s = self._series.get(key)
             if s is None:
                 s = self._series[key] = [[0] * len(self.buckets), 0.0, 0]
@@ -135,6 +168,7 @@ class Histogram(_Instrument):
     def sample(self) -> dict[tuple, tuple[list, float, int]]:
         """{labelset: (cumulative bucket counts, sum, count)} snapshot."""
         with self._lock:
+            self._shared.touch(write=False)
             return {k: (list(s[0]), s[1], s[2])
                     for k, s in self._series.items()}
 
@@ -161,7 +195,13 @@ class Registry:
     def __init__(self) -> None:
         self._instruments: dict[str, _Instrument] = {}
         self._collectors: list = []
-        self._lock = threading.Lock()
+        self._lock = sanitize.lock("metrics.registry")
+        self._shared = sanitize.SharedField("metrics.registry.instruments")
+        # the owning thread: instrument CREATION belongs at module
+        # import on this thread; recording is thread-safe from anywhere.
+        # The runtime sanitizer (utils/sanitize.py, SPACEMESH_SANITIZE)
+        # asserts this affinity on the create branch of _get.
+        self._created_thread = threading.get_ident()
 
     def counter(self, name: str, help_: str = "") -> Counter:
         return self._get(name, lambda: Counter(name, help_), Counter)
@@ -174,8 +214,10 @@ class Registry:
             name, lambda: Histogram(name, help_,
                                     buckets or Histogram.DEFAULT_BUCKETS),
             Histogram)
-        # a re-registration with other buckets would record into a layout
-        # its caller never asked for
+        # re-registering with DIFFERENT buckets used to silently return
+        # the original instrument — the caller would then record into a
+        # bucket layout it never asked for and every quantile computed
+        # from the deltas would be wrong without a trace
         if buckets is not None and tuple(buckets) != inst.buckets:
             raise ValueError(
                 f"histogram {name} already registered with buckets "
@@ -185,8 +227,10 @@ class Registry:
 
     def _get(self, name, factory, cls):
         with self._lock:
+            self._shared.touch()
             inst = self._instruments.get(name)
             if inst is None:
+                sanitize.on_instrument_create(name, self)
                 inst = self._instruments[name] = factory()
             elif not isinstance(inst, cls):
                 raise TypeError(f"{name} already registered as "
@@ -196,14 +240,19 @@ class Registry:
     # --- scrape-time collectors ---------------------------------------
 
     def add_collector(self, fn) -> None:
-        """Register a zero-arg hook run before every scrape/sample: it
-        recomputes gauges whose truth lives elsewhere (process RSS, open
-        fds) at observation time instead of trusting the last write."""
+        """Register a zero-arg hook run before every scrape/sample.
+
+        Collectors recompute gauges whose truth lives elsewhere (event
+        queue depths, process RSS, open fds) at OBSERVATION time instead
+        of trusting the last write — a gauge set on emit and never
+        decayed lies to every later scrape."""
         with self._lock:
+            self._shared.touch()
             self._collectors.append(fn)
 
     def run_collectors(self) -> None:
         with self._lock:
+            self._shared.touch(write=False)
             fns = list(self._collectors)
         for fn in fns:
             try:
@@ -218,6 +267,7 @@ class Registry:
         carry their bucket bounds). The SLI sampler diffs two of these."""
         self.run_collectors()
         with self._lock:
+            self._shared.touch(write=False)
             instruments = list(self._instruments.items())
         out: dict[str, tuple[str, object]] = {}
         for name, inst in instruments:
@@ -234,6 +284,7 @@ class Registry:
         """Every instrument in the text exposition format."""
         self.run_collectors()
         with self._lock:
+            self._shared.touch(write=False)
             instruments = list(self._instruments.values())
         lines: list[str] = []
         for inst in instruments:
@@ -277,6 +328,16 @@ post_store_enospc_waits = REGISTRY.counter(
     "post_store_enospc_waits_total",
     "ENOSPC retry waits entered by the label writer pool")
 
+# the health engine's SLI substrate on the PoST path (obs/sli.py
+# default_slis): the init rate and the prove window's wall time
+post_pipeline_labels = REGISTRY.counter(
+    "post_pipeline_labels_total",
+    "labels fetched to host by the init pipeline (rate = init labels/s)")
+post_prove_window_seconds = REGISTRY.histogram(
+    "post_prove_window_seconds",
+    "wall seconds per prove nonce-window disk pass",
+    buckets=(0.05, 0.25, 1.0, 5.0, 30.0, 120.0, 600.0, float("inf")))
+
 # PoST proving sessions of the gRPC worker (post/grpc_worker.py)
 post_prove_inflight = REGISTRY.gauge(
     "post_prove_inflight", "proving sessions currently running (grpc worker)")
@@ -298,6 +359,10 @@ runtime_inflight = REGISTRY.gauge(
 runtime_stage_seconds = REGISTRY.counter(
     "runtime_stage_seconds_total",
     "host seconds per engine stage (labels: kind, stage)")
+runtime_fallbacks = REGISTRY.counter(
+    "runtime_fallbacks_total",
+    "dispatch failures absorbed by a pipeline's fallback hook "
+    "(label: kind); no entry point of the port passes a fallback")
 runtime_tenant_jobs = REGISTRY.counter(
     "runtime_tenant_jobs_total",
     "scheduler jobs by outcome (labels: tenant, kind, state)")
@@ -373,23 +438,56 @@ verifyd_batchtune_races = REGISTRY.counter(
     "verifyd_batchtune_races_total",
     "batch-size calibration races run (persisted-rates cache misses)")
 
+# span tracer (utils/tracing.py): capture state for operators reading
+# /metrics while a /debug/trace capture runs (verifyd/server.py).
+trace_enabled_gauge = REGISTRY.gauge(
+    "trace_capture_enabled", "1 while the span tracer is recording")
+trace_spans_gauge = REGISTRY.gauge(
+    "trace_spans_recorded",
+    "spans recorded by the current capture (incl. ring overwrites)")
+
 # runtime collectors (obs/sli.py register_runtime_collectors): recomputed
 # by scrape-time hooks, not trusted last writes
 process_rss_bytes = REGISTRY.gauge(
     "process_resident_memory_bytes", "resident set size")
 process_open_fds = REGISTRY.gauge(
     "process_open_fds", "open file descriptors")
+event_loop_lag = REGISTRY.gauge(
+    "runtime_event_loop_lag_seconds",
+    "asyncio scheduling lag measured by the health engine heartbeat")
 
-# circuit breakers (obs/remediate.py) around the farm's per-kind backends,
-# the failover client and each fleet replica. Per-component breaker series
-# are REMOVED when the breaker unregisters.
+# SLO evaluation (obs/health.py HealthEngine)
+slo_healthy = REGISTRY.gauge(
+    "slo_healthy", "1 while the SLO is met (label: slo)")
+slo_burn = REGISTRY.gauge(
+    "slo_burn_rate",
+    "violating fraction of the SLO window, 0..1 (label: slo)")
+slo_breaches = REGISTRY.counter(
+    "slo_breaches_total", "healthy->breach transitions (label: slo)")
+
+# component health + stall watchdogs (obs/health.py HealthRegistry)
+component_healthy = REGISTRY.gauge(
+    "component_healthy", "1 while the liveness probe passes "
+    "(label: component)")
+component_stalls = REGISTRY.counter(
+    "component_stalls_total",
+    "healthy->unhealthy probe transitions (label: component)")
+
+# flight recorder (obs/flight.py)
+flight_bundles = REGISTRY.counter(
+    "flight_bundles_total", "diagnostic bundles written (label: trigger)")
+
+# remediation engine + circuit breakers (obs/remediate.py) around the
+# engine's dispatch, the farm's per-kind backends, the failover client and
+# each fleet replica. Per-component breaker series are REMOVED when the
+# breaker unregisters.
 remediation_actions = REGISTRY.counter(
     "remediation_actions_total",
     "recovery actions decided by the remediation engine "
     "(labels: component, action, outcome)")
 remediation_breaker_state = REGISTRY.gauge(
     "remediation_breaker_state",
-    "0 closed, 1 open, 2 half-open (label: component)")
+    "0 closed, 1 open, 2 half-open, 3 quarantined (label: component)")
 remediation_breaker_transitions = REGISTRY.counter(
     "remediation_breaker_transitions_total",
     "breaker state transitions (labels: component, to)")
@@ -454,3 +552,11 @@ federated_procs = REGISTRY.gauge(
     "processes with a live federated snapshot in obs.federate "
     "(labels: state=live|crashed); crashed snapshots are retained "
     "for forensics until explicitly dropped")
+
+# runtime sanitizers (utils/sanitize.py, SPACEMESH_SANITIZE=1): each
+# recorded violation (a slow event-loop callback, an off-thread instrument
+# creation, a race or lock-order inversion) counts here, so a sanitized
+# run surfaces its findings on /metrics too
+sanitize_violations = REGISTRY.counter(
+    "sanitize_violations_total",
+    "runtime sanitizer violations (label: kind)")

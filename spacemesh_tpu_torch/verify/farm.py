@@ -38,11 +38,18 @@ allocator, not the farm: a closed farm leaves them there for the next
 user of the card. A batch wider than the free memory is split into several ROMix launches
 by ``ops/romix_cuda.py``.
 
-Left out against the JAX package: the tracing spans (the instrumentation
-item of the port) and the sanitizer's owner-write check on ``stats``
-(loop-only by contract). One difference: a POST batch is not padded to
-a power of two (that padding only spared XLA a compile per shape); the
-K3 subset is keyed per item, so the verdicts are the same.
+The spans are the JAX package's: ``farm.request`` per submit (a
+coalesced duplicate records ``dedup`` and its ``twin``), ``farm.lane_wait``
+under backpressure and ``farm.batch`` per dispatch; the batch span's
+``members`` lists its requests' span ids and each request records its
+``batch`` id and ``queue_wait_ms``. The backend threads inherit the batch
+span as their parent, so the kernels' ``romix.dispatch`` and
+``pow_verify.dispatch`` spans nest under it. ``stats`` is loop-only by
+contract, checked by the race sanitizer's owner-write ``SharedField``.
+
+One difference: a POST batch is not padded to a power of two (that
+padding only spared XLA a compile per shape); the K3 subset is keyed per
+item, so the verdicts are the same.
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ from ..device import resolve
 from ..post import verifier as post_verifier
 from ..post.prover import ProofParams
 from ..runtime.queue import KindLanes, LaneGroup, QueueClosed
-from ..utils import metrics
+from ..utils import metrics, sanitize, tracing
 
 
 class FarmClosed(QueueClosed):
@@ -164,7 +171,7 @@ class PowRequest:
 
 
 class _Pending:
-    __slots__ = ("req", "lane", "future", "enqueued", "deadline")
+    __slots__ = ("req", "lane", "future", "enqueued", "deadline", "span")
 
     def __init__(self, req, lane: Lane, future: asyncio.Future,
                  enqueued: float, deadline: float):
@@ -173,6 +180,7 @@ class _Pending:
         self.future = future
         self.enqueued = enqueued
         self.deadline = deadline
+        self.span = tracing._NOP
 
 
 class _KindState:
@@ -252,6 +260,8 @@ class VerificationFarm:
             "max_occupancy": 0, "dispatch_s": 0.0, "rejected": 0,
             "queue_peak": {lane.name.lower(): 0 for lane in Lane},
         }
+        self._shared_stats = sanitize.SharedField("verify.farm.stats",
+                                                  mode="owner-write")
         self._group = LaneGroup(Lane, self.lane_bounds,
                                 make_exc=lambda: FarmClosed("farm closed"),
                                 on_depth=self._on_depth)
@@ -400,6 +410,7 @@ class VerificationFarm:
             raise FarmClosed("farm closed")
         self._bind()
         lane = Lane(lane)
+        self._shared_stats.touch()
         self.stats["requests"] += 1
         metrics.verify_farm_requests.inc(kind=req.kind,
                                          lane=lane.name.lower())
@@ -415,20 +426,35 @@ class VerificationFarm:
                 # a higher-priority caller must not inherit the queued
                 # twin's lane position
                 self._promote(ent, lane)
-            return await self._await(ent.future)
-        # backpressure: a full lane blocks ITS OWN submitters only (the
-        # waiter/slot-handoff semantics live in runtime/queue.py)
-        if self._group.count(lane) >= self.lane_bounds[lane]:
-            await self._group.acquire(lane)
-        now = self._loop.time()
-        pend = _Pending(req, lane, self._loop.create_future(), now,
-                        now + self.max_wait_s[lane])
-        st = self._kinds[req.kind]
-        st.lanes.append(pend)
-        self._group.dedup[key] = pend
-        self._ensure_worker(req.kind)
-        st.arrived.set()
-        return await self._await(pend.future)
+            # the twin's request span owns the lifecycle; this caller's
+            # span records that it coalesced onto it
+            async with tracing.span(
+                    "farm.request",
+                    {"kind": req.kind, "lane": lane.name.lower(),
+                     "dedup": True, "twin": ent.span.id}
+                    if tracing.is_enabled() else None):
+                return await self._await(ent.future)
+        sp = tracing.span("farm.request",
+                          {"kind": req.kind, "lane": lane.name.lower()}
+                          if tracing.is_enabled() else None)
+        with sp:
+            # backpressure: a full lane blocks ITS OWN submitters only
+            # (the waiter/slot-handoff semantics live in runtime/queue.py)
+            if self._group.count(lane) >= self.lane_bounds[lane]:
+                async with tracing.span("farm.lane_wait",
+                                        {"lane": lane.name.lower()}
+                                        if tracing.is_enabled() else None):
+                    await self._group.acquire(lane)
+            now = self._loop.time()
+            pend = _Pending(req, lane, self._loop.create_future(), now,
+                            now + self.max_wait_s[lane])
+            pend.span = sp
+            st = self._kinds[req.kind]
+            st.lanes.append(pend)
+            self._group.dedup[key] = pend
+            self._ensure_worker(req.kind)
+            st.arrived.set()
+            return await self._await(pend.future)
 
     @staticmethod
     async def _await(fut: asyncio.Future) -> bool:
@@ -544,21 +570,35 @@ class VerificationFarm:
         now = self._loop.time()
         for p in batch:
             self._group.release(p.lane)
+            wait = max(now - p.enqueued, 0.0)
             metrics.verify_farm_queue_wait_seconds.observe(
-                max(now - p.enqueued, 0.0), kind=p.req.kind)
+                wait, kind=p.req.kind)
+            p.span.set(queue_wait_ms=round(wait * 1e3, 3))
 
     async def _dispatch(self, kind: str, batch: list[_Pending]) -> None:
         from ..obs.remediate import BreakerOpen
 
+        # the batch span is the hub of the capture: its args carry the
+        # member request-span ids, and each member records the batch id
+        # back, so a request's wall time decomposes into lane wait vs its
+        # batch's backend dispatch
+        bsp = tracing.span("farm.batch",
+                           {"kind": kind, "n": len(batch),
+                            "members": [p.span.id for p in batch]}
+                           if tracing.is_enabled() else None)
+        for p in batch:
+            p.span.set(batch=bsp.id)
         t0 = time.perf_counter()
         br = self._breaker(kind)
         try:
-            if not br.allow():
-                # the kind's backend is known-dead: fail the batch fast
-                # (a half-open probe batch goes through after cooldown)
-                raise BreakerOpen(br.component, br.retry_in())
-            results = await asyncio.to_thread(
-                self._run_backend, kind, [p.req for p in batch])
+            with bsp:
+                if not br.allow():
+                    # the kind's backend is known-dead: fail the batch
+                    # fast (a half-open probe batch goes through after
+                    # the cooldown)
+                    raise BreakerOpen(br.component, br.retry_in())
+                results = await asyncio.to_thread(
+                    self._run_backend, kind, [p.req for p in batch])
         except Exception as exc:  # noqa: BLE001 — fail the batch, not the farm
             if not isinstance(exc, BreakerOpen):
                 br.record_failure()
@@ -581,6 +621,7 @@ class VerificationFarm:
             for p in batch:
                 if self._group.dedup.get(p.req.key()) is p:
                     del self._group.dedup[p.req.key()]
+            self._shared_stats.touch()
             self.stats["batches"] += 1
             self.stats["items"] += len(batch)
             if len(batch) > self.stats["max_occupancy"]:

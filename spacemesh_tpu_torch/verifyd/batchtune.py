@@ -321,35 +321,37 @@ class BatchTuner:
 
     def _race_kind(self, kind: str, builder) -> dict[int, float]:
         from ..core.signing import clear_verify_cache
-        from ..utils import metrics
+        from ..utils import metrics, tracing
 
         metrics.verifyd_batchtune_races.inc()
         self.stats["races"] += 1
         cands = [b for b in CANDIDATES[kind] if b <= self.max_batch] or [1]
         items = builder(max(cands))
         raced: dict[int, float] = {}
-        for b in cands:
-            reqs = items[:b]
-            try:
-                best = float("inf")
-                for _ in range(CAL_REPS):
-                    # the verdict LRU must not subsidize a rep: a
-                    # cached race would model cache-hit throughput,
-                    # not verification
-                    clear_verify_cache()
-                    t0 = time.perf_counter()
-                    self._backend(kind, reqs)
-                    best = min(best, time.perf_counter() - t0)
-                raced[b] = b / max(best, 1e-9)
-            except Exception as e:  # noqa: BLE001 — a failing candidate loses the race, it must not kill service start
-                _log(f"verifyd batchtune: {kind}/b={b} failed "
-                     f"({type(e).__name__}: {e})")
-        if raced:
-            best_b = max(raced, key=lambda b: raced[b])
-            _log(f"verifyd batchtune: {kind}: "
-                 + ", ".join(f"b{b}={raced[b]:,.0f}/s"
-                             for b in sorted(raced))
-                 + f" -> target {best_b} (persisted)")
+        with tracing.span("verifyd.batchtune_race", {"kind": kind}
+                          if tracing.is_enabled() else None):
+            for b in cands:
+                reqs = items[:b]
+                try:
+                    best = float("inf")
+                    for _ in range(CAL_REPS):
+                        # the verdict LRU must not subsidize a rep: a
+                        # cached race would model cache-hit throughput,
+                        # not verification
+                        clear_verify_cache()
+                        t0 = time.perf_counter()
+                        self._backend(kind, reqs)
+                        best = min(best, time.perf_counter() - t0)
+                    raced[b] = b / max(best, 1e-9)
+                except Exception as e:  # noqa: BLE001 — a failing candidate loses the race, it must not kill service start
+                    _log(f"verifyd batchtune: {kind}/b={b} failed "
+                         f"({type(e).__name__}: {e})")
+            if raced:
+                best_b = max(raced, key=lambda b: raced[b])
+                _log(f"verifyd batchtune: {kind}: "
+                     + ", ".join(f"b{b}={raced[b]:,.0f}/s"
+                                 for b in sorted(raced))
+                     + f" -> target {best_b} (persisted)")
         return raced
 
     # -- the live model -------------------------------------------------

@@ -28,10 +28,10 @@ outage — the verifyd-outage drill asserts it), the breaker's
 ``state_doc``, and an optional observer callback the drill uses to build
 its replay-stable event digest.
 
-Left out against the JAX package: the ``failover.remote`` /
-``failover.local`` spans (the port's instrumentation item) and the event
-bus (``node/events.py``, not ported): ``bus=`` stays in the signature
-and is ignored.
+Each remote attempt is a ``failover.remote`` span and each local answer a
+``failover.local`` span. Left out against the JAX package: the event bus
+(``node/events.py``, not ported): ``bus=`` stays in the signature and is
+ignored.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from typing import Callable, Optional
 import logging
 
 from ..obs import remediate as remediate_mod
-from ..utils import metrics
+from ..utils import metrics, tracing
 from ..verify.farm import Lane
 from .service import Shed
 
@@ -143,7 +143,10 @@ class FailoverVerifier:
             was_probe = self.breaker.state == remediate_mod.HALF_OPEN
             self.stats["remote_attempts"] += 1
             try:
-                verdicts = await self._remote_verify(reqs, lane)
+                async with tracing.span(
+                        "failover.remote", {"lane": lname, "n": len(reqs)}
+                        if tracing.is_enabled() else None):
+                    verdicts = await self._remote_verify(reqs, lane)
             except Shed as e:
                 if e.reason in _NON_TRIPPING_SHEDS:
                     # a config problem, not an outage: answer locally,
@@ -180,8 +183,12 @@ class FailoverVerifier:
         # local farm fallback (or fast-fail: breaker open, no attempt)
         path = PATH_LOCAL if attempted_remote else PATH_LOCAL_FASTFAIL
         self.stats["local" if attempted_remote else "local_fastfail"] += 1
-        verdicts = list(await asyncio.gather(
-            *(self.farm.submit(r, lane) for r in reqs)))
+        async with tracing.span("failover.local",
+                                {"lane": lname, "n": len(reqs),
+                                 "fastfail": not attempted_remote}
+                                if tracing.is_enabled() else None):
+            verdicts = list(await asyncio.gather(
+                *(self.farm.submit(r, lane) for r in reqs)))
         return self._done(path, lname, t0, len(reqs), verdicts)
 
     # -- internals -------------------------------------------------------

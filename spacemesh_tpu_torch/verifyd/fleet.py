@@ -33,13 +33,17 @@ endpoints) via :func:`fleet_from_urls`; the ``fleet`` drill
 imported only inside :meth:`HttpReplicaEndpoint._sess`, so this module
 imports without it.
 
-Left out against the JAX package: the trace plane — the router's
-``start_captures`` / ``pull_captures`` / ``merged_capture`` and the
-endpoint's ``trace_start`` / ``trace_export`` (the port's
-instrumentation item), the ``fleet.remote`` / ``fleet.local`` spans and
-the request's ``trace_parent`` token — and the event bus
-(``node/events.py``, not ported): ``bus=`` stays in the signatures and
-is ignored.
+The trace plane: the router starts a capture on every replica that
+serves ``/debug/trace`` (``start_captures``, each replica stamped
+``replica-<name>``), pulls each capture and ``/metrics`` into the
+federation (``pull_captures``) and merges them with the caller's own
+capture into one timeline (``merged_capture``). Each remote attempt is a
+``fleet.remote`` span whose link token rides in the verify body as
+``trace_parent``, so the replica's ``verifyd.request`` parents to it in
+the merged timeline; the local fallback is ``fleet.local``.
+
+Left out against the JAX package: the event bus (``node/events.py``, not
+ported): ``bus=`` stays in the signatures and is ignored.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from typing import Callable, Optional
 import logging
 
 from ..obs import remediate as remediate_mod
-from ..utils import metrics
+from ..utils import metrics, tracing
 from ..verify.farm import Lane
 from . import protocol
 from .routing import Placement
@@ -403,6 +407,53 @@ class FleetRouter:
         metrics.fleet_desired_replicas.set(desired)
         return {"scores": scores, "desired_replicas": desired}
 
+    # -- fleet observability: the pull-and-merge plane -------------------
+
+    async def start_captures(self, *, capacity: int | None = None) -> dict:
+        """Start a span capture on every replica that exposes the
+        /debug/trace surface (endpoints without it are skipped). Returns
+        {replica: start doc | None}."""
+        out: dict = {}
+        for name, rep in sorted(self.replicas.items()):
+            ep = rep.endpoint
+            if not hasattr(ep, "trace_start"):
+                continue
+            try:
+                out[name] = await ep.trace_start(
+                    capacity=capacity, role=f"replica-{name}")
+            except Exception:  # noqa: BLE001 — a dead replica is not news
+                out[name] = None
+        return out
+
+    async def pull_captures(self) -> dict:
+        """Pull every reachable replica's trace capture AND metrics
+        exposition into the federation under ``replica-<name>``; returns
+        {proc: capture doc} for the pulled captures. A replica that cannot
+        be scraped is skipped (its breaker already tells that story)."""
+        from ..obs.federate import FEDERATION
+
+        pulled: dict = {}
+        for name, rep in sorted(self.replicas.items()):
+            ep = rep.endpoint
+            if not hasattr(ep, "trace_export"):
+                continue
+            proc = f"replica-{name}"
+            try:
+                doc = await ep.trace_export()
+                text = await ep.metrics_text()
+            except Exception:  # noqa: BLE001 — unreachable replica
+                continue
+            FEDERATION.parse_and_update(proc, text, trace=doc)
+            pulled[proc] = doc
+        return pulled
+
+    def merged_capture(self, parent: dict | None = None) -> dict | None:
+        """One validate-clean timeline over the parent capture and every
+        federated replica capture (``tracing.merge_captures``)."""
+        from ..obs.federate import FEDERATION
+
+        return FEDERATION.merged_capture(parent=parent)
+
     # -- introspection ---------------------------------------------------
 
     def state_doc(self) -> dict:
@@ -519,8 +570,12 @@ class FleetVerifier:
                                   verdicts)
         path = PATH_LOCAL if attempted else PATH_LOCAL_FASTFAIL
         self.stats["local" if attempted else "local_fastfail"] += 1
-        verdicts = list(await asyncio.gather(
-            *(self.farm.submit(r, lane) for r in reqs)))
+        async with tracing.span("fleet.local",
+                                {"lane": lname, "n": len(reqs),
+                                 "fastfail": not attempted}
+                                if tracing.is_enabled() else None):
+            verdicts = list(await asyncio.gather(
+                *(self.farm.submit(r, lane) for r in reqs)))
         return self._done(path, path, lname, t0, len(reqs), verdicts)
 
     # -- internals -------------------------------------------------------
@@ -534,7 +589,12 @@ class FleetVerifier:
         kinds = [getattr(r, "kind", "?") for r in reqs]
         for retry in (False, True):
             try:
-                verdicts = await self._remote_verify(rep, cid, reqs, lane)
+                async with tracing.span(
+                        "fleet.remote",
+                        {"replica": rep.name, "n": len(reqs)}
+                        if tracing.is_enabled() else None):
+                    verdicts = await self._remote_verify(rep, cid, reqs,
+                                                         lane)
             except Shed as e:
                 if e.reason == protocol.SHED_UNREGISTERED and not retry:
                     # replica restarted and lost the registration:
@@ -718,6 +778,12 @@ class HttpReplicaEndpoint:
                 "items": [protocol.request_to_doc(r) for r in reqs]}
         if deadline_s is not None:
             body["deadline_s"] = deadline_s
+        # ship this caller's span identity so the replica's
+        # verifyd.request span can parent to our fleet.remote span in the
+        # merged fleet timeline
+        token = tracing.link_token()
+        if token:
+            body["trace_parent"] = token
         doc = await self._post("/v1/verify", body)
         verdicts = doc.get("verdicts")
         if doc.get("status") != "OK" or not isinstance(verdicts, list):
@@ -733,6 +799,28 @@ class HttpReplicaEndpoint:
         sess = await self._sess()
         async with sess.get(self.base_url + "/metrics") as resp:
             return await resp.text()
+
+    # -- fleet observability pulls (server.py /debug/trace/*) ----------
+
+    async def trace_start(self, *, capacity: int | None = None,
+                          role: str | None = None) -> dict:
+        """Start (or restart) a capture on the replica, stamping its
+        process identity so the merged timeline shows provenance."""
+        q = []
+        if capacity is not None:
+            q.append(f"capacity={int(capacity)}")
+        if role:
+            q.append(f"role={role}")
+        sess = await self._sess()
+        url = (self.base_url + "/debug/trace/start"
+               + ("?" + "&".join(q) if q else ""))
+        async with sess.get(url) as resp:
+            return await resp.json()
+
+    async def trace_export(self) -> dict:
+        sess = await self._sess()
+        async with sess.get(self.base_url + "/debug/trace/export") as resp:
+            return await resp.json()
 
     async def aclose(self) -> None:
         if self._own_session and self._session is not None:

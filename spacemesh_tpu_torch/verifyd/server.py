@@ -20,8 +20,11 @@ Routes:
   GET  /v1/stats              service + farm + tuner counters
   GET  /v1/tune               measured batch-rate model rows
   GET  /metrics               Prometheus exposition
-  GET  /healthz, /readyz      liveness / per-component readiness
-                              (the HEALTH registry's probes)
+  GET  /healthz, /readyz      liveness / readiness: the health engine's
+                              report (SLOs + the HEALTH registry's probes)
+  GET  /debug/trace/start     ?capacity=&role=  start a span capture
+  GET  /debug/trace/stop      stop it (the ring stays exportable)
+  GET  /debug/trace/export    the capture as trace-event JSON
 
 Shed mapping: admission rejections are HTTP 429 (overload family) or
 503 (``shutting_down``) with the typed doc — a client always learns WHY
@@ -32,10 +35,12 @@ loudly and identically.
 ``/metrics`` appends the federated series (``obs/federate.py``) after the
 local registry's. A service that is one fleet replica (``shard=``) names
 its ``replica_hint`` in every ``shutting_down`` shed this front-end
-makes. Left out against the JAX package, for the instrumentation item of
-the port: the ``/debug/trace/*`` capture routes and the SLO health engine
-behind ``/readyz`` (readiness here is every registered probe healthy); a
-``trace_parent`` field in a verify body is ignored.
+makes. A verify body's ``trace_parent`` (a caller's
+``tracing.link_token()``) rides into the ``verifyd.request`` span; the
+``/debug/trace/*`` routes are what ``FleetRouter.pull_captures`` scrapes
+to build the merged fleet timeline. ``/readyz`` serves the
+``HealthEngine`` (``obs/health.py``) over verifyd's SLIs and SLOs on the
+service's clock, and every probe of ``obs.health.HEALTH``.
 """
 
 from __future__ import annotations
@@ -79,8 +84,17 @@ class VerifydServer:
     def __init__(self, service: VerifydService | None = None,
                  listen: str = "127.0.0.1:0",
                  grpc_listen: str | None = None, **service_kw):
+        from ..obs import health as health_mod
+        from ..obs import sli as sli_mod
+
         self.service = service if service is not None \
             else VerifydService(**service_kw)
+        # the engine ticks the verifyd SLI window and evaluates the
+        # service SLOs on the clock admission runs on, so readiness
+        # reflects windowed truth, not instantaneous luck
+        self.health_engine = health_mod.HealthEngine(
+            slis=sli_mod.verifyd_slis(), slos=health_mod.verifyd_slos(),
+            time_source=self.service._now)
         host, _, port = listen.rpartition(":")
         self.host = host or "127.0.0.1"
         self.port = int(port or 0)
@@ -104,6 +118,9 @@ class VerifydServer:
         r.add_get("/metrics", self.metrics)
         r.add_get("/healthz", self.healthz)
         r.add_get("/readyz", self.readyz)
+        r.add_get("/debug/trace/start", self.trace_start)
+        r.add_get("/debug/trace/stop", self.trace_stop)
+        r.add_get("/debug/trace/export", self.trace_export)
 
     # -- lifecycle ------------------------------------------------------
 
@@ -111,6 +128,7 @@ class VerifydServer:
         """Start the service and both listeners; returns the HTTP port
         (``grpc_port`` is set when gRPC is enabled)."""
         await self.service.start()
+        self.health_engine.ensure_running()
         self.runner = web.AppRunner(self.web_app)
         await self.runner.setup()
         self._site = web.TCPSite(self.runner, self.host, self.port,
@@ -179,6 +197,7 @@ class VerifydServer:
             return
         self._closed = True
         await self.service.aclose()
+        self.health_engine.close()
         if self._grpc_server is not None:
             await self._grpc_server.stop(grace=1.0)
             self._grpc_server = None
@@ -226,8 +245,10 @@ class VerifydServer:
             except (TypeError, ValueError):
                 raise protocol.ProtocolError(
                     "deadline_s: expected a number") from None
+        trace_parent = body.get("trace_parent")
         verdicts = await self.service.verify(
-            str(cid), reqs, lane=lane, deadline_s=deadline)
+            str(cid), reqs, lane=lane, deadline_s=deadline,
+            trace_parent=(str(trace_parent) if trace_parent else None))
         return {"status": "OK", "verdicts": [bool(v) for v in verdicts]}
 
     # -- HTTP handlers --------------------------------------------------
@@ -294,6 +315,52 @@ class VerifydServer:
         return web.Response(text=REGISTRY.expose() + FEDERATION.expose(),
                             content_type="text/plain")
 
+    # -- span-trace capture (the fleet pull plane's scrape surface) ----
+
+    async def trace_start(self, req) -> web.Response:
+        from ..utils import metrics, tracing
+
+        try:
+            capacity = req.query.get("capacity")
+            capacity = int(capacity) if capacity else None
+        except ValueError:
+            raise web.HTTPBadRequest(text="capacity must be an integer")
+        role = req.query.get("role")
+        if role:
+            tracing.set_process_identity(role)
+        tracing.start(capacity=capacity, torch_bridge=False)
+        metrics.trace_enabled_gauge.set(1)
+        metrics.trace_spans_gauge.set(0)
+        return web.json_response({
+            "enabled": True,
+            "capacity": tracing.TRACER.capacity,
+            "role": tracing.process_identity()["role"],
+        })
+
+    async def trace_stop(self, req) -> web.Response:
+        del req
+        from ..utils import metrics, tracing
+
+        retained = tracing.stop()
+        metrics.trace_enabled_gauge.set(0)
+        metrics.trace_spans_gauge.set(tracing.TRACER.recorded())
+        return web.json_response({
+            "enabled": False,
+            "spans_retained": retained,
+            "spans_recorded": tracing.TRACER.recorded(),
+        })
+
+    async def trace_export(self, req) -> web.Response:
+        del req
+        from ..utils import metrics, tracing
+
+        metrics.trace_spans_gauge.set(tracing.TRACER.recorded())
+        # a big ring materializes AND serializes slowly: both off the loop
+        # (export() tolerates concurrent recording)
+        body = await asyncio.to_thread(
+            lambda: json.dumps(tracing.export()))
+        return web.Response(text=body, content_type="application/json")
+
     async def healthz(self, req) -> web.Response:
         del req
         # liveness: the process serves; stalls are /readyz's job
@@ -302,14 +369,11 @@ class VerifydServer:
 
     async def readyz(self, req) -> web.Response:
         del req
-        from ..obs import health as health_mod
-
-        components = health_mod.HEALTH.report()
-        ready = (all(e["healthy"] for e in components.values())
-                 and not self.service._closed)
-        report = {"ready": ready, "components": components,
-                  "service": self.service.stats_doc()}
-        return web.json_response(report, status=200 if ready else 503)
+        report = dict(self.health_engine.current_report())
+        report["ready"] = bool(report["ready"]) and not self.service._closed
+        report["service"] = self.service.stats_doc()
+        return web.json_response(
+            report, status=200 if report["ready"] else 503)
 
     # -- gRPC handlers (same docs, same semantics) ----------------------
 

@@ -35,9 +35,12 @@ makes it one replica of a verifyd fleet in a process shared with others
 (``verifyd/fleet.py``): tenant ids, the health component, the recovery
 hook and the per-client metric identities are shard-namespaced, and
 ``replica_hint`` names a peer in the ``registry_full`` and
-``shutting_down`` sheds. Left out against the JAX package: the spans and
-the ``trace_parent`` link of ``verify`` (the instrumentation item of the
-port).
+``shutting_down`` sheds. Each admitted request is a ``verifyd.request``
+span (carrying the caller's ``trace_parent`` link token, which
+``tracing.merge_captures`` resolves into a cross-process parent edge),
+and its drain into the farm a ``verifyd.drain`` span under it, so the
+chain ``verifyd.request -> verifyd.drain -> farm.request -> farm.batch``
+holds across the scheduler's worker thread.
 
 Shutdown (``aclose``) stops admission (``shutting_down`` sheds), drains
 admitted work, then closes the scheduler and farm — zero stranded
@@ -57,7 +60,7 @@ from ..runtime.scheduler import (
     SchedulerClosed,
     TenantScheduler,
 )
-from ..utils import metrics
+from ..utils import metrics, tracing
 from ..verify import farm as farm_mod
 from ..verify.farm import Lane, VerificationFarm
 from . import batchtune, protocol
@@ -416,10 +419,14 @@ class VerifydService:
 
     async def verify(self, client_id: str, reqs: list,
                      lane: Lane = Lane.GOSSIP,
-                     deadline_s: float | None = None) -> list[bool]:
+                     deadline_s: float | None = None,
+                     trace_parent: str | None = None) -> list[bool]:
         """Admit one request (a list of farm request objects) and await
         its verdicts.  Raises :class:`Shed` (typed) on rejection and
         :class:`VerifydClosed` when the service shuts down mid-flight.
+        ``trace_parent`` is an opaque caller-side span link token
+        (``tracing.link_token()``); merge_captures() resolves it into a
+        cross-process parent edge on the ``verifyd.request`` span.
         """
         cid = str(client_id)
         self.stats["requests"] += 1
@@ -471,99 +478,116 @@ class VerifydService:
                            f"predicted wait {est:.3f}s exceeds "
                            f"deadline {deadline_s:.3f}s",
                            retry_after_s=est)
-        loop = asyncio.get_running_loop()
-        self._loop = loop
+        attrs = ({"client": cid, "lane": lane.name.lower(), "n": n}
+                 if tracing.is_enabled() else None)
+        if attrs is not None and trace_parent:
+            attrs["link"] = trace_parent
+        sp = tracing.span("verifyd.request", attrs)
+        with sp:
+            parent = sp.id if tracing.is_enabled() else None
+            loop = asyncio.get_running_loop()
+            self._loop = loop
 
-        def quantum():
-            # scheduler worker thread: release this request's items
-            # into the farm (on the loop) and wait for verdicts —
-            # the wall cost charges the client's fair-share vtime
-            return asyncio.run_coroutine_threadsafe(
-                self._drain_into_farm(reqs, lane), loop).result()
+            def quantum():
+                # scheduler worker thread: release this request's items
+                # into the farm (on the loop) and wait for verdicts —
+                # the wall cost charges the client's fair-share vtime
+                return asyncio.run_coroutine_threadsafe(
+                    self._drain_into_farm(reqs, lane, parent), loop).result()
 
-        try:
-            handle = self.scheduler.submit_call(
-                cid, quantum, kind="verifyd", deadline_s=deadline_s)
-        except QuotaExceeded as exc:
-            self._shed(c, cid, protocol.SHED_QUOTA, str(exc),
-                       retry_after_s=self.estimated_wait_s())
-        except KeyError:
-            self._shed(c, cid, protocol.SHED_UNREGISTERED,
-                       f"client {cid!r} lost its tenant")
-        except SchedulerClosed:
-            raise VerifydClosed("scheduler closed") from None
-        self._pending_items += n
-        c.pending += n
-        c.admitted += n
-        self.stats["admitted_items"] += n
-        self.stats["pending_peak"] = max(self.stats["pending_peak"],
-                                         self._pending_items)
-        self._gauge_pending()
-        metrics.verifyd_client_pending.set(c.pending,
-                                           client=self._mcid(cid))
-        t0 = self._now()
-        settled = False
-
-        def settle() -> None:
-            # pending-item accounting releases when the WORK is
-            # done, not when the awaiter goes away — a cancelled
-            # await (client disconnect) leaves the quantum running
-            # and its items still occupying the farm, and freeing
-            # their admission slots early would let a
-            # disconnect-churn loop bypass the overload shed
-            nonlocal settled
-            if settled:
-                return
-            settled = True
-            dt = self._now() - t0
-            self._pending_items -= n
-            self.stats["resolved_items"] += n
-            if dt > 0:
-                rate = n / dt
-                self._rate_ewma = rate if self._rate_ewma <= 0 else (
-                    0.2 * rate + 0.8 * self._rate_ewma)
+            try:
+                handle = self.scheduler.submit_call(
+                    cid, quantum, kind="verifyd", deadline_s=deadline_s)
+            except QuotaExceeded as exc:
+                self._shed(c, cid, protocol.SHED_QUOTA, str(exc),
+                           retry_after_s=self.estimated_wait_s())
+            except KeyError:
+                self._shed(c, cid, protocol.SHED_UNREGISTERED,
+                           f"client {cid!r} lost its tenant")
+            except SchedulerClosed:
+                raise VerifydClosed("scheduler closed") from None
+            self._pending_items += n
+            c.pending += n
+            c.admitted += n
+            self.stats["admitted_items"] += n
+            self.stats["pending_peak"] = max(self.stats["pending_peak"],
+                                             self._pending_items)
             self._gauge_pending()
-            live = self.clients.get(cid)
-            if live is c:
-                c.pending -= n
-                metrics.verifyd_client_pending.set(
-                    c.pending, client=self._mcid(cid))
+            metrics.verifyd_client_pending.set(c.pending,
+                                               client=self._mcid(cid))
+            t0 = self._now()
+            settled = False
 
-        try:
-            verdicts = await asyncio.wrap_future(handle.future)
-        except (SchedulerClosed, farm_mod.FarmClosed) as exc:
+            def settle() -> None:
+                # pending-item accounting releases when the WORK is
+                # done, not when the awaiter goes away — a cancelled
+                # await (client disconnect) leaves the quantum running
+                # and its items still occupying the farm, and freeing
+                # their admission slots early would let a
+                # disconnect-churn loop bypass the overload shed
+                nonlocal settled
+                if settled:
+                    return
+                settled = True
+                dt = self._now() - t0
+                self._pending_items -= n
+                self.stats["resolved_items"] += n
+                if dt > 0:
+                    rate = n / dt
+                    self._rate_ewma = rate if self._rate_ewma <= 0 else (
+                        0.2 * rate + 0.8 * self._rate_ewma)
+                self._gauge_pending()
+                live = self.clients.get(cid)
+                if live is c:
+                    c.pending -= n
+                    metrics.verifyd_client_pending.set(
+                        c.pending, client=self._mcid(cid))
+
+            try:
+                verdicts = await asyncio.wrap_future(handle.future)
+            except (SchedulerClosed, farm_mod.FarmClosed) as exc:
+                settle()
+                raise VerifydClosed(str(exc)) from None
+            except asyncio.CancelledError:
+                handle.cancel()  # stops it if still queued
+
+                def on_done(_f) -> None:
+                    try:  # worker thread -> loop (state is loop-only)
+                        loop.call_soon_threadsafe(settle)
+                    except RuntimeError:  # loop gone at teardown
+                        pass
+
+                handle.future.add_done_callback(on_done)
+                raise
+            except BaseException:
+                settle()
+                raise
             settle()
-            raise VerifydClosed(str(exc)) from None
-        except asyncio.CancelledError:
-            handle.cancel()  # stops it if still queued
+            metrics.verifyd_request_seconds.observe(
+                max(self._now() - t0, 0.0), lane=lane.name.lower())
+            metrics.verifyd_requests.inc(client=self._mcid(cid),
+                                         outcome="ok")
+            kinds: dict[str, int] = {}
+            for r in reqs:
+                kinds[r.kind] = kinds.get(r.kind, 0) + 1
+            for kind, count in kinds.items():
+                metrics.verifyd_items.inc(count, client=self._mcid(cid),
+                                          kind=kind)
+            return verdicts
 
-            def on_done(_f) -> None:
-                try:  # worker thread -> loop (state is loop-only)
-                    loop.call_soon_threadsafe(settle)
-                except RuntimeError:  # loop gone at teardown
-                    pass
-
-            handle.future.add_done_callback(on_done)
-            raise
-        except BaseException:
-            settle()
-            raise
-        settle()
-        metrics.verifyd_request_seconds.observe(
-            max(self._now() - t0, 0.0), lane=lane.name.lower())
-        metrics.verifyd_requests.inc(client=self._mcid(cid),
-                                     outcome="ok")
-        kinds: dict[str, int] = {}
-        for r in reqs:
-            kinds[r.kind] = kinds.get(r.kind, 0) + 1
-        for kind, count in kinds.items():
-            metrics.verifyd_items.inc(count, client=self._mcid(cid),
-                                      kind=kind)
-        return verdicts
-
-    async def _drain_into_farm(self, reqs: list, lane: Lane) -> list[bool]:
-        return list(await asyncio.gather(
-            *(self.farm.submit(r, lane) for r in reqs)))
+    async def _drain_into_farm(self, reqs: list, lane: Lane,
+                               parent) -> list[bool]:
+        # run_coroutine_threadsafe copies the WORKER thread's context, so
+        # the request span is re-established explicitly: the farm.request
+        # spans below parent into it, and their farm.batch linkage closes
+        # the client -> batch causal chain
+        async with tracing.span("verifyd.drain",
+                                {"n": len(reqs),
+                                 "lane": lane.name.lower()}
+                                if tracing.is_enabled() else None,
+                                parent=parent):
+            return list(await asyncio.gather(
+                *(self.farm.submit(r, lane) for r in reqs)))
 
     # -- introspection --------------------------------------------------
 

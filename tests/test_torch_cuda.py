@@ -438,3 +438,57 @@ def test_verify_many_and_search_on_the_card_never_reach_the_plain_twins(
     assert pow_cuda.search_launches > before
     assert nonce == want_nonce
     assert k2pow.verify(COMMIT, COMMIT, diff, nonce)
+
+
+# --- the span tracer's torch.profiler bridge on the card --------------------
+
+
+def test_bridged_spans_enclose_the_label_launches(dev):
+    """With the bridge on inside a profiler capture, each kernel of a label
+    batch (expand, ROMix, finish) joins its launch by the profiler's
+    correlation, and the launch lies inside the batch's ``romix.dispatch``
+    range on the launching thread."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from spacemesh_tpu_torch.utils import tracing
+
+    lo, hi = scrypt.split_indices(np.arange(512, dtype=np.uint64))
+    cw = u32.from_numpy(scrypt.commitment_to_words(COMMIT), dev)
+    args = (cw, u32.from_numpy(lo, dev), u32.from_numpy(hi, dev))
+    scrypt.scrypt_labels_words(*args, n=1024)  # built and warm
+    torch.cuda.synchronize()
+    tracing.start(capacity=256, torch_bridge=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                scrypt.scrypt_labels_words(*args, n=1024)
+            torch.cuda.synchronize()
+    finally:
+        tracing.stop()
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        events = json.load(open(f.name))["traceEvents"]
+    xs = [e for e in events if e.get("ph") == "X"]
+    ranges = [e for e in xs if e.get("cat") == "user_annotation"
+              and e["name"] == "romix.dispatch"]
+    launches = {(e.get("args") or {}).get("correlation"): e for e in xs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    joined = 0
+    for k in xs:
+        if k.get("cat") != "kernel" or not any(
+                n in k["name"] for n in ("expand_kernel", "romix_kernel",
+                                         "finish_kernel")):
+            continue
+        launch = launches[k["args"]["correlation"]]
+        assert any(r["tid"] == launch["tid"] and r["ts"] <= launch["ts"]
+                   and launch["ts"] + launch["dur"] <= r["ts"] + r["dur"]
+                   for r in ranges), launch
+        joined += 1
+    assert len(ranges) == 3 and joined == 9
+    spans = [e for e in tracing.export()["traceEvents"]
+             if e.get("name") == "romix.dispatch"]
+    assert len(spans) == 3 and tracing.validate(tracing.export()) == []

@@ -9,7 +9,10 @@ failback on recovery — and the cookbook client's bounded
 ``retry_after_s``-honoring backoff (the sleeps asserted against the
 shared ``backoff_delay`` rule, zero real sleeping).  Verdict
 bit-identity remote-vs-local at workload scale is the verifyd-outage
-drill's job (tests/test_torch_sim_fleet.py).
+drill's job (tests/test_torch_sim_fleet.py). Then the runtime engine's
+breaker and fallback (twins of ``tests/test_runtime_engine.py``'s), and
+the port's deliberate difference: no entry point passes a fallback, and a
+failed k2pow window launch on the card raises.
 """
 
 import asyncio
@@ -353,3 +356,167 @@ def test_client_non_retryable_sheds_and_opt_out():
         assert c2.attempts == 1 and c2.sleeps == []
 
     asyncio.run(run())
+
+
+# --- the runtime engine's breaker and fallback ------------------------------
+#
+# Twins of tests/test_runtime_engine.py's fallback and breaker tests on the
+# port's Pipeline (the hooks the runtime-degrade drill drives), then the
+# deliberate difference: no entry point of the port passes a fallback.
+
+
+def test_pipeline_fallback_on_dispatch_failure():
+    from spacemesh_tpu_torch.runtime import engine
+
+    before = sum(metrics.runtime_fallbacks.sample().values())
+
+    def dispatch(i):
+        if i == 1:
+            raise RuntimeError("device down")
+        return ("dev", i)
+
+    pipe = engine.Pipeline(kind="t", inflight=2,
+                           fallback=lambda i, exc: ("host", i))
+    out = []
+    pipe.run(range(3), dispatch, out.append)
+    assert out == [("dev", 0), ("host", 1), ("dev", 2)]
+    assert pipe.stats.fallbacks == 1
+    assert sum(metrics.runtime_fallbacks.sample().values()) == before + 1
+    with pytest.raises(RuntimeError):
+        engine.Pipeline(kind="t").run(range(3), dispatch, out.append)
+
+
+def test_pipeline_sustained_failure_repays_device_without_breaker():
+    from spacemesh_tpu_torch.runtime import engine
+
+    attempts = [0]
+
+    def dispatch(i):
+        attempts[0] += 1
+        raise RuntimeError("device permanently dead")
+
+    pipe = engine.Pipeline(kind="t-nobreak", inflight=2,
+                           fallback=lambda i, exc: ("host", i))
+    pipe.run(range(50), dispatch, lambda t: None)
+    assert attempts[0] == 50
+    assert pipe.stats.fallbacks == 50
+
+
+def test_pipeline_breaker_stops_repaying_dead_device():
+    from spacemesh_tpu_torch.runtime import engine
+
+    clock = [0.0]
+    br = remediate.CircuitBreaker("t-dev", failure_budget=3,
+                                  window_s=60.0, cooldown_s=30.0,
+                                  time_source=lambda: clock[0])
+    attempts = [0]
+
+    def dispatch(i):
+        attempts[0] += 1
+        raise RuntimeError("device permanently dead")
+
+    before = sum(metrics.runtime_fallbacks.sample().values())
+    out = []
+    pipe = engine.Pipeline(kind="t-break", inflight=2, breaker=br,
+                           fallback=lambda i, exc: ("host", i, exc))
+    pipe.run(range(50), dispatch, out.append)
+    assert attempts[0] == 3
+    assert len(out) == 50
+    assert pipe.stats.fallbacks == 50
+    assert sum(metrics.runtime_fallbacks.sample().values()) == before + 50
+    assert br.state == remediate.OPEN
+    assert isinstance(out[-1][2], remediate.BreakerOpen)
+    clock[0] = 100.0
+    good = engine.Pipeline(kind="t-break", inflight=2, breaker=br,
+                           fallback=lambda i, exc: ("host", i, exc))
+    dev_out = []
+    good.run(range(5), lambda i: ("dev", i), dev_out.append)
+    assert good.stats.fallbacks == 0
+    assert dev_out == [("dev", i) for i in range(5)]
+    assert br.state == remediate.CLOSED
+
+
+def test_pipeline_breaker_open_without_fallback_raises_typed():
+    from spacemesh_tpu_torch.runtime import engine
+
+    br = remediate.CircuitBreaker("t-nofb", failure_budget=1,
+                                  cooldown_s=30.0,
+                                  time_source=lambda: 0.0)
+
+    def dispatch(i):
+        raise RuntimeError("dead")
+
+    with pytest.raises(RuntimeError, match="dead"):
+        engine.Pipeline(kind="t", breaker=br).run(range(2), dispatch,
+                                                  lambda t: None)
+    assert br.state == remediate.OPEN
+    with pytest.raises(remediate.BreakerOpen):
+        engine.Pipeline(kind="t", breaker=br).run(range(2), dispatch,
+                                                  lambda t: None)
+
+
+def test_pipeline_dispatch_span_carries_kind_tenant_and_attrs():
+    from spacemesh_tpu_torch.runtime import engine
+    from spacemesh_tpu_torch.utils import tracing
+
+    tracing.start(capacity=64)
+    try:
+        engine.Pipeline(kind="k", tenant="t1", span="job",
+                        attrs=lambda i: {"item": i}).run(
+            range(2), lambda i: i, lambda t: None)
+        engine.Pipeline(kind="k").run(range(2), lambda i: i,
+                                      lambda t: None)  # span=None: none
+    finally:
+        tracing.stop()
+    evs = [e for e in tracing.export()["traceEvents"] if e["ph"] == "X"]
+    assert [e["name"] for e in evs] == ["job.dispatch", "job.dispatch"]
+    assert [e["args"]["item"] for e in evs] == [0, 1]
+    assert all(e["args"]["kind"] == "k" and e["args"]["tenant"] == "t1"
+               for e in evs)
+
+
+def test_pow_search_on_the_card_raises_when_a_window_launch_fails(
+        monkeypatch):
+    """The JAX search hands a failing device dispatch to a host re-scan;
+    the port's does not: with the window launch stubbed to fail,
+    ``ops.pow.search(device="cuda")`` raises and nothing falls back."""
+    import torch
+
+    from spacemesh_tpu_torch.ops import pow as tpow
+    from spacemesh_tpu_torch.ops import pow_cuda
+
+    def failing_launch(*args, **kwargs):
+        raise RuntimeError("window launch failed")
+
+    hashed = []
+    monkeypatch.setattr(pow_cuda, "search_window", failing_launch)
+    monkeypatch.setattr(pow_cuda, "pow_hash_batch",
+                        lambda *a, **k: hashed.append(1))
+    monkeypatch.setattr(pow_cuda, "new_cell",
+                        lambda device: torch.full((1,), -1,
+                                                  dtype=torch.int64))
+    monkeypatch.setattr(tpow, "resolve", torch.device)
+    before = sum(metrics.runtime_fallbacks.sample().values())
+    with pytest.raises(RuntimeError, match="window launch failed"):
+        tpow.search(b"\x01" * 32, b"\x02" * 32, bytes([255]) * 32,
+                    device="cuda")
+    assert hashed == []
+    assert sum(metrics.runtime_fallbacks.sample().values()) == before
+
+
+def test_no_entry_point_of_the_port_passes_a_fallback():
+    """Only the runtime-degrade drill wires ``fallback=``/``breaker=``
+    into the engine (its stand-in device); the card's paths never do."""
+    import ast
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent / "spacemesh_tpu_torch"
+    users = set()
+    for path in root.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            func = getattr(node, "func", None)
+            name = getattr(func, "attr", getattr(func, "id", None))
+            if name == "Pipeline" and any(
+                    k.arg in ("fallback", "breaker") for k in node.keywords):
+                users.add(str(path.relative_to(root)))
+    assert users == {"sim/failover.py"}, users

@@ -1,17 +1,21 @@
-"""The port's circuit breaker and registries
+"""The port's circuit breaker, registries and remediation engine
 (``spacemesh_tpu_torch/obs/remediate.py``), held to the JAX package's.
 
-Twins of the breaker and registry tests of ``tests/test_remediate.py``
-on injected clocks (the quarantine test, the engine and the flight
-bundles wait for the port's remediation engine), plus a seeded fuzz of
-breaker operations through both packages' breakers side by side: equal
-``state``, ``retry_in`` and ``state_doc`` after every step, and equal
-transition callbacks.
+Twins of ``tests/test_remediate.py`` on injected clocks (the breaker with
+QUARANTINED and ``reset``, the registries, the ``RemediationEngine``'s
+policy, budgets, escalation and history, the breaker states in flight
+manifests; the event-bus test waits for the bus, ROADMAP [13]), plus a
+seeded fuzz of breaker operations (``quarantine_after``, ``quarantine()``
+and ``reset()`` among them) through both packages' breakers side by
+side: equal ``state``, ``retry_in`` and ``state_doc`` after every step,
+and equal transition callbacks; and one verdict script through both
+packages' engines with equal action records.
 """
 
-import pytest
-
+import json
 import random
+
+import pytest
 
 from spacemesh_tpu.obs import remediate as jremediate
 from spacemesh_tpu_torch.obs import remediate
@@ -261,6 +265,7 @@ def _pair(seed: int, clock: Clock):
               window_s=rng.choice([5.0, 10.0, 60.0]),
               cooldown_s=rng.choice([0.5, 1.0, 2.0]),
               cooldown_cap_s=rng.choice([4.0, 8.0, 30.0]),
+              quarantine_after=rng.choice([0, 2, 3]),
               seed=seed, time_source=clock.now)
     seen = ([], [])
     j = jremediate.CircuitBreaker(
@@ -277,7 +282,10 @@ def test_breaker_fuzz_equals_the_jax_breaker(seed):
     rng = random.Random(1000 + seed)
     for step in range(400):
         op = rng.choice(["allow", "allow", "success", "failure",
-                         "failure_hint", "abort", "advance", "advance"])
+                         "failure_hint", "abort", "advance", "advance",
+                         "failure", "quarantine", "reset"]
+                        if rng.random() < 0.97 else ["quarantine",
+                                                      "reset"])
         if op == "allow":
             assert j.allow() == t.allow(), step
         elif op == "success":
@@ -293,6 +301,12 @@ def test_breaker_fuzz_equals_the_jax_breaker(seed):
         elif op == "abort":
             j.abort_probe()
             t.abort_probe()
+        elif op == "quarantine":
+            j.quarantine()
+            t.quarantine()
+        elif op == "reset":
+            j.reset()
+            t.reset()
         else:
             clock.advance(rng.choice([0.05, 0.4, 1.0, 3.0, 12.0]))
         assert t.state == j.state, (step, op)
@@ -300,3 +314,221 @@ def test_breaker_fuzz_equals_the_jax_breaker(seed):
         assert t.state_doc() == j.state_doc(), (step, op)
         assert seen[1] == seen[0], (step, op)
     assert seen[0], "the fuzz drove some transitions"
+    assert any(to == remediate.QUARANTINED for _, to in seen[0])
+
+
+# --- QUARANTINED and reset --------------------------------------------------
+
+
+def test_breaker_quarantine_after_consecutive_opens_and_reset():
+    clock = Clock()
+    br = _breaker(clock, quarantine_after=2)
+    for _ in range(3):
+        br.record_failure()
+    assert br.state == remediate.OPEN
+    clock.advance(br.retry_in())
+    assert br.allow()
+    br.record_failure()                     # second consecutive open
+    assert br.state == remediate.QUARANTINED
+    clock.advance(1e9)
+    assert not br.allow()                   # only reset() leaves
+    br.record_failure()                     # ignored while quarantined
+    assert br.state == remediate.QUARANTINED
+    br.reset()
+    assert br.state == remediate.CLOSED and br.allow()
+    assert remediate.STATE_CODES[remediate.QUARANTINED] == 3.0
+
+
+# --- the engine ---------------------------------------------------------
+
+
+def _engine(clock, rules, mod=remediate, **kw):
+    return mod.RemediationEngine(policy=rules, time_source=clock.now, **kw)
+
+
+def test_engine_runs_hook_and_records_everything():
+    clock = Clock(100.0)
+    eng = _engine(clock, [remediate.RecoveryRule(
+        component="farm.*", action="reset_farm_lanes", budget=3,
+        window_s=60.0, cooldown_s=5.0)])
+    ran = []
+    remediate.ACTIONS.register("farm.x", "reset_farm_lanes",
+                               lambda: ran.append(1))
+    key = (("action", "reset_farm_lanes"), ("component", "farm.x"),
+           ("outcome", "ok"))
+    try:
+        before = metrics.remediation_actions.sample().get(key, 0)
+        rec = eng.handle_component("farm.x", "stalled 31s")
+        assert rec["outcome"] == "ok" and rec["ran"] and ran == [1]
+        assert metrics.remediation_actions.sample()[key] == before + 1
+        assert eng.history[-1]["component"] == "farm.x"
+        assert eng.budgets()["farm.x"]["used"] == 1
+    finally:
+        remediate.ACTIONS.unregister("farm.x", "reset_farm_lanes")
+
+
+def test_engine_cooldown_rate_limits_and_recovery_clears_it():
+    clock = Clock()
+    eng = _engine(clock, [remediate.RecoveryRule(
+        component="c", action="restart_component", budget=10,
+        window_s=600.0, cooldown_s=30.0)])
+    assert eng.handle_component("c")["outcome"] == "no_hook"
+    assert eng.handle_component("c")["outcome"] == "rate_limited"
+    clock.advance(31.0)
+    assert eng.handle_component("c")["outcome"] == "no_hook"
+    eng.note_recovered("c")
+    assert eng.handle_component("c")["outcome"] == "no_hook"
+
+
+def test_engine_budget_exhaustion_escalates_to_quarantine():
+    clock = Clock()
+    eng = _engine(clock, [remediate.RecoveryRule(
+        component="flappy", action="restart_component", budget=2,
+        window_s=600.0, cooldown_s=0.0)])
+    ran = []
+    br = remediate.CircuitBreaker("flappy", time_source=clock.now)
+    remediate.BREAKERS.register(br)
+    remediate.ACTIONS.register("flappy", "restart_component",
+                               lambda: ran.append(1))
+    try:
+        for _ in range(2):
+            assert eng.handle_component("flappy")["outcome"] == "ok"
+            clock.advance(1.0)
+        rec = eng.handle_component("flappy")
+        assert rec["action"] == "quarantine_component"
+        assert rec["outcome"] == "escalated"
+        assert br.state == remediate.QUARANTINED
+        clock.advance(1.0)
+        assert eng.handle_component("flappy")["outcome"] == "quarantined"
+        assert ran == [1, 1]
+        assert eng.budgets()["flappy"]["quarantined"] is True
+        assert "flappy" in eng.snapshot()["quarantined"]
+    finally:
+        remediate.ACTIONS.unregister("flappy", "restart_component")
+        remediate.BREAKERS.unregister(br)
+
+
+def test_engine_hook_error_is_recorded_never_propagates():
+    clock = Clock()
+    eng = _engine(clock, [remediate.RecoveryRule(
+        component="bad", action="restart_component", cooldown_s=0.0)])
+
+    def boom():
+        raise RuntimeError("hook exploded")
+
+    remediate.ACTIONS.register("bad", "restart_component", boom)
+    try:
+        assert eng.handle_component("bad")["outcome"] == "error"
+    finally:
+        remediate.ACTIONS.unregister("bad", "restart_component", boom)
+
+
+def test_engine_slo_trigger_and_first_match_wins():
+    clock = Clock()
+    eng = _engine(clock, [
+        remediate.RecoveryRule(component="farm_*", trigger="slo_breach",
+                               action="shed_and_alert", cooldown_s=0.0),
+        remediate.RecoveryRule(component="*", trigger="slo_breach",
+                               action="restart_component",
+                               cooldown_s=0.0),
+    ])
+    assert eng.handle_slo("farm_queue_wait", "burn 0.4")["action"] == \
+        "shed_and_alert"
+    assert eng.handle_slo("layer_apply_latency")["action"] == \
+        "restart_component"
+    assert eng.handle_component("farm_queue_wait") is None
+
+
+def test_engine_history_is_bounded():
+    clock = Clock()
+    eng = _engine(clock, [remediate.RecoveryRule(
+        component="*", action="shed_and_alert", budget=10_000,
+        window_s=1.0, cooldown_s=0.0)], history=16)
+    for i in range(50):
+        eng.handle_component(f"c{i % 4}")
+        clock.advance(2.0)
+    assert len(eng.history) == 16
+
+
+def test_default_policy_and_action_kinds_equal_the_jax_package():
+    import dataclasses
+
+    assert remediate.ACTION_KINDS == jremediate.ACTION_KINDS
+    assert [dataclasses.asdict(r) for r in remediate.default_policy()] == \
+        [dataclasses.asdict(r) for r in jremediate.default_policy()]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_engine_records_equal_the_jax_engine(seed):
+    """One seeded verdict script (unhealthy verdicts, SLO breaches,
+    recoveries, time steps) through both packages' engines under their
+    default policies: the same action record after every verdict, and the
+    same budgets at the end."""
+    rng = random.Random(seed)
+    clock = Clock(10.0)
+    port = _engine(clock, None)
+    jax = _engine(clock, None, mod=jremediate)
+    comps = ["verify.farm", "verifyd.replica.r1", "verifyd", "verifyd.r0",
+             "post.init", "post.writer", "sync", "unknown.thing"]
+    slos = ["farm_queue_wait", "verifyd_block_latency"]
+    for step in range(300):
+        op = rng.random()
+        if op < 0.55:
+            c = rng.choice(comps)
+            assert port.handle_component(c, "r") == \
+                jax.handle_component(c, "r"), step
+        elif op < 0.7:
+            s = rng.choice(slos)
+            assert port.handle_slo(s, "b") == jax.handle_slo(s, "b"), step
+        elif op < 0.8:
+            c = rng.choice(comps)
+            port.note_recovered(c)
+            jax.note_recovered(c)
+        else:
+            clock.advance(rng.choice([1.0, 30.0, 61.0, 300.0]))
+    assert port.budgets() == jax.budgets()
+    assert list(port.history) == list(jax.history)
+    assert any(r["outcome"] == "escalated" for r in port.history)
+
+
+# --- breaker states in flight manifests -----------------------------------
+
+
+def test_breaker_state_survives_into_flight_manifest(tmp_path):
+    from spacemesh_tpu_torch.obs import health as health_mod
+
+    clock = Clock(50.0)
+    br = remediate.CircuitBreaker("manifest-test", failure_budget=1,
+                                  time_source=clock.now)
+    remediate.BREAKERS.register(br)
+    br.record_failure()
+    eng = health_mod.HealthEngine(spool_dir=tmp_path,
+                                  time_source=clock.now)
+    eng.remediation = remediate.RemediationEngine(time_source=clock.now)
+    try:
+        path = eng.dump_flight("test")
+        manifest = json.loads(
+            (tmp_path / path.split("/")[-1] / "manifest.json").read_text())
+        doc = manifest["remediation"]["breakers"]["manifest-test"]
+        assert doc["state"] == "open"
+        assert doc["failure_budget"] == 1
+        assert manifest["remediation"]["actions"] == []
+    finally:
+        eng.close()
+        remediate.BREAKERS.unregister(br)
+
+
+def test_flight_manifest_falls_back_to_global_breakers(tmp_path):
+    from spacemesh_tpu_torch.obs import flight as flight_mod
+
+    clock = Clock()
+    br = remediate.CircuitBreaker("global-fb", time_source=clock.now)
+    remediate.BREAKERS.register(br)
+    try:
+        rec = flight_mod.FlightRecorder(tmp_path, time_source=clock.now)
+        path = rec.dump("test")
+        manifest = json.loads((path / "manifest.json").read_text())
+        assert manifest["remediation"]["breakers"][
+            "global-fb"]["state"] == "closed"
+    finally:
+        remediate.BREAKERS.unregister(br)

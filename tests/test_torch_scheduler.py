@@ -57,7 +57,7 @@ from spacemesh_tpu_torch.runtime import TenantScheduler, engine, workloads
 from spacemesh_tpu_torch.runtime.scheduler import (QuotaExceeded,
                                                    SchedulerClosed,
                                                    ShardScheduler)
-from spacemesh_tpu_torch.utils import metrics
+from spacemesh_tpu_torch.utils import metrics, tracing
 
 N = 16           # packed-init N
 PACK = 256       # the JAX scheduler's pack width in the packed-init tests
@@ -654,6 +654,93 @@ def test_multi_tenant_mixed_e2e(tmp_path, prove_store):
         kv for key in quanta if ("tenant", "prover") in key for kv in key}
     assert metrics.runtime_dispatched.sample()[
         (("kind", "prove"), ("tenant", "prover"))] > 0
+
+
+def test_traced_prove_session_hops_worker_threads(tmp_path, prove_store,
+                                                  monkeypatch):
+    """The JAX multi-tenant e2e's capture (test_runtime_scheduler.py),
+    with the prove job's later quanta forced onto the other worker than
+    the one that opened its session: the proof equals the JAX one, the
+    session closes its store, every init tenant's ``runtime.segment`` and
+    the prover's ``runtime.quantum`` spans are captured, and the
+    session's ``prove.run`` span parents its k2pow and windows."""
+    d, jproof = prove_store
+    sessions, steps = [], []
+    opened, first_held, second_held = [], threading.Event(), threading.Event()
+    free_first, free_second = threading.Event(), threading.Event()
+    orig_session, orig_step = Prover.session, ProveSession.step
+    box = {}
+
+    def blocker(held, free):
+        def fn():
+            held.set()
+            assert free.wait(T)
+        return fn
+
+    def session(self, *a, **kw):
+        sessions.append(orig_session(self, *a, **kw))
+        opened.append(threading.get_ident())
+        # the other worker takes the first blocker; the second is overdue,
+        # so this worker picks it next and the prove job moves over
+        box["sched"].submit_call("blk", blocker(first_held, free_first))
+        assert first_held.wait(T)
+        box["sched"].submit_call("blk", blocker(second_held, free_second),
+                                 deadline_s=0)
+        return sessions[-1]
+
+    def step(self):
+        steps.append(threading.get_ident())
+        return orig_step(self)
+
+    monkeypatch.setattr(Prover, "session", session)
+    monkeypatch.setattr(ProveSession, "step", step)
+    ids = _ids(2, salt=b"hop")
+    tracing.start(capacity=1 << 14)
+    try:
+        with TenantScheduler(workers=2, pack_lanes=TPACK, **CPU) as sched:
+            box["sched"] = sched
+            sched.register_tenant("blk", max_inflight=2)
+            inits = []
+            for tid, node, commit in ids:
+                sched.register_tenant(tid)
+                inits.append(sched.submit_init(tid, tmp_path / tid,
+                                               **_geom(node, commit, 300)))
+            sched.register_tenant("prover")
+            hp = sched.submit_prove("prover", d, jworkload.CHALLENGE,
+                                    tworkload.PARAMS, batch_labels=256)
+            assert second_held.wait(T)
+            free_first.set()
+            try:
+                proof = hp.result(timeout=T)
+            finally:
+                free_second.set()
+            assert _same_proof(proof, jproof)
+            for h in inits:
+                h.result(timeout=T)
+            assert sched.drain(timeout=T)
+    finally:
+        tracing.stop()
+    assert len(opened) == 1 and len(sessions) == 1
+    assert len(steps) >= 2 and opened[0] not in steps
+    assert sessions[0]._closed and sessions[0].prover.store._read_fds == {}
+
+    doc = tracing.export()
+    assert tracing.validate(doc) == []
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    by_tenant: dict = {}
+    for e in spans:
+        if e["args"].get("tenant"):
+            by_tenant.setdefault(e["args"]["tenant"], set()).add(e["name"])
+    for tid, _, _ in ids:
+        assert "runtime.segment" in by_tenant.get(tid, set()), by_tenant
+    assert "runtime.quantum" in by_tenant.get("prover", set())
+    run = [e for e in spans if e["name"] == "prove.run"]
+    assert len(run) == 1 and run[0]["args"]["tenant"] == "prover"
+    kids = [e for e in spans if e["name"] in ("prove.k2pow", "prove.window")]
+    assert {e["name"] for e in kids} == {"prove.k2pow", "prove.window"}
+    assert all(e["args"]["parent"] == run[0]["args"]["id"] for e in kids)
+    assert all("parent" not in e["args"] for e in spans
+               if e["name"] == "runtime.quantum")
 
 
 def test_shard_scheduler_namespaces_tenants():

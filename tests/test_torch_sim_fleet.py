@@ -1,14 +1,15 @@
 """The port's verifyd drills (``spacemesh_tpu_torch/sim/``) on the CPU,
 held to the JAX package's.
 
-Twins of ``tests/test_sim_scenarios.py``'s verifyd-outage, fleet and
-byzantine-verifyd tests and of ``tests/test_verifyd.py``'s verifyd-load
-replay test: each drill runs twice through the port (``device="cpu"``),
-must be ``ok`` with the JAX tests' named asserts and give equal digests,
-and its event stream must equal the JAX package's for the same script.
-The port's ``fleet`` script leaves out the JAX script's
-``merged_capture`` assert (the trace plane is not ported); the JAX side
-runs on a copy of its script without it.
+Twins of ``tests/test_sim_scenarios.py``'s verifyd-outage, fleet,
+byzantine-verifyd and runtime-degrade tests and of
+``tests/test_verifyd.py``'s verifyd-load replay test: each drill runs
+twice through the port (``device="cpu"``), must be ``ok`` with the JAX
+tests' named asserts and give equal digests, and its event stream must
+equal the JAX package's for the same script. The ``fleet`` script carries
+the JAX script's ``merged_capture`` assert (the drill's span capture,
+merged and validated), and the fleet and runtime-degrade drills are held
+to the JAX package's digests for two seeds.
 """
 
 import copy
@@ -58,11 +59,8 @@ def one_torch_thread():
 
 
 def _jax_script(name: str, **overrides) -> dict:
-    """The JAX package's script, without the trace-plane assert."""
-    script = copy.deepcopy(jscenarios.builtin(name))
-    script.update(overrides)
-    script["asserts"] = [a for a in script["asserts"]
-                         if a["kind"] != "merged_capture"]
+    """The JAX package's script."""
+    script = copy.deepcopy(jscenarios.builtin(name, **overrides))
     return script
 
 
@@ -76,6 +74,8 @@ def _twice_and_jax(script: dict, run, jax_script: dict):
     j = _JAX_RUN[jax_script["engine"]](jax_script)
     assert j.ok
     assert a.events == j.events
+    if jax_script["engine"] != "verifyd":
+        assert a.digest == j.digest
     return a
 
 
@@ -122,9 +122,8 @@ def test_fleet_drill_survives_chaos_and_replays_identically():
     for k in ("no_wrong_verdicts", "typed_sheds_only", "fleet_bound",
               "reroutes", "steals", "blackout_local",
               "dead_replica_attempts_bounded", "breaker_sequence",
-              "failback", "autoscale", "slo_green"):
+              "failback", "autoscale", "slo_green", "merged_capture"):
         assert kinds[k]["ok"], kinds[k]
-    assert "merged_capture" not in kinds
     assert any(e.get("fault") == "kill_replica" for e in a.events)
     assert any(e.get("fault") == "blackout" for e in a.events)
     assert any(e.get("breaker") == "open" for e in a.events)
@@ -143,9 +142,31 @@ def test_byzantine_verifyd_audit_catches_flipped_verdicts():
 
 
 def test_runtime_degrade_waits_for_the_engine_breaker():
-    script = {"engine": "failover", "mode": "runtime-degrade"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        failover.run_scenario(script, device="cpu")
+    """The runtime engine's breaker and host fallback under a seeded
+    device-fault plan: the breaker opens after the budget, the fallback
+    carries the fault span bit-identically, recovery re-closes it."""
+    a = _twice_and_jax(scenarios.builtin("runtime-degrade"),
+                       failover.run_scenario,
+                       _jax_script("runtime-degrade"))
+    kinds = {x["kind"]: x for x in a.asserts}
+    for k in ("bit_identical", "device_attempts_bounded", "fallbacks",
+              "breaker_sequence", "breaker_recloses"):
+        assert kinds[k]["ok"], kinds[k]
+    rt = a.stats["runtime"]
+    assert rt["device_attempts_in_fault"] <= 10
+    assert rt["fallbacks"] >= 15 and rt["breaker"]["state"] == "closed"
+
+
+@pytest.mark.parametrize("name,seed", [
+    ("runtime-degrade", 4), ("runtime-degrade", 11), ("fleet", 8)])
+def test_drill_digests_equal_the_jax_package_at_other_seeds(name, seed):
+    """With the ``fleet`` drill's seed 7 above, two seeds each: the
+    port's event stream and digest equal the JAX package's."""
+    run = failover.run_scenario if name == "runtime-degrade" \
+        else fleet.run_scenario
+    a = _twice_and_jax(scenarios.builtin(name, seed=seed), run,
+                       _jax_script(name, seed=seed))
+    assert a.seed == seed
 
 
 def test_drills_default_to_cuda_and_never_fall_back(monkeypatch):
