@@ -117,7 +117,34 @@ package. Phases, each printed as it runs:
    the port's verifyd-outage, fleet and byzantine-verifyd drills, twice
    on the card (``ok``, the same digest; under the guard) and once on the
    host CPU (outside it);
-10. [trace] instrumentation and self-healing: (a) init of 2^19 labels at
+10. [atx] ATX validation over the card's verify farm, at mainnet proof
+   parameters (N=8192, k1=26, k2=37, k3=37, the default k2pow
+   difficulty): 64 identities x 2^14 labels initialized on the card; a
+   smeshing node with one ``Builder`` per identity over a ``PostClient`` on
+   the card, one ``PoetService`` round per epoch with every identity
+   registered first, 8 epochs of v1 ATXs and 16 merged v2 ATXs (married in
+   fours) published on a ``LoopbackHub``, the node validating its own
+   through a farm; one envelope in 8 tampered (signature, VRF key, a POST
+   index whose label misses the threshold, the membership path, an unknown
+   poet id, in turn), so every verdict is known by construction. A
+   validating node (a file state DB in WAL mode, ``Handler`` and
+   ``HandlerV2`` over one ``VerificationFarm(device="cuda")`` with its
+   defaults) takes each epoch's envelopes at once through
+   ``PubSub.deliver``, the epochs in order, on fresh DBs (the signature
+   cache cleared) until 5 s are timed: ATXs validated/s, latency from
+   delivery to verdict p50/p99; a traced pass (the handlers' host time:
+   the wait on the farm, sqlite, decode), a profiled pass (the card's idle
+   share), and inline ``process`` on the card one envelope at a time, whose
+   verdicts, ``atxs`` rows and cache weights and heights must equal the
+   farm's; two envelopes (valid, tampered index) through ``device="cpu"``
+   in two worker processes; a double publish through the hub marks the
+   identity malicious; InvalidPostIndex malfeasance condemns the tampered
+   index and not a qualifying one; ``CertifierService`` on the card
+   certifies a real proof and refuses a tampered one through
+   ``CertifierDaemon``/``CertifierClient`` on 127.0.0.1. The launch counts
+   are zeroed before the inits and before the validation and read after
+   each; no plain twin may run;
+11. [trace] instrumentation and self-healing: (a) init of 2^19 labels at
    the main path's width with tracing off, on, and on with the
    ``torch.profiler`` bridge inside a profiler capture, twice each in the
    turns off, on, bridge, bridge, on, off after a warm-up, every store
@@ -148,12 +175,13 @@ package. Phases, each printed as it runs:
    race, registry-thread and slow-callback sanitizers armed: no race,
    lock-order or registry-thread violation, the slow callbacks counted;
    ``runtime_fallbacks_total`` 0 over the whole run;
-11. a JSON line of per-kernel launches, times and bounds, each time taken
+12. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``, the PBKDF2 pair's packed-init
    shape under ``perlane``), with each later path's launches beside the
    main path's (``tenants_launches``, ``verifyd_launches``,
-   ``fleet_launches``). ``path`` names the path whose count ``launches``
+   ``fleet_launches``, ``atx_launches``: the inits, proves and validation
+   of ``[atx]``). ``path`` names the path whose count ``launches``
    is: the main path's, but for k2pow verify, which only the verification
    paths run (``[verifyd]``'s warm run; ``main_launches`` 0), and
    ``none`` for the standalone proving hash and the k2pow mask search,
@@ -164,7 +192,8 @@ package. Phases, each printed as it runs:
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Labels per unit are cut from mainnet's 2^32 to 2^20
 (2^18 for the worker, 2^16 per identity for the tenants) for the time
-limit; N, the label width and k1/k2/k3 are not cut.
+limit (2^14 per identity for ``[atx]``); N, the label width and k1/k2/k3
+are not cut.
 """
 
 from __future__ import annotations
@@ -2466,6 +2495,790 @@ def phase_fleet(ctx: dict) -> None:
     ctx["fleet"] = dict(launches=launches)
 
 
+# --- [atx]: ATX validation over the card's verify farm ---------------------
+
+ATX_GEN = b"atxv2-test-genesis!!"  # genesis as tests/test_atx_v2.py:32-35
+ATX_IDS = 64              # identities, one unit each
+ATX_LPU = 1 << 14         # labels per unit (mainnet 2^32), cut for time
+ATX_EPOCHS = 8            # v1 epochs (64 ATXs each), then one merged epoch
+ATX_MARRIED = 4           # identities per merged v2 ATX
+ATX_TICKS = 64            # poet ticks per round
+ATX_TAMPER = 8            # one envelope in 8 is tampered
+ATX_KINDS = ("signature", "vrf_key", "post_index", "membership", "poet_id")
+ATX_TIMED_S = 5.0         # the timed passes last at least this long
+ATX_READ_POOL = 4         # the state DB's readers (the node's default)
+
+
+def atx_golden() -> bytes:
+    from spacemesh_tpu_torch.core.hashing import sum256
+
+    return sum256(b"golden", ATX_GEN)
+
+
+def atx_poet_service(poet_id: bytes):
+    """A ``PoetService`` that signals when a round holds the members it
+    expects (the merged epoch's identities register from their own tasks)."""
+    import asyncio
+
+    from spacemesh_tpu_torch.consensus import poet
+
+    class RoundPoet(poet.PoetService):
+        def __init__(self):
+            super().__init__(poet_id=poet_id, ticks=ATX_TICKS)
+            self.counts: dict = {}
+            self.full: dict = {}
+
+        def expect(self, round_id: str, n: int) -> asyncio.Event:
+            self.full[round_id] = (n, asyncio.Event())
+            return self.full[round_id][1]
+
+        async def register(self, round_id, challenge, **kw):
+            await super().register(round_id, challenge, **kw)
+            self.counts[round_id] = self.counts.get(round_id, 0) + 1
+            n, ev = self.full.get(round_id, (None, None))
+            if ev is not None and self.counts[round_id] >= n:
+                ev.set()
+
+    return RoundPoet()
+
+
+async def atx_build(signers: list, clients: dict, farm) -> dict:
+    """The smeshing node: one ``Builder`` per identity over a ``PostClient``
+    on the card, one poet round per epoch with every identity registered
+    before it runs, ``ATX_EPOCHS`` epochs of v1 ATXs, then merged v2 ATXs
+    of the identities married in fours. The node validates its own ATXs
+    through ``farm`` (gossip's self-delivery); a recorder on the
+    ``LoopbackHub`` keeps what the network carried, per epoch."""
+    import asyncio
+
+    from spacemesh_tpu_torch.consensus import activation as act
+    from spacemesh_tpu_torch.consensus import activation_v2 as act2
+    from spacemesh_tpu_torch.consensus.poet import PoetBlob
+    from spacemesh_tpu_torch.core.hashing import sum256
+    from spacemesh_tpu_torch.core.signing import EdVerifier
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.storage import atxs as atxstore
+    from spacemesh_tpu_torch.storage import cache, db
+
+    golden = atx_golden()
+    hub = ps.LoopbackHub()
+    node_db = db.open_state()
+    node_ps = ps.PubSub(node_name=b"smesher")
+    wire = ps.PubSub(node_name=b"recorder")
+    hub.join(node_ps)
+    hub.join(wire)
+    recorded: list = []
+
+    def recorder(topic):
+        async def record(peer, data):
+            recorded.append((topic, data))
+            return True
+        return record
+
+    for topic in (ps.TOPIC_POET, ps.TOPIC_ATX, act2.TOPIC_ATX_V2):
+        wire.register(topic, recorder(topic))
+    common = dict(db=node_db, cache=cache.AtxCache(),
+                  verifier=EdVerifier(prefix=ATX_GEN), golden_atx=golden,
+                  post_params=prover.ProofParams(), labels_per_unit=ATX_LPU,
+                  scrypt_n=N_MAIN, farm=farm)
+    handler = act.Handler(pubsub=node_ps, **common)
+    act2.HandlerV2(pubsub=node_ps, **common)
+    p = atx_poet_service(sum256(b"poet", ATX_GEN))
+    smeshers = [act.Builder(
+        signer=s, db=node_db, pubsub=node_ps, poet=p,
+        post_client=clients[s.node_id], golden_atx=golden,
+        coinbase=bytes([i]) * 24, handler=handler, num_units=1)
+        for i, s in enumerate(signers)]
+    epochs, times = [], []
+    for epoch in range(1, ATX_EPOCHS + 1):
+        t0 = time.perf_counter()
+        for b in smeshers:
+            await b.register_challenge(epoch)
+        await p.execute_round(str(epoch))
+        atxs = await asyncio.gather(*(b.finish(epoch) for b in smeshers))
+        await hub.drain()
+        epochs.append(recorded[:])
+        recorded.clear()
+        times.append(time.perf_counter() - t0)
+        require(sorted(d for t, d in epochs[-1] if t == ps.TOPIC_ATX)
+                == sorted(a.to_bytes() for a in atxs),
+                f"epoch {epoch}: the hub carried every ATX")
+        require(atxstore.count_in_epoch(node_db, epoch) == ATX_IDS,
+                f"epoch {epoch}: the smeshing node validated its own ATXs")
+    t0 = time.perf_counter()
+    epoch = ATX_EPOCHS + 1
+    full = p.expect(str(epoch), ATX_IDS)
+    tasks = [asyncio.ensure_future(act2.build_merged_atx(
+        primary=signers[g], partners=signers[g + 1:g + ATX_MARRIED],
+        db=node_db, poet=p, post_clients=clients, golden_atx=golden,
+        coinbase=bytes([g]) * 24, publish_epoch=epoch))
+        for g in range(0, ATX_IDS, ATX_MARRIED)]
+    await asyncio.wait_for(full.wait(), 600)
+    result = await p.execute_round(str(epoch))
+    merged = await asyncio.gather(*tasks)
+    await node_ps.publish(ps.TOPIC_POET, PoetBlob(
+        proof=result.proof, member_count=len(result.members)).to_bytes())
+    await asyncio.gather(*(node_ps.publish(act2.TOPIC_ATX_V2, a.to_bytes())
+                           for a in merged))
+    await hub.drain()
+    require(atxstore.count_in_epoch(node_db, epoch) == ATX_IDS,
+            "the smeshing node validated its merged ATXs")
+    epochs.append(recorded[:])
+    times.append(time.perf_counter() - t0)
+    return dict(epochs=epochs, times=times, node_db=node_db)
+
+
+def atx_resign(atx, signer):
+    from spacemesh_tpu_torch.core.signing import Domain
+
+    atx = dataclasses.replace(atx, signature=bytes(64))
+    return dataclasses.replace(
+        atx, signature=signer.sign(Domain.ATX, atx.signed_bytes()))
+
+
+def atx_tamper(kind: str, atx, signer, node_db):
+    """``atx`` (v1 ``ActivationTx`` or merged ``ActivationTxV2``) with one
+    fault of ``kind``, re-signed by its signer unless the signature is the
+    fault: every tampered envelope must be rejected."""
+    from spacemesh_tpu_torch.consensus import activation as act
+    from spacemesh_tpu_torch.core.hashing import sum256
+    from spacemesh_tpu_torch.ops import proving
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.storage import misc
+
+    v2 = hasattr(atx, "subposts")
+    if kind == "signature":
+        return dataclasses.replace(atx, signature=bytes(
+            [atx.signature[0] ^ 1]) + atx.signature[1:])
+    if kind == "vrf_key":  # v1 only: the VRF key must be the node id
+        return atx_resign(dataclasses.replace(
+            atx, vrf_public_key=sum256(b"another vrf key", atx.node_id)),
+            signer)
+    sp = atx.subposts[0] if v2 else atx
+    nipost = sp.nipost
+    if kind == "post_index":
+        poet = misc.poet_proof(node_db, nipost.post_metadata.challenge)
+        challenge = act.post_challenge(poet.root, act.nipost_challenge(
+            sp.prev_atx, atx.publish_epoch))
+        post = nipost.post
+        thr = proving.threshold_u32(prover.ProofParams().k1,
+                                    sp.num_units * ATX_LPU)
+        bad = replacement_index(post, act.commitment_of(sp.node_id,
+                                                        atx_golden()),
+                                challenge, thr, sp.num_units * ATX_LPU)
+        nipost = dataclasses.replace(nipost, post=dataclasses.replace(
+            post, indices=[bad] + list(post.indices[1:])))
+    elif kind == "membership":
+        # a sibling flipped; a round of one member (every first ATX's
+        # challenge is the same) has none, so its leaf index moves
+        mp = nipost.membership
+        if mp.nodes:
+            nodes = list(mp.nodes)
+            nodes[0] = bytes([nodes[0][0] ^ 1]) + nodes[0][1:]
+            mp = dataclasses.replace(mp, nodes=nodes)
+        else:
+            mp = dataclasses.replace(mp, leaf_index=mp.leaf_index + 1)
+        nipost = dataclasses.replace(nipost, membership=mp)
+    else:  # poet_id: a poet proof no node holds
+        nipost = dataclasses.replace(
+            nipost, post_metadata=dataclasses.replace(
+                nipost.post_metadata,
+                challenge=sum256(b"unknown poet", atx.node_id)))
+    if v2:
+        atx = dataclasses.replace(atx, subposts=[dataclasses.replace(
+            sp, nipost=nipost)] + list(atx.subposts[1:]))
+    else:
+        atx = dataclasses.replace(atx, nipost=nipost)
+    return atx_resign(atx, signer)
+
+
+def atx_plan(built: dict, signers: dict) -> dict:
+    """The validating node's input: per epoch the poet blobs (each once)
+    and the envelopes, one in ``ATX_TAMPER`` tampered with the kinds in
+    turn (a merged ATX skips the VRF key, which it does not carry), each
+    with its expected verdict."""
+    from spacemesh_tpu_torch.core import types
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+
+    epochs, k, turn = [], 0, 0
+    for carried in built["epochs"]:
+        blobs = list(dict.fromkeys(d for t, d in carried
+                                   if t == ps.TOPIC_POET))
+        items = []
+        for topic, data in carried:
+            if topic == ps.TOPIC_POET:
+                continue
+            v2 = topic != ps.TOPIC_ATX
+            kind = None
+            if k % ATX_TAMPER == ATX_TAMPER - 1:
+                kind = ATX_KINDS[turn % len(ATX_KINDS)]
+                turn += 1
+                if v2 and kind == "vrf_key":
+                    kind = ATX_KINDS[turn % len(ATX_KINDS)]
+                    turn += 1
+                cls = types.ActivationTxV2 if v2 else types.ActivationTx
+                atx = cls.from_bytes(data)
+                data = atx_tamper(kind, atx, signers[atx.node_id],
+                                  built["node_db"]).to_bytes()
+            items.append(dict(topic=topic, data=data, kind=kind,
+                              want=kind is None))
+            k += 1
+        epochs.append(dict(blobs=blobs, items=items))
+    return dict(epochs=epochs)
+
+
+def atx_node(path, farm, device="cuda") -> dict:
+    """A validating node: a file state DB (WAL, the node's read pool), the
+    ATX cache, ``Handler`` and ``HandlerV2`` over ``farm`` (``None``:
+    inline on ``device``) on a PubSub, and the node's poet-blob handler
+    (JAX ``node/app.py:1039-1047``)."""
+    from spacemesh_tpu_torch.consensus import activation as act
+    from spacemesh_tpu_torch.consensus import activation_v2 as act2
+    from spacemesh_tpu_torch.consensus.poet import PoetBlob
+    from spacemesh_tpu_torch.core.signing import EdVerifier
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.storage import cache, db
+
+    state = db.open_state(path, read_pool=ATX_READ_POOL)
+    atx_cache = cache.AtxCache()
+    node = ps.PubSub(node_name=b"validator")
+    common = dict(db=state, cache=atx_cache,
+                  verifier=EdVerifier(prefix=ATX_GEN),
+                  golden_atx=atx_golden(), post_params=prover.ProofParams(),
+                  labels_per_unit=ATX_LPU, scrypt_n=N_MAIN, farm=farm,
+                  device=device)
+    act.Handler(pubsub=node, **common)
+    act2.HandlerV2(pubsub=node, **common)
+
+    async def on_poet(peer: bytes, data: bytes) -> bool:
+        try:
+            blob = PoetBlob.from_bytes(data)
+        except Exception:  # noqa: BLE001
+            return False
+        act.store_poet_blob(state, blob)
+        return True
+
+    node.register(ps.TOPIC_POET, on_poet)
+    return dict(db=state, cache=atx_cache, pubsub=node)
+
+
+def atx_state(node: dict) -> tuple:
+    """The node's ``atxs`` rows (id, node, epoch, tick height) and its
+    cache's (id, weight, base height, height) per target epoch."""
+    rows = [tuple(r) for r in node["db"].all(
+        "SELECT id, node_id, publish_epoch, tick_height FROM atxs"
+        " ORDER BY id")]
+    cached = {e: sorted((a, i.weight, i.base_height, i.height)
+                        for a, i in node["cache"].iter_epoch(e))
+              for e in range(2, ATX_EPOCHS + 3)}
+    return rows, cached
+
+
+async def atx_pass(plan: dict, path, farm, sequential: bool = False,
+                   device="cuda") -> dict:
+    """One validating node on a fresh state DB at ``path``: each epoch's
+    poet blobs, then its envelopes through ``PubSub.deliver`` (the gossip
+    entry point), all at once (as a gossip validator pool delivers them;
+    the hub's inbox delivers one at a time) or ``sequential``; the epochs
+    in order. Returns the verdicts, latencies from delivery to verdict,
+    the wall time and the node."""
+    import asyncio
+
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+
+    node = atx_node(path, farm, device)
+    bus = node["pubsub"]
+    verdicts, lat = [], []
+
+    async def one(item):
+        t0 = time.perf_counter()
+        ok = await bus.deliver(item["topic"], b"smesher", item["data"])
+        lat.append(time.perf_counter() - t0)
+        return ok
+
+    t0 = time.perf_counter()
+    for ep in plan["epochs"]:
+        for blob in ep["blobs"]:
+            require(await bus.deliver(ps.TOPIC_POET, b"smesher", blob),
+                    "the validating node stored the poet blob")
+        if sequential:
+            for item in ep["items"]:
+                verdicts.append(await one(item))
+        else:
+            verdicts += await asyncio.gather(*(one(i) for i in ep["items"]))
+    wall = time.perf_counter() - t0
+    return dict(verdicts=verdicts, lat=lat, wall=wall, node=node)
+
+
+def atx_cpu_verdict(job: dict) -> tuple:
+    """One envelope through the inline ``Handler`` on ``device="cpu"`` (the
+    plain twins) on an in-memory state DB holding its poet blob; run in a
+    worker process. Returns (verdict, seconds)."""
+    import asyncio
+
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    node = atx_node(":memory:", None, device="cpu")
+
+    async def go():
+        from spacemesh_tpu_torch.p2p import pubsub as ps
+
+        require(await node["pubsub"].deliver(ps.TOPIC_POET, b"b",
+                                             job["blob"]), "poet blob")
+        return await node["pubsub"].deliver(job["topic"], b"b", job["data"])
+
+    ok = asyncio.run(go())
+    node["db"].close()
+    return ok, time.perf_counter() - t0
+
+
+def atx_post_checker(poet_of):
+    """The node's InvalidPostIndex checker, ``node/app.py:266-290`` of the
+    JAX package, with the device the malfeasance handler passes on: True
+    when the ATX's POST index at ``index_pos`` fails its recompute."""
+    from spacemesh_tpu_torch.consensus import activation
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.post import verifier as pv
+
+    def post_checker(atx, index_pos: int, device) -> bool:
+        poet = poet_of(atx.nipost.post_metadata.challenge)
+        if poet is None:
+            return False
+        challenge = activation.nipost_challenge(atx.prev_atx,
+                                                atx.publish_epoch)
+        params = dataclasses.replace(prover.ProofParams(), k2=1, k3=1)
+        item = pv.VerifyItem(
+            proof=prover.Proof(
+                nonce=atx.nipost.post.nonce,
+                indices=[atx.nipost.post.indices[index_pos]],
+                pow_nonce=atx.nipost.post.pow_nonce, k2=1),
+            challenge=activation.post_challenge(poet.root, challenge),
+            node_id=atx.node_id,
+            commitment=activation.commitment_of(atx.node_id, atx_golden()),
+            scrypt_n=N_MAIN, total_labels=atx.num_units * ATX_LPU)
+        return not pv.verify(item, params, device=device)
+
+    return post_checker
+
+
+async def atx_checks(plan: dict, node: dict, signers: dict) -> dict:
+    """On the last timed pass's node: a double publish through the hub,
+    InvalidPostIndex malfeasance over the tampered index (and over a
+    qualifying one), the certifier over 127.0.0.1."""
+    import asyncio
+
+    from spacemesh_tpu_torch.consensus import certifier
+    from spacemesh_tpu_torch.consensus import activation as act
+    from spacemesh_tpu_torch.consensus import malfeasance as mal
+    from spacemesh_tpu_torch.core import types
+    from spacemesh_tpu_torch.core.signing import EdSigner, EdVerifier
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.storage import misc
+
+    out = {}
+    state, atx_cache = node["db"], node["cache"]
+    # a double publish: a second, validly signed ATX of a stored identity
+    # in the same epoch, through the hub to the node's inbox
+    first = next(i for i in plan["epochs"][0]["items"] if i["want"])
+    atx = types.ActivationTx.from_bytes(first["data"])
+    twin = atx_resign(dataclasses.replace(atx, vrf_nonce=atx.vrf_nonce + 1),
+                      signers[atx.node_id])
+    hub = ps.LoopbackHub()
+    peer = ps.PubSub(node_name=b"peer", deliver_self=False)
+    hub.join(peer)
+    hub.join(node["pubsub"])
+    require(not atx_cache.is_malicious(atx.node_id), "not yet malicious")
+    await peer.publish(ps.TOPIC_ATX, twin.to_bytes())
+    await hub.drain()
+    hub.leave(node["pubsub"])
+    require(atx_cache.is_malicious(atx.node_id),
+            "a double publish marked the identity malicious")
+    out["double_publish"] = atx.node_id.hex()[:16]
+
+    # InvalidPostIndex over the tampered index; over a qualifying one first
+    # (a condemned identity's later proofs count as already known)
+    tampered = next(i for ep in plan["epochs"] for i in ep["items"]
+                    if i["kind"] == "post_index"
+                    and i["topic"] == ps.TOPIC_ATX)
+    bad = types.ActivationTx.from_bytes(tampered["data"])
+    m = mal.Handler(db=state, cache=atx_cache,
+                    verifier=EdVerifier(prefix=ATX_GEN),
+                    pubsub=ps.PubSub(node_name=b"mal"),
+                    post_checker=atx_post_checker(
+                        lambda ref: misc.poet_proof(state, ref)))
+    good_proof = mal.proof_invalid_post(bad, 1)
+    bad_proof = mal.proof_invalid_post(bad, 0)
+    require(not m.process(good_proof), "InvalidPostIndex over a qualifying "
+            "index is not condemned")
+    require(not misc.is_malicious(state, bad.node_id), "not condemned")
+    require(m.process(bad_proof), "InvalidPostIndex over the tampered "
+            "index is condemned")
+    require(misc.is_malicious(state, bad.node_id)
+            and atx_cache.is_malicious(bad.node_id),
+            "the identity is malicious in the DB and the cache")
+    out["invalid_post_index"] = bad.node_id.hex()[:16]
+
+    # the certifier on the card: one identity's real proof, a tampered one
+    real = next(i for i in plan["epochs"][1]["items"] if i["want"]
+                and i["topic"] == ps.TOPIC_ATX)
+    atx = types.ActivationTx.from_bytes(real["data"])
+    poet = misc.poet_proof(state, atx.nipost.post_metadata.challenge)
+    kw = dict(challenge=act.post_challenge(poet.root, act.nipost_challenge(
+                  atx.prev_atx, atx.publish_epoch)),
+              node_id=atx.node_id,
+              commitment=act.commitment_of(atx.node_id, atx_golden()),
+              num_units=atx.num_units, labels_per_unit=ATX_LPU)
+    p = atx.nipost.post
+    proof = prover.Proof(nonce=p.nonce, indices=list(p.indices),
+                         pow_nonce=p.pow_nonce, k2=prover.ProofParams().k2)
+    bad_post = bad.nipost.post
+    bad_proof = prover.Proof(nonce=bad_post.nonce,
+                             indices=list(bad_post.indices),
+                             pow_nonce=bad_post.pow_nonce, k2=proof.k2)
+    bad_kw = dict(kw, node_id=bad.node_id, commitment=act.commitment_of(
+        bad.node_id, atx_golden()), challenge=act.post_challenge(
+        misc.poet_proof(state, bad.nipost.post_metadata.challenge).root,
+        act.nipost_challenge(bad.prev_atx, bad.publish_epoch)))
+    svc = certifier.CertifierService(
+        EdSigner(seed=hashlib.sha256(b"chip-smoke-certifier").digest()),
+        prover.ProofParams(), scrypt_n=N_MAIN)
+    daemon = certifier.CertifierDaemon(svc, listen="127.0.0.1:0")
+    addr = await daemon.start()
+    try:
+        client = certifier.CertifierClient(addr, timeout=300)
+        t0 = time.perf_counter()
+        cert = await asyncio.to_thread(
+            lambda: client.certificate(proof=proof, **kw))
+        cert_s = time.perf_counter() - t0
+        require(certifier.verify_cert(cert, svc.pubkey, EdVerifier()),
+                "the certificate verifies against the certifier's key")
+        try:
+            await asyncio.to_thread(
+                lambda: client.certificate(proof=bad_proof, **bad_kw))
+            refused = None
+        except RuntimeError as exc:
+            refused = str(exc)
+        require(refused is not None and "failed verification" in refused,
+                f"the certifier refused the tampered proof ({refused})")
+    finally:
+        await daemon.stop()
+    out["certifier"] = dict(addr=f"{addr[0]}:{addr[1]}", cert_s=cert_s,
+                            refused=refused)
+    return out
+
+
+def atx_host_split(doc: dict, sql_s: float, decode_s: float) -> dict:
+    """A traced pass's host time: the ATX handlers' spans
+    (``gossip.handler`` on ``ax1``/``ax2``) and within each the wait on the
+    farm's verdicts (the union of its ``farm.request`` spans); on the event
+    loop the sqlite reads and writes (``sql_state_query_seconds``) and the
+    decode (the envelopes decoded again, timed alone); the farm's batches
+    (``farm.batch``) by kind: count, requests and seconds."""
+    from spacemesh_tpu_torch.consensus.activation_v2 import TOPIC_ATX_V2
+    from spacemesh_tpu_torch.p2p.pubsub import TOPIC_ATX
+    from spacemesh_tpu_torch.tools.measure import busy_us
+
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    handlers = {e["args"]["id"]: e for e in spans
+                if e["name"] == "gossip.handler"
+                and e["args"].get("topic") in (TOPIC_ATX, TOPIC_ATX_V2)}
+    waits: dict = {}
+    batches: dict = {}
+    for e in spans:
+        if e["name"] == "farm.request" and e["args"].get("parent") \
+                in handlers:
+            waits.setdefault(e["args"]["parent"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+        elif e["name"] == "farm.batch":
+            b = batches.setdefault(e["args"]["kind"], [0, 0, 0.0])
+            b[0] += 1
+            b[1] += e["args"]["n"]
+            b[2] += e["dur"] / 1e6
+    n = max(len(handlers), 1)
+    return dict(handlers=len(handlers),
+                handler_ms=sum(e["dur"] for e in handlers.values()) / n / 1e3,
+                farm_ms=sum(busy_us(w) for w in waits.values()) / n / 1e3,
+                sql_s=sql_s, decode_s=decode_s,
+                batches={k: dict(batches=v[0], requests=v[1], s=v[2])
+                         for k, v in sorted(batches.items())})
+
+
+def phase_atx(ctx: dict) -> None:
+    import asyncio
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from spacemesh_tpu_torch.consensus import activation as act
+    from spacemesh_tpu_torch.core import signing, types
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+    from spacemesh_tpu_torch.post import initializer, prover, service
+    from spacemesh_tpu_torch.tools.measure import busy_us, device_intervals
+    from spacemesh_tpu_torch.utils import metrics, tracing
+    from spacemesh_tpu_torch.verify.farm import VerificationFarm
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    # the earlier phases' closed farms leave their V scratch cached
+    torch.cuda.empty_cache()
+    reserved1 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[atx] reserved before the phase {reserved0 / 2**30:.2f} GiB, "
+        f"{reserved1 / 2**30:.2f} GiB after handing back the earlier "
+        f"farms' cached blocks")
+    golden = atx_golden()
+    signers = [signing.EdSigner(seed=hashlib.sha256(
+        b"chip-smoke-atx-%d" % i).digest(), prefix=ATX_GEN)
+        for i in range(ATX_IDS)]
+    by_id = {s.node_id: s for s in signers}
+    params = prover.ProofParams()
+    zero_launches()
+    GUARD.start()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-atx-") as d:
+        t0 = time.perf_counter()
+        clients = {}
+        for s in signers:
+            sd = os.path.join(d, s.node_id.hex()[:16])
+            initializer.initialize(
+                sd, node_id=s.node_id,
+                commitment=act.commitment_of(s.node_id, golden), num_units=1,
+                labels_per_unit=ATX_LPU, scrypt_n=N_MAIN,
+                batch_size=ATX_LPU, device="cuda")
+            clients[s.node_id] = service.PostClient(sd, params,
+                                                    batch_labels=ATX_LPU,
+                                                    device="cuda")
+        init_s = time.perf_counter() - t0
+
+        async def build():
+            farm = VerificationFarm(
+                ed_verifier=signing.EdVerifier(prefix=ATX_GEN),
+                post_params=params, device="cuda")
+            try:
+                return await atx_build(signers, clients, farm)
+            finally:
+                await farm.aclose()
+
+        t0 = time.perf_counter()
+        built = asyncio.run(build())
+        build_s = time.perf_counter() - t0
+        build_launches = launch_counts()
+        guard_build = GUARD.stop()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[atx] {ATX_IDS} identities x {ATX_LPU} labels (N={N_MAIN}) "
+            f"initialized on the card in {init_s:.1f} s; {ATX_EPOCHS} epochs "
+            f"of v1 ATXs and one of {ATX_IDS // ATX_MARRIED} merged v2 ATXs "
+            f"(married in {ATX_MARRIED}s) built by {ATX_IDS} Builders over "
+            f"PostClients on the card in {build_s:.1f} s (per epoch "
+            + ", ".join(f"{t:.1f}" for t in built["times"]) + " s), "
+            f"published on a LoopbackHub")
+        log(f"[atx] build launches {json.dumps(build_launches)}")
+        require_no_twins(guard_build, "atx build (init, proves, the smeshing "
+                         "node's own validation)")
+        t0 = time.perf_counter()
+        plan = atx_plan(built, by_id)
+        items = [i for ep in plan["epochs"] for i in ep["items"]]
+        want = [i["want"] for i in items]
+        n_v1 = sum(i["topic"] == ps.TOPIC_ATX for i in items)
+        kinds = collections.Counter(i["kind"] for i in items if i["kind"])
+        log(f"[atx] {len(items)} envelopes ({n_v1} v1), "
+            f"{sum(kinds.values())} tampered: {json.dumps(dict(kinds))} "
+            f"(made in {time.perf_counter() - t0:.1f} s)")
+
+        # two envelopes through the plain twins on the host, in worker
+        # processes, beside the card passes below
+        sample = [next(i for i in plan["epochs"][0]["items"] if i["want"]),
+                  next(i for ep in plan["epochs"] for i in ep["items"]
+                       if i["kind"] == "post_index"
+                       and i["topic"] == ps.TOPIC_ATX)]
+        blob_of = {}
+        for ep in plan["epochs"]:
+            for item in ep["items"]:
+                blob_of[id(item)] = ep["blobs"]
+        pool = ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+        t_cpu = time.perf_counter()
+        try:
+            cpu_jobs = [pool.submit(atx_cpu_verdict, dict(
+                topic=i["topic"], data=i["data"],
+                blob=blob_of[id(i)][0])) for i in sample]
+
+            async def drive():
+                farm = VerificationFarm(
+                    ed_verifier=signing.EdVerifier(prefix=ATX_GEN),
+                    post_params=params, device="cuda")
+                out = {"passes": []}
+                try:
+                    n = 0
+                    while (not out["passes"] or sum(
+                            p["wall"] for p in out["passes"]) < ATX_TIMED_S):
+                        signing.clear_verify_cache()
+                        out["passes"].append(await atx_pass(
+                            plan, os.path.join(d, f"state-{n}.sql"), farm))
+                        n += 1
+                    last = out["passes"][-1]
+                    out["checks"] = await atx_checks(plan, last["node"],
+                                                     by_id)
+                    # one traced pass: the host time split
+                    signing.clear_verify_cache()
+                    sql = metrics.REGISTRY.histogram(
+                        "sql_state_query_seconds")
+                    s0 = sum(v[1] for v in sql.sample().values())
+                    tracing.stop()
+                    tracing.start(capacity=1 << 20)
+                    try:
+                        traced = await atx_pass(
+                            plan, os.path.join(d, "state-traced.sql"), farm)
+                        doc = tracing.export()
+                    finally:
+                        tracing.stop()
+                    sql_s = sum(v[1] for v in sql.sample().values()) - s0
+                    t0 = time.perf_counter()
+                    decoded = [(types.ActivationTx
+                                if item["topic"] == ps.TOPIC_ATX
+                                else types.ActivationTxV2).from_bytes(
+                                    item["data"]) for item in items]
+                    decode_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    for atx in decoded:  # blake3 of the bytes, in Python
+                        atx.id
+                    id_ms = (time.perf_counter() - t0) / len(decoded) * 1e3
+                    out["split"] = atx_host_split(doc, sql_s, decode_s)
+                    out["split"]["id_ms"] = id_ms
+                    out["traced"] = traced
+                    traced["node"]["db"].close()
+                    # one profiled pass: the card's idle share
+                    signing.clear_verify_cache()
+                    prof = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA])
+                    with prof:
+                        profiled = await atx_pass(
+                            plan, os.path.join(d, "state-prof.sql"), farm)
+                        torch.cuda.synchronize()
+                    profiled["node"]["db"].close()
+                    out["profiled"], out["prof"] = profiled, prof
+                    # inline process on the card, one envelope at a time
+                    signing.clear_verify_cache()
+                    inline = await atx_pass(
+                        plan, os.path.join(d, "state-inline.sql"), None,
+                        sequential=True)
+                    out["inline"] = inline
+                finally:
+                    await farm.aclose()
+                return out
+
+            zero_launches()
+            GUARD.start()
+            res = asyncio.run(drive())
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            guard = GUARD.stop()
+            cpu_wait = time.perf_counter()
+            cpu = [j.result(timeout=900) for j in cpu_jobs]
+            cpu_s = time.perf_counter() - t_cpu
+            cpu_waited = time.perf_counter() - cpu_wait
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
+
+        passes = res["passes"]
+        for n, p in enumerate(passes + [res["traced"], res["profiled"]]):
+            require(p["verdicts"] == want, f"pass {n}: every verdict == the "
+                    f"one expected by construction ({sum(want)} valid, "
+                    f"{len(want) - sum(want)} tampered)")
+        inline = res["inline"]
+        require(inline["verdicts"] == want, "inline process on the card: "
+                "every verdict as constructed")
+        farm_state = atx_state(passes[0]["node"])
+        inline_state = atx_state(inline["node"])
+        require(farm_state == inline_state, "farm pass == inline pass: atxs "
+                "rows (id, node, epoch, tick height) and AtxCache weights "
+                "and heights")
+        require(len(farm_state[0]) == sum(
+            1 if i["topic"] == ps.TOPIC_ATX else ATX_MARRIED
+            for i in items if i["want"]), "one row per valid v1 ATX and per "
+                "identity of a valid merged ATX")
+        require([ok for ok, _ in cpu] == [True, False],
+                f"device='cpu' (the plain twins): {[ok for ok, _ in cpu]} "
+                "== [True, False] on a valid and a tampered-index envelope")
+        require_no_twins(guard, "atx validation")
+        for key in ("romix", "pbkdf2_expand", "pbkdf2_finish_hash"):
+            require(launches[key] > 0, f"atx validation launched {key}")
+        for key in ("pbkdf2_finish", "scan", "k2pow_search", *OFF_PATH):
+            require(launches[key] == 0, f"atx validation launched no {key}")
+
+    for p in passes:
+        p["node"]["db"].close()
+    inline["node"]["db"].close()
+    wall = sum(p["wall"] for p in passes)
+    n_items = len(items) * len(passes)
+    rate = n_items / wall
+    inline_rate = len(items) / inline["wall"]
+    lat = sorted(x for p in passes for x in p["lat"])
+    log(f"[atx] validating node: a file state DB (WAL, {ATX_READ_POOL} "
+        f"readers) per pass, Handler + HandlerV2 over one "
+        f"VerificationFarm(device='cuda') with its defaults; each epoch's "
+        f"envelopes delivered at once through PubSub.deliver, the epochs in "
+        f"order; signature cache cleared between passes")
+    log(f"[atx] {rate:.1f} ATXs validated/s through gossip over the farm "
+        f"({len(passes)} timed pass(es), {n_items} envelopes in {wall:.3f} s; per "
+        f"pass " + ", ".join(f"{p['wall']:.3f}" for p in passes) + " s); "
+        f"inline process on the card {inline_rate:.1f}/s ({len(items)} in "
+        f"{inline['wall']:.3f} s), {rate / inline_rate:.2f}x")
+    log(f"[atx] latency from delivery to verdict: p50 "
+        f"{statistics.median(lat) * 1e3:.1f} ms, p99 "
+        f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3:.1f} ms, max "
+        f"{lat[-1] * 1e3:.1f} ms over {len(lat)} envelopes; inline p50 "
+        f"{statistics.median(inline['lat']) * 1e3:.1f} ms")
+    sp, tw = res["split"], res["traced"]["wall"]
+    log(f"[atx] host time of a traced pass ({tw:.3f} s wall): an ATX's "
+        f"handler (its gossip.handler span) {sp['handler_ms']:.1f} ms on "
+        f"average, {sp['farm_ms']:.1f} ms of it ({sp['farm_ms'] / sp['handler_ms']:.1%}) "
+        f"waiting on the farm's verdicts; on the event loop sqlite reads and "
+        f"writes {sp['sql_s']:.3f} s ({sp['sql_s'] / tw:.1%} of the wall), "
+        f"decode {sp['decode_s']:.3f} s ({sp['decode_s'] / tw:.1%}), one "
+        f"ATX id (blake3 of its bytes in Python, timed alone) "
+        f"{sp['id_ms']:.3f} ms; the farm's batches by kind: " + ", ".join(
+            f"{k} {b['batches']} of {b['requests']} requests {b['s']:.3f} s"
+            for k, b in sp["batches"].items()))
+    prof, profiled = res["prof"], res["profiled"]
+    intervals = device_intervals(prof)
+    if intervals:
+        busy = busy_us(intervals) / 1e6
+        idle = (f"device busy {busy:.3f} s, idle share "
+                f"{1 - busy / profiled['wall']:.1%} of the profiled pass's "
+                f"{profiled['wall']:.3f} s wall")
+    else:
+        idle = "idle share not measured (no device activity recorded)"
+    log(f"[atx] {idle}; peak device memory over the phase: allocated "
+        f"{peak / 2**30:.2f} GiB, reserved {peak_reserved / 2**30:.2f} GiB")
+    log(f"[atx] every verdict as constructed in {len(passes) + 2} farm "
+        f"passes and the inline pass; farm == inline: {len(farm_state[0])} "
+        f"atxs rows and the cache's weights and heights; device='cpu': "
+        f"{[ok for ok, _ in cpu]} in {cpu_s:.1f} s in two worker processes "
+        f"(the phase waited {cpu_waited:.1f} s for them)")
+    ck = res["checks"]
+    log(f"[atx] a double publish marked {ck['double_publish']} malicious; "
+        f"InvalidPostIndex condemned {ck['invalid_post_index']} over the "
+        f"tampered index and not over a qualifying one; the certifier on "
+        f"the card at {ck['certifier']['addr']} certified a real proof in "
+        f"{ck['certifier']['cert_s']:.2f} s and refused the tampered one "
+        f"({ck['certifier']['refused']})")
+    log(f"[atx] launches over the validation {json.dumps(launches)}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    log(f"[atx] {ctx['smi']}")
+    ctx["atx"] = dict(launches={k: build_launches[k] + launches[k]
+                                for k in launches}, rate=rate)
+
+
 # --- [trace]: instrumentation and self-healing on the card -----------------
 
 TRACE_LABELS = 1 << 19    # (a)/(b): labels per init, at the main path's width
@@ -2927,6 +3740,7 @@ def trace_verifyd(ctx: dict) -> dict:
     import asyncio
 
     import torch
+    from spacemesh_tpu_torch.ops import _build
     from spacemesh_tpu_torch.post import prover
     from spacemesh_tpu_torch.utils import tracing
     from spacemesh_tpu_torch.verifyd import VerifydService
@@ -2957,6 +3771,8 @@ def trace_verifyd(ctx: dict) -> dict:
         torch.profiler.ProfilerActivity.CUDA])
     GUARD.start()
     tracing.start(capacity=1 << 17, torch_bridge=True)
+    before = launch_counts()
+    tap = _build.count_lock = LaunchTap(_build.count_lock)
     try:
         with prof:
             clock_marks()
@@ -2964,7 +3780,9 @@ def trace_verifyd(ctx: dict) -> dict:
             torch.cuda.synchronize()
             clock_marks()
     finally:
+        _build.count_lock = tap.lock
         tracing.stop()
+    after = launch_counts()
     guard = GUARD.stop()
     torch.cuda.empty_cache()
     require_no_twins(guard, "[trace] verifyd under capture")
@@ -3009,10 +3827,19 @@ def trace_verifyd(ctx: dict) -> dict:
     launch_ms = sum(e["dur"] for e in romix) / nb / 1e3
     calls, on_thread, inside_us = launch_span_calls(chrome_trace(prof), doc)
     annot_us = sum(a["dur"] for a in romix)
+    # every launch the wrappers counted, by the span open on its thread (the
+    # tap misses none; the profiler may drop a capture's first records, as
+    # (b) shows, so its count of the launch calls is reported, not held)
+    require(len(tap.taps) == sum(after[k] - before[k] for k in after),
+            f"[trace] the tap saw every counted launch ({len(tap.taps)})")
+    per_span = collections.Counter(sid for _, sid in tap.taps)
+    in_spans = sum(per_span[e["args"]["id"]] for e in romix)
+    require(len(tap.taps) == in_spans == 3 * nb
+            and all(per_span[e["args"]["id"]] == 3 for e in romix),
+            f"[trace] the three launches of every POST batch lie inside its "
+            f"romix.dispatch span ({in_spans} of {len(tap.taps)} counted "
+            f"launches, {3 * nb} expected)")
     launched = calls.get("cudaLaunchKernel", [0])[0]
-    require(launched == 3 * nb, f"[trace] the three launches of every POST "
-            f"batch lie inside its romix.dispatch span ({launched} of "
-            f"{3 * nb})")
     stages = {k: s / nb * 1e3 for k, s in timing.items()}
     top = sorted(calls.items(), key=lambda kv: -kv[1][1])[:6]
     thread_top = sorted(on_thread.items(), key=lambda kv: -kv[1][1])[:6]
@@ -3022,7 +3849,9 @@ def trace_verifyd(ctx: dict) -> dict:
         f"({len(posts) / wall:.0f}/s with the profiler on); verdicts == "
         f"serial inline; linkage verifyd.request -> verifyd.drain -> "
         f"farm.request -> farm.batch holds for every request "
-        f"({len(reqs)} requests, {len(fr)} farm requests, {nb} POST batches)")
+        f"({len(reqs)} requests, {len(fr)} farm requests, {nb} POST batches)"
+        f"; every counted launch in its batch's romix.dispatch ({in_spans}), "
+        f"the profiler's launch calls there {launched} of {3 * nb}")
     log(f"[trace] (c) per POST batch: farm.batch {batch_ms:.2f} ms host wall; "
         f"stages (verify_many timing) " + ", ".join(
             f"{k} {ms:.2f} ms" for k, ms in stages.items())
@@ -3204,6 +4033,7 @@ def trace_health(ctx: dict) -> dict:
 
     node, commitment, challenge = trace_ids()
     gate = threading.Event()
+    stall_seen = threading.Event()  # the ticking engine saw the stall
     seen = set()
     statuses = []
     with tempfile.TemporaryDirectory(prefix="chip-trace-health-") as d:
@@ -3217,6 +4047,9 @@ def trace_health(ctx: dict) -> dict:
             while not stop.is_set():
                 rep = engine.tick()
                 seen.update(rep["components"])
+                if rep["components"].get("post.prove", {}).get(
+                        "healthy") is False:
+                    stall_seen.set()
                 stop.wait(0.1)
 
         tick_thread = threading.Thread(target=ticker, daemon=True)
@@ -3266,6 +4099,10 @@ def trace_health(ctx: dict) -> dict:
                         raise RuntimeError("check failed: /readyz never "
                                            "went 503 during the stall")
                     flipped = time.perf_counter() - t0
+                    # the server's engine and the ticking one judge the
+                    # stall on their own ticks: hold the window until the
+                    # ticking engine (the one with the spool) has seen it
+                    await asyncio.to_thread(stall_seen.wait, 10)
                     gate.set()
                     proof = await prove
                     t1 = time.perf_counter()
@@ -3608,6 +4445,7 @@ def main() -> int:
     phase_tenants(ctx)
     phase_verifyd(ctx)
     phase_fleet(ctx)
+    phase_atx(ctx)
     phase_trace(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
@@ -3636,6 +4474,7 @@ def main() -> int:
         extra[key]["tenants_launches"] = ctx["tenants"]["launches"][key]
         extra[key]["verifyd_launches"] = ctx["verifyd"]["launches"][key]
         extra[key]["fleet_launches"] = ctx["fleet"]["launches"][key]
+        extra[key]["atx_launches"] = ctx["atx"]["launches"][key]
         twins = ctx["verifyd"]["twins"]
         if all(key in errs for errs in twins.values()):
             extra[key]["verifyd_max_abs_err"] = {

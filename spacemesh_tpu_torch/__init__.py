@@ -1,7 +1,10 @@
 """PyTorch/CUDA port of the PoST main path of ``spacemesh_tpu``.
 
 The package runs label init, proving and verification on one NVIDIA H100
-(sm_90a). It imports ``torch`` and never JAX, and nothing of the JAX
+(sm_90a), and the layers above them that the port has reached so far: the
+PoST worker, the multi-tenant scheduler, verifyd and its fleet, and ATX
+validation (the codec, the state database, gossip, the activation
+handlers). It imports ``torch`` and never JAX, and nothing of the JAX
 package: what it needs from there is copied here. The two hot loops are
 CUDA C++ kernels under ``csrc/`` (ROMix and the proving scan), built by
 ``nvcc`` at first use (``ops/_build.py``); everything around them is plain

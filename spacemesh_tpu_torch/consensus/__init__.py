@@ -1,2 +1,3 @@
-"""The pieces of ``spacemesh_tpu/consensus/`` the verification farm needs
-(``poet.py``: merkle membership)."""
+"""The port of ``spacemesh_tpu/consensus/``: ATX building and validation
+(``activation.py``, ``activation_v2.py``), malfeasance, the poet and its
+certifier, and hare's wire messages (``hare.py``)."""

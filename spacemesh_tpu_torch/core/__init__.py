@@ -1,3 +1,3 @@
-"""The pieces of ``spacemesh_tpu/core/`` the verification farm needs:
-blake3 (``hashing.py``), ed25519 and ECVRF (``signing.py``) and the
-``MerkleProof`` shape (``types.py``)."""
+"""The port of ``spacemesh_tpu/core/``: the canonical codec
+(``codec.py``) and wire types (``types.py``), blake3 (``hashing.py``),
+ed25519 and ECVRF (``signing.py``)."""

@@ -7,9 +7,9 @@ compression, 1024-byte chunks, binary tree with the chunk-stack merge
 rule), copied whole. The JAX package's native C++ twin of the one-shot
 paths is left out: the verification farm's membership kind hashes a few
 32-byte nodes per check, where the pure-Python path costs tens of
-microseconds. Of the one-shot helpers only :func:`sum256`, which
-membership uses, is here; ``sum160`` and ``keyed`` go with the rest of
-``core/*``.
+microseconds. Of the one-shot helpers :func:`sum256` (membership, ids)
+and :func:`sum160` (``core/types.py``'s addresses) are here; ``keyed``
+waits for its first user.
 """
 
 from __future__ import annotations
@@ -172,3 +172,8 @@ class Hasher:
 def sum256(*chunks: bytes) -> bytes:
     """32-byte hash of the concatenation (reference hash.Sum)."""
     return Hasher().update(b"".join(chunks)).digest(32)
+
+
+def sum160(*chunks: bytes) -> bytes:
+    """20-byte truncated hash (reference hash/hash.go Sum20 for addresses)."""
+    return Hasher().update(b"".join(chunks)).digest(20)

@@ -15,7 +15,10 @@ tracer's capture state (``trace_*``), the sanitizers'
 (``flight_bundles_total``), the remediation engine's and the engine's
 host fallbacks (``runtime_fallbacks_total``), and the PoST path's SLI
 substrate (``post_pipeline_labels_total``,
-``post_prove_window_seconds``). ``Registry.sample()`` and
+``post_prove_window_seconds``), and gossip's and the state database's
+(``pubsub_handler_drops_total``, ``gossip_handler_seconds``; the
+per-role ``sql_<role>_query_seconds`` and ``sql_<role>_queries``, made by
+``storage/db.py``). ``Registry.sample()`` and
 scrape-time collectors feed the windowed SLIs (``obs/sli.py``).
 
 Every instrument's series map is declared shared to the lockset
@@ -437,6 +440,19 @@ verifyd_request_seconds = REGISTRY.histogram(
 verifyd_batchtune_races = REGISTRY.counter(
     "verifyd_batchtune_races_total",
     "batch-size calibration races run (persisted-rates cache misses)")
+
+# gossip (p2p/pubsub.py): a raising handler is counted + logged, never
+# allowed to abort delivery to the remaining subscribers; each handler's
+# wall time, farm queue wait included, is the gossip-latency SLI. The
+# state database's sql_state_query_seconds / sql_state_queries families
+# are made per role by storage/db.py.
+pubsub_handler_drops = REGISTRY.counter(
+    "pubsub_handler_drops_total",
+    "handler exceptions swallowed during delivery (label: topic)")
+gossip_handler_seconds = REGISTRY.histogram(
+    "gossip_handler_seconds",
+    "per-handler gossip validation seconds (label: topic)",
+    buckets=(0.0005, 0.002, 0.01, 0.05, 0.25, 1.0, 5.0, float("inf")))
 
 # span tracer (utils/tracing.py): capture state for operators reading
 # /metrics while a /debug/trace capture runs (verifyd/server.py).

@@ -400,22 +400,11 @@ def test_k2pow_verify_kernel_matches_plain_and_hashlib(dev, b):
     assert got.cpu().tolist() == [k2pow.verify(*x) for x in items]
 
 
-def test_verify_many_and_search_on_the_card_never_reach_the_plain_twins(
-        dev, verify_wl, monkeypatch):
-    """With the plain twins and the standalone proving hash made to raise,
-    verify_many (expand, ROMix, finish with the hash) and the k2pow search
-    (the window kernel, block 1 included) still run on the card and give
-    the CPU twin's answers."""
+def _forbid_plain_twins(monkeypatch):
+    """Make the plain twins (``salsa20_8``, ``blockmix_r1``,
+    ``sha256_compress``) and the standalone proving hash raise wherever
+    the port holds them."""
     from spacemesh_tpu_torch.ops import proving as tproving
-    from spacemesh_tpu_torch.post import verifier
-    from spacemesh_tpu_torch.verify.farm import PostRequest
-
-    items = [r.item for r in verify_wl.requests if isinstance(r, PostRequest)]
-    want = verifier.verify_many(items, verify_wl.post_params,
-                                seed=verify_wl.post_seed, device="cpu")
-    diff = bytes([0, 8]) + bytes([255]) * 30
-    want_nonce = k2pow.search(COMMIT, COMMIT, diff, batch=1 << 12,
-                              device="cpu")
 
     def forbid(name):
         def twin(*args, **kwargs):
@@ -429,6 +418,25 @@ def test_verify_many_and_search_on_the_card_never_reach_the_plain_twins(
                     monkeypatch.setattr(mod, name, forbid(name))
     for mod in (proving_cuda, tproving):
         monkeypatch.setattr(mod, "proving_hash", forbid("proving_hash"))
+
+
+def test_verify_many_and_search_on_the_card_never_reach_the_plain_twins(
+        dev, verify_wl, monkeypatch):
+    """With the plain twins and the standalone proving hash made to raise,
+    verify_many (expand, ROMix, finish with the hash) and the k2pow search
+    (the window kernel, block 1 included) still run on the card and give
+    the CPU twin's answers."""
+    from spacemesh_tpu_torch.post import verifier
+    from spacemesh_tpu_torch.verify.farm import PostRequest
+
+    items = [r.item for r in verify_wl.requests if isinstance(r, PostRequest)]
+    want = verifier.verify_many(items, verify_wl.post_params,
+                                seed=verify_wl.post_seed, device="cpu")
+    diff = bytes([0, 8]) + bytes([255]) * 30
+    want_nonce = k2pow.search(COMMIT, COMMIT, diff, batch=1 << 12,
+                              device="cpu")
+
+    _forbid_plain_twins(monkeypatch)
     before = pbkdf2_cuda.finish_hash_launches
     assert verifier.verify_many(items, verify_wl.post_params,
                                 seed=verify_wl.post_seed, device=dev) == want
@@ -492,3 +500,208 @@ def test_bridged_spans_enclose_the_label_launches(dev):
     spans = [e for e in tracing.export()["traceEvents"]
              if e.get("name") == "romix.dispatch"]
     assert len(spans) == 3 and tracing.validate(tracing.export()) == []
+
+
+# --- ATX validation on the card ---------------------------------------------
+
+ATX_N = 16
+ATX_LPU = 256
+GOLDEN = hashlib.sha256(b"torch-cuda-golden").digest()
+
+
+@pytest.fixture(scope="module")
+def atx_world(tmp_path_factory):
+    """Three identities initialized and proving on the card: a v1 ATX of
+    the first (its own poet round) and a merged v2 ATX of the other two,
+    each with the state DB of the node that built it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    import asyncio
+
+    from spacemesh_tpu_torch.consensus import activation as act
+    from spacemesh_tpu_torch.consensus import activation_v2 as act2
+    from spacemesh_tpu_torch.consensus import poet
+    from spacemesh_tpu_torch.core.signing import EdSigner, EdVerifier
+    from spacemesh_tpu_torch.p2p.pubsub import PubSub
+    from spacemesh_tpu_torch.post import prover, service
+    from spacemesh_tpu_torch.storage import cache, db
+
+    tmp = tmp_path_factory.mktemp("cuda-atx")
+    params = prover.ProofParams(k1=64, k2=8, k3=8,
+                                pow_difficulty=b"\x20" + b"\xff" * 31)
+    signers = [EdSigner(seed=hashlib.sha256(b"cuda-atx-%d" % i).digest())
+               for i in range(3)]
+    clients = {}
+    for s in signers:
+        d = tmp / s.node_id.hex()[:12]
+        initializer.initialize(
+            d, node_id=s.node_id, commitment=act.commitment_of(s.node_id,
+                                                               GOLDEN),
+            num_units=1, labels_per_unit=ATX_LPU, scrypt_n=ATX_N,
+            batch_size=256, device="cuda")
+        clients[s.node_id] = service.PostClient(d, params, device="cuda")
+
+    async def build():
+        state = db.open_state()
+        bus = PubSub(deliver_self=False)
+        p = poet.PoetService(poet_id=hashlib.sha256(b"cuda-poet").digest(),
+                             ticks=8)
+        handler = act.Handler(
+            db=state, cache=cache.AtxCache(), verifier=EdVerifier(),
+            golden_atx=GOLDEN, post_params=params, labels_per_unit=ATX_LPU,
+            scrypt_n=ATX_N, pubsub=bus, device="cuda")
+        b = act.Builder(signer=signers[0], db=state, pubsub=bus, poet=p,
+                        post_client=clients[signers[0].node_id],
+                        golden_atx=GOLDEN, coinbase=bytes(24),
+                        handler=handler, num_units=1)
+        v1 = await b.build_and_publish(1, execute_round=True)
+        state2 = db.open_state()
+        v2 = await act2.build_merged_atx(
+            primary=signers[1], partners=[signers[2]], db=state2,
+            poet=poet.PoetService(
+                poet_id=hashlib.sha256(b"cuda-poet-2").digest(), ticks=8),
+            post_clients=clients, golden_atx=GOLDEN, coinbase=bytes(24),
+            publish_epoch=1, execute_round=True)
+        return (v1, state), (v2, state2)
+
+    (v1, state), (v2, state2) = asyncio.run(build())
+    return dict(params=params, v1=v1, state=state, v2=v2, state2=state2,
+                signers=signers)
+
+
+def _out_of_range_post(nipost):
+    import dataclasses
+
+    return dataclasses.replace(nipost, post=dataclasses.replace(
+        nipost.post, indices=[ATX_LPU + 1 + i for i in nipost.post.indices]))
+
+
+def _atx_verdicts(world, handler_cls, db_key, envelopes, device,
+                  farm: bool):
+    """Verdicts of ``handler_cls`` over ``envelopes`` on a fresh copy of
+    ``world[db_key]`` (its poet rows only), through a farm on ``device``
+    or inline; the rows it stored."""
+    import asyncio
+
+    from spacemesh_tpu_torch.core.signing import EdVerifier
+    from spacemesh_tpu_torch.p2p.pubsub import PubSub
+    from spacemesh_tpu_torch.storage import cache, db
+    from spacemesh_tpu_torch.verify.farm import VerificationFarm
+
+    state = db.open_state()
+    for table in ("poet_proofs", "active_sets"):
+        for row in world[db_key].all(f"SELECT * FROM {table}"):
+            state.exec(f"INSERT INTO {table} VALUES "
+                       f"({','.join('?' * len(row))})", tuple(row))
+    kw = dict(db=state, cache=cache.AtxCache(), verifier=EdVerifier(),
+              golden_atx=GOLDEN, post_params=world["params"],
+              labels_per_unit=ATX_LPU, scrypt_n=ATX_N, pubsub=PubSub(),
+              device=device, now=lambda: 1.0)
+
+    async def go():
+        f = VerificationFarm(post_params=world["params"], device=device) \
+            if farm else None
+        h = handler_cls(farm=f, **kw)
+        try:
+            return [await h.process_async(e) for e in envelopes]
+        finally:
+            if f is not None:
+                await f.aclose()
+
+    verdicts = asyncio.run(go())
+    rows = [tuple(r) for r in state.all(
+        "SELECT id, node_id, publish_epoch, tick_height, data FROM atxs"
+        " ORDER BY id")]
+    return verdicts, rows
+
+
+def _v1_envelopes(world):
+    import dataclasses
+
+    from spacemesh_tpu_torch.core.signing import Domain
+
+    atx, s = world["v1"], world["signers"][0]
+    bad = dataclasses.replace(atx, nipost=_out_of_range_post(atx.nipost),
+                              signature=bytes(64))
+    bad = dataclasses.replace(bad, signature=s.sign(Domain.ATX,
+                                                    bad.signed_bytes()))
+    return [atx, bad]
+
+
+def test_farm_validates_a_v1_atx_on_the_card(atx_world, monkeypatch):
+    """A v1 ATX and a tampered copy through the farm on the card, with the
+    plain twins made to raise: the CPU's inline verdicts and rows."""
+    from spacemesh_tpu_torch.consensus import activation as act
+
+    envelopes = _v1_envelopes(atx_world)
+    want = _atx_verdicts(atx_world, act.Handler, "state", envelopes, "cpu",
+                         farm=False)
+    _forbid_plain_twins(monkeypatch)
+    before = pbkdf2_cuda.finish_hash_launches
+    card = _atx_verdicts(atx_world, act.Handler, "state", envelopes, "cuda",
+                         farm=True)
+    inline = _atx_verdicts(atx_world, act.Handler, "state", envelopes,
+                           "cuda", farm=False)
+    assert pbkdf2_cuda.finish_hash_launches > before
+    assert card == inline == want
+    assert want[0] == [True, False] and len(want[1]) == 1
+
+
+def test_farm_validates_a_merged_atx_on_the_card(atx_world, monkeypatch):
+    import dataclasses
+
+    from spacemesh_tpu_torch.consensus import activation_v2 as act2
+    from spacemesh_tpu_torch.core.signing import Domain
+
+    atx2, primary = atx_world["v2"], atx_world["signers"][1]
+    sp = atx2.subposts[1]
+    bad = dataclasses.replace(atx2, subposts=[
+        atx2.subposts[0],
+        dataclasses.replace(sp, nipost=_out_of_range_post(sp.nipost))],
+        signature=bytes(64))
+    bad = dataclasses.replace(bad, signature=primary.sign(
+        Domain.ATX, bad.signed_bytes()))
+    want = _atx_verdicts(atx_world, act2.HandlerV2, "state2", [atx2, bad],
+                         "cpu", farm=False)
+    _forbid_plain_twins(monkeypatch)
+    before = romix_cuda.launches
+    card = _atx_verdicts(atx_world, act2.HandlerV2, "state2", [atx2, bad],
+                         "cuda", farm=True)
+    assert romix_cuda.launches > before
+    assert card == want
+    assert want[0] == [True, False] and len(want[1]) == 2
+
+
+def test_certifier_on_the_card(atx_world, monkeypatch):
+    """CertifierService on the card certifies the v1 ATX's real proof and
+    refuses a tampered one, the plain twins made to raise."""
+    import dataclasses
+
+    from spacemesh_tpu_torch.consensus import activation as act
+    from spacemesh_tpu_torch.consensus import certifier
+    from spacemesh_tpu_torch.core.signing import EdSigner, EdVerifier
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.storage import misc
+
+    atx, s = atx_world["v1"], atx_world["signers"][0]
+    poet_proof = misc.poet_proof(atx_world["state"],
+                                 atx.nipost.post_metadata.challenge)
+    p = atx.nipost.post
+    proof = prover.Proof(nonce=p.nonce, indices=list(p.indices),
+                         pow_nonce=p.pow_nonce, k2=atx_world["params"].k2)
+    kw = dict(challenge=act.post_challenge(
+                  poet_proof.root, act.nipost_challenge(atx.prev_atx, 1)),
+              node_id=s.node_id, commitment=act.commitment_of(s.node_id,
+                                                              GOLDEN),
+              num_units=1, labels_per_unit=ATX_LPU)
+    svc = certifier.CertifierService(EdSigner(seed=bytes(32)),
+                                     atx_world["params"], scrypt_n=ATX_N)
+    assert svc.device.type == "cuda"
+    _forbid_plain_twins(monkeypatch)
+    cert = svc.certify(proof=proof, **kw)
+    assert certifier.verify_cert(cert, svc.pubkey, EdVerifier())
+    bad = dataclasses.replace(proof, indices=[ATX_LPU + 1 + i
+                                              for i in proof.indices])
+    with pytest.raises(ValueError, match="failed verification"):
+        svc.certify(proof=bad, **kw)
+

@@ -481,7 +481,8 @@ def test_acceptance_init_prove_farm_stall_flight(tmp_path):
         assert "stalled" in ent["reason"] and "deadline" in ent["reason"]
         assert report["ready"] is False
 
-        server = VerifydServer(device="cpu")
+        # the server's engine judges the stall on the clock that stamped it
+        server = VerifydServer(device="cpu", time_source=fake)
 
         async def go(s, base):
             r = await s.get(f"{base}/readyz")
