@@ -6,8 +6,15 @@ card: ``python3 chip_smoke.py``. It imports nothing of JAX or of the JAX
 package. Phases, each printed as it runs:
 
 1. device: the card's name and power limit; build the four CUDA sources
-   from ``spacemesh_tpu_torch/csrc`` (one nvcc each, started together) and
-   print each kernel's registers and spills; then wrap the plain twins
+   from ``spacemesh_tpu_torch/csrc`` (one nvcc each) and the two native
+   host libraries from ``spacemesh_tpu_torch/native`` (one g++ each), all
+   started together, and print each kernel's registers and spills;
+   [native]: the native blake3 against its pure-Python twin across tree
+   shapes (0 bytes to 2^20, keyed at 20/32/64 bytes out) and the native
+   ECVRF's public keys, proofs, outputs and verdicts against the Python
+   twin's on seeded keys, bit-flipped proofs, keys and messages rejected
+   by both; VRF prove and verify timed per call on both paths; then wrap
+   the plain twins
    ``salsa20_8``, ``blockmix_r1`` and ``sha256_compress`` so that a call
    on a CUDA tensor, or on a host tensor, while a path is driven is
    counted (the guard: every path below must count 0 of each);
@@ -141,9 +148,36 @@ package. Phases, each printed as it runs:
    identity malicious; InvalidPostIndex malfeasance condemns the tampered
    index and not a qualifying one; ``CertifierService`` on the card
    certifies a real proof and refuses a tampered one through
-   ``CertifierDaemon``/``CertifierClient`` on 127.0.0.1. The launch counts
-   are zeroed before the inits and before the validation and read after
-   each; no plain twin may run;
+   ``CertifierDaemon``/``CertifierClient`` on 127.0.0.1. One more pass runs
+   under ``cProfile`` enabled on the event loop's thread, its time split
+   by where it went (blake3, codec, sqlite, the loop and its futures, the
+   farm's submission, the handlers, the rest, the loop's idle wait);
+   blake3 of the v1 encodings timed native against Python; the same farm
+   passes with the one-shots on the native library and on the Python
+   twin in turns (native, Python, Python, native); finish_hash
+   held to its plain twins and timed at the phase's POST batch of 2368
+   per-lane lanes. The launch counts are zeroed before the inits and
+   before the validation and read after each; no plain twin may run, and
+   no one-shot blake3 or VRF call may be answered by the Python twin (the
+   native guard, over the whole phase);
+10b. [consensus] eligibility, hare and beacon over ``[atx]``'s identities:
+   the ``Oracle`` reads the smeshing node's ``AtxCache`` (64 identities
+   and their weights); 8 ``PubSub`` nodes on a ``LoopbackHub`` with 8
+   identities each; one beacon epoch (fastnet's kappa 40, 4 rounds and
+   durations, the configured theta) with a ``ProtocolDriver`` per node;
+   4 hare layers (mainnet's committee of 50, iteration limit 4, fastnet's
+   0.7 s rounds after a 1.0 s preround delay, the layers 4 rounds apart)
+   with one ``Hare`` per node over its 8 signers, one identity sending a
+   conflicting preround in the first layer and a forged seat count
+   offered first; one poet round through a ``python -m
+   spacemesh_tpu_torch.tools.poet_server`` process on 127.0.0.1 read by
+   ``MultiPoet``, its memberships checked through the farm's membership
+   kind. Fails unless every node outputs the same set per layer, every
+   driver decides one protocol beacon, each node reports the equivocator
+   once, the forged count is refused, the memberships verify (a wrong
+   member does not), no kernel launches and the native guard holds;
+   reports VRF verifies and Ed25519 checks per layer, the loop's busy
+   share, late, refused and dropped messages and the beacon's wall;
 11. [trace] instrumentation and self-healing: (a) init of 2^19 labels at
    the main path's width with tracing off, on, and on with the
    ``torch.profiler`` bridge inside a profiler capture, twice each in the
@@ -187,7 +221,9 @@ package. Phases, each printed as it runs:
    ``none`` for the standalone proving hash and the k2pow mask search,
    which no path launches (0 on all four: the paths hash in finish_hash
    and search in windows). The k2pow search window's times are at 2^24
-   nonces with no winner, each search's beside them (``searches``).
+   nonces with no winner, each search's beside them (``searches``);
+   finish_hash's also at ``[atx]``'s POST batch of 2368 lanes
+   (``atx_batch``).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Labels per unit are cut from mainnet's 2^32 to 2^20
@@ -200,6 +236,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import cProfile
 import dataclasses
 import hashlib
 import json
@@ -398,15 +435,160 @@ def phase_device(ctx: dict) -> None:
     ctx["int_ops_per_s"], sms, max_mhz = int_ops_per_s()
     log(f"[device] {sms} SMs, max SM clock {max_mhz:.0f} MHz -> integer "
         f"instruction peak {ctx['int_ops_per_s'] / 1e12:.2f} Top/s")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spacemesh_tpu_torch import native
+
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    # the four CUDA sources (one nvcc each) and the two native host
+    # libraries (one g++ each), all started together
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        cuda_job = pool.submit(_build.build_all)
+        host_job = pool.submit(native.build_all)
+        logs, host_libs = cuda_job.result(), host_job.result()
     log(f"[build] {', '.join(_build.library_path(n).name for n in logs)} "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"and {', '.join(p.name for p in host_libs.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 log(f"[build] {name}: {line.strip()}")
+
+
+NATIVE_SIZES = (0, 1, 64, 1024, 1025, 1 << 16, 1 << 20)  # blake3 tree shapes
+NATIVE_TRIALS = 8         # seeded VRF keys, each with a proof and flips
+
+
+@contextlib.contextmanager
+def python_oneshots(on: bool):
+    """When ``on``, the port's one-shot blake3 and VRF answer from their
+    Python twins for the block (the native libraries stay loaded)."""
+    from spacemesh_tpu_torch.core import hashing, signing
+
+    if not on:
+        yield
+        return
+    saved = hashing._native, signing._NATIVE_VRF
+    hashing._native, signing._NATIVE_VRF = False, None
+    try:
+        yield
+    finally:
+        hashing._native, signing._NATIVE_VRF = saved
+
+
+def per_call_us(fn, reps: int) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def require_native(counts: dict, path: str) -> None:
+    """The native guard: both libraries loaded from the port's build
+    directory, and no one-shot blake3 or VRF call answered by the Python
+    twin on ``path`` (``counts``: ``native.counts()`` over the path)."""
+    from spacemesh_tpu_torch import native
+
+    st = native.status()
+    build = os.path.join(os.path.realpath(REPO), "spacemesh_tpu_torch",
+                         "build") + os.sep
+    for name, lib in st.items():
+        require(lib["loaded"] and lib["path"].startswith(build),
+                f"{path}: native {name} loaded from the port's build "
+                f"directory ({json.dumps(lib)})")
+    python = {kind: c["python"] for kind, c in counts.items()}
+    require(sum(python.values()) == 0, f"{path}: no one-shot blake3 or VRF "
+            f"call answered by the Python twin ({json.dumps(counts)})")
+    log(f"[guard] {path}: native calls {json.dumps(counts)}; Python-twin "
+        f"calls {json.dumps(python)}")
+
+
+def phase_native(ctx: dict) -> None:
+    """The native blake3 and ECVRF twins (built in [device]) against the
+    port's pure-Python twins on seeded inputs: blake3 across tree shapes,
+    keyed and at 20/32/64 bytes; VRF public key, prove, output and verify,
+    bit-flipped proofs, keys and messages rejected by both; time per call
+    of each path (VRF prove and verify; blake3 of a v1 ATX's encoding is
+    timed in [atx], on the real encodings)."""
+    import random
+
+    from spacemesh_tpu_torch import native
+    from spacemesh_tpu_torch.core import hashing, signing
+
+    t0 = time.perf_counter()
+    require(native.load("blake3") is not None
+            and signing._native_vrf() is not None,
+            f"both native libraries load ({json.dumps(native.status())})")
+    rng = random.Random(0x11)
+    key = rng.randbytes(32)
+    for size in NATIVE_SIZES:
+        data = rng.randbytes(size)
+        want = hashing.Hasher().update(data).digest(32)
+        require(hashing._hash_oneshot(data, None, 32) == want,
+                f"blake3 native == Python at {size} bytes")
+        if size <= 1 << 16:
+            for length in (20, 32, 64):
+                want = hashing.Hasher(key=key).update(data).digest(length)
+                require(hashing._hash_oneshot(data, key, length) == want,
+                        f"keyed blake3 native == Python at {size} bytes, "
+                        f"{length} out")
+    verifier = signing.VrfVerifier()
+    rejected = 0
+    for trial in range(NATIVE_TRIALS):
+        seed = hashlib.sha256(b"chip-smoke-vrf-%d" % trial).digest()
+        alpha = rng.randbytes(rng.randrange(1, 100))
+        signer = signing.VrfSigner(seed)
+        proof = signer.prove(alpha)
+        out = signing.vrf_output(proof)
+        with python_oneshots(True):
+            py = signing.VrfSigner(seed)
+            same = (py.public_key == signer.public_key
+                    and py.prove(alpha) == proof
+                    and signing.vrf_output(proof) == out
+                    and verifier.verify(signer.public_key, alpha, proof))
+        require(same and verifier.verify(signer.public_key, alpha, proof),
+                f"VRF trial {trial}: public key, proof and output native == "
+                f"Python, both verify")
+        for what in range(3):
+            pk, a, p = (bytearray(x) for x in (signer.public_key, alpha,
+                                               proof))
+            buf = (p, pk, a)[what]
+            buf[rng.randrange(len(buf))] ^= 1 << rng.randrange(8)
+            pk, a, p = bytes(pk), bytes(a), bytes(p)
+            with python_oneshots(True):
+                py_ok = verifier.verify(pk, a, p)
+            require(not verifier.verify(pk, a, p) and not py_ok,
+                    f"VRF trial {trial}: a flipped "
+                    f"{('proof', 'key', 'message')[what]} is rejected by both")
+            rejected += 1
+    seed = hashlib.sha256(b"chip-smoke-vrf-timing").digest()
+    signer = signing.VrfSigner(seed)
+    proof = signer.prove(b"timing")
+    times = dict(
+        vrf_verify_native_us=per_call_us(
+            lambda: verifier.verify(signer.public_key, b"timing", proof), 200),
+        vrf_prove_native_us=per_call_us(lambda: signer.prove(b"timing"), 200))
+    with python_oneshots(True):
+        times["vrf_verify_python_us"] = per_call_us(
+            lambda: verifier.verify(signer.public_key, b"timing", proof), 5)
+        times["vrf_prove_python_us"] = per_call_us(
+            lambda: signer.prove(b"timing"), 5)
+    log(f"[native] {', '.join(os.path.basename(v['path']) for v in native.status().values())}: "
+        f"blake3 native == Python at {', '.join(map(str, NATIVE_SIZES))} "
+        f"bytes (keyed at 20/32/64 bytes out up to 2^16); VRF public key, "
+        f"proof, output and verdict native == Python over {NATIVE_TRIALS} "
+        f"seeded keys, {rejected} flipped proofs, keys and messages rejected "
+        f"by both")
+    log(f"[native] per call: VRF verify native "
+        f"{times['vrf_verify_native_us']:.1f} us, Python "
+        f"{times['vrf_verify_python_us']:.1f} us "
+        f"({times['vrf_verify_python_us'] / times['vrf_verify_native_us']:.1f}x); "
+        f"VRF prove native {times['vrf_prove_native_us']:.1f} us, Python "
+        f"{times['vrf_prove_python_us']:.1f} us "
+        f"({times['vrf_prove_python_us'] / times['vrf_prove_native_us']:.1f}x); "
+        f"phase {time.perf_counter() - t0:.1f} s")
 
 
 def phase_romix(ctx: dict) -> None:
@@ -2626,7 +2808,8 @@ async def atx_build(signers: list, clients: dict, farm) -> dict:
             "the smeshing node validated its merged ATXs")
     epochs.append(recorded[:])
     times.append(time.perf_counter() - t0)
-    return dict(epochs=epochs, times=times, node_db=node_db)
+    return dict(epochs=epochs, times=times, node_db=node_db,
+                cache=common["cache"])
 
 
 def atx_resign(atx, signer):
@@ -3008,14 +3191,58 @@ def atx_host_split(doc: dict, sql_s: float, decode_s: float) -> dict:
                          for k, v in sorted(batches.items())})
 
 
+# the event loop's time by where it went, from the profiled thread's own
+# (tottime) seconds per function: the first rule whose file or function
+# name matches claims it
+LOOP_SPLIT = (
+    ("blake3", ("spacemesh_tpu_torch/core/hashing.py",)),
+    ("codec decode/encode", ("spacemesh_tpu_torch/core/codec.py",
+                             "spacemesh_tpu_torch/core/types.py")),
+    ("sqlite", ("spacemesh_tpu_torch/storage/", "sqlite3")),
+    ("loop idle (epoll wait)", ("select.epoll",)),
+    ("future resolution and the loop", ("/asyncio/", "concurrent/futures",
+                                        "_asyncio", "_contextvars")),
+    ("verify farm (submit, coalesce)", ("spacemesh_tpu_torch/verify/",
+                                        "spacemesh_tpu_torch/runtime/")),
+    ("handlers", ("spacemesh_tpu_torch/consensus/",
+                  "spacemesh_tpu_torch/p2p/")),
+    ("signing (cache, dispatch)", ("spacemesh_tpu_torch/core/signing.py",)),
+    ("metrics and tracing", ("spacemesh_tpu_torch/utils/",)),
+)
+
+
+def atx_loop_split(prof, wall: float) -> dict:
+    """A cProfile'd pass's loop-thread seconds per ``LOOP_SPLIT`` category
+    (and ``rest``), its total, and the pass's wall time (under the
+    profiler's own overhead)."""
+    import pstats
+
+    split: dict = collections.Counter()
+    rest: dict = collections.Counter()
+    for (path, _line, func), row in pstats.Stats(prof).stats.items():
+        tottime = row[2]
+        where = f"{path}:{func}"
+        for name, keys in LOOP_SPLIT:
+            if any(k in where for k in keys):
+                split[name] += tottime
+                break
+        else:
+            split["rest"] += tottime
+            rest[f"{os.path.basename(path)}:{func}"] += tottime
+    return dict(seconds=dict(split.most_common()),
+                total=sum(split.values()), wall=wall,
+                rest_top=rest.most_common(8))
+
+
 def phase_atx(ctx: dict) -> None:
     import asyncio
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     import torch
+    from spacemesh_tpu_torch import native
     from spacemesh_tpu_torch.consensus import activation as act
-    from spacemesh_tpu_torch.core import signing, types
+    from spacemesh_tpu_torch.core import hashing, signing, types
     from spacemesh_tpu_torch.p2p import pubsub as ps
     from spacemesh_tpu_torch.post import initializer, prover, service
     from spacemesh_tpu_torch.tools.measure import busy_us, device_intervals
@@ -3038,6 +3265,7 @@ def phase_atx(ctx: dict) -> None:
         for i in range(ATX_IDS)]
     by_id = {s.node_id: s for s in signers}
     params = prover.ProofParams()
+    native.zero_counts()
     zero_launches()
     GUARD.start()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-atx-") as d:
@@ -3125,6 +3353,20 @@ def phase_atx(ctx: dict) -> None:
                     last = out["passes"][-1]
                     out["checks"] = await atx_checks(plan, last["node"],
                                                      by_id)
+                    # one pass under cProfile, enabled on this thread: the
+                    # event loop's, where every handler and callback runs
+                    signing.clear_verify_cache()
+                    cprof = cProfile.Profile()
+                    cprof.enable()
+                    try:
+                        profiled_loop = await atx_pass(
+                            plan, os.path.join(d, "state-cprofile.sql"), farm)
+                    finally:
+                        cprof.disable()
+                    profiled_loop["node"]["db"].close()
+                    out["loop_split"] = atx_loop_split(
+                        cprof, profiled_loop["wall"])
+                    out["cprofiled"] = profiled_loop
                     # one traced pass: the host time split
                     signing.clear_verify_cache()
                     sql = metrics.REGISTRY.histogram(
@@ -3146,11 +3388,24 @@ def phase_atx(ctx: dict) -> None:
                                     item["data"]) for item in items]
                     decode_s = time.perf_counter() - t0
                     t0 = time.perf_counter()
-                    for atx in decoded:  # blake3 of the bytes, in Python
+                    for atx in decoded:  # encode + blake3, as the handlers
                         atx.id
                     id_ms = (time.perf_counter() - t0) / len(decoded) * 1e3
                     out["split"] = atx_host_split(doc, sql_s, decode_s)
                     out["split"]["id_ms"] = id_ms
+                    v1 = [i["data"] for i in items
+                          if i["topic"] == ps.TOPIC_ATX]
+                    t0 = time.perf_counter()
+                    for raw in v1:
+                        hashing.sum256(raw)
+                    b3_native = (time.perf_counter() - t0) / len(v1) * 1e6
+                    t0 = time.perf_counter()
+                    for raw in v1[:64]:  # the Python twin, called directly
+                        hashing.Hasher().update(raw).digest(32)
+                    b3_python = (time.perf_counter() - t0) / 64 * 1e6
+                    out["blake3_atx"] = dict(
+                        bytes=statistics.median(len(r) for r in v1),
+                        native_us=b3_native, python_us=b3_python)
                     out["traced"] = traced
                     traced["node"]["db"].close()
                     # one profiled pass: the card's idle share
@@ -3170,6 +3425,19 @@ def phase_atx(ctx: dict) -> None:
                         plan, os.path.join(d, "state-inline.sql"), None,
                         sequential=True)
                     out["inline"] = inline
+                    # the native guard reads the path up to here; then the
+                    # same farm passes with the one-shots on the native
+                    # library and on the Python twin, in turns
+                    out["native_counts"] = native.counts()
+                    out["turns"] = []
+                    for mode in ATX_TURNS:
+                        with python_oneshots(mode == "python"):
+                            signing.clear_verify_cache()
+                            t = await atx_pass(plan, os.path.join(
+                                d, f"state-turn-{len(out['turns'])}.sql"),
+                                farm)
+                        t["node"]["db"].close()
+                        out["turns"].append((mode, t))
                 finally:
                     await farm.aclose()
                 return out
@@ -3190,7 +3458,9 @@ def phase_atx(ctx: dict) -> None:
         peak_reserved = torch.cuda.max_memory_reserved()
 
         passes = res["passes"]
-        for n, p in enumerate(passes + [res["traced"], res["profiled"]]):
+        for n, p in enumerate(passes + [res["traced"], res["profiled"],
+                                        res["cprofiled"]]
+                              + [t for _, t in res["turns"]]):
             require(p["verdicts"] == want, f"pass {n}: every verdict == the "
                     f"one expected by construction ({sum(want)} valid, "
                     f"{len(want) - sum(want)} tampered)")
@@ -3210,6 +3480,7 @@ def phase_atx(ctx: dict) -> None:
                 f"device='cpu' (the plain twins): {[ok for ok, _ in cpu]} "
                 "== [True, False] on a valid and a tampered-index envelope")
         require_no_twins(guard, "atx validation")
+        require_native(res["native_counts"], "atx (build and validation)")
         for key in ("romix", "pbkdf2_expand", "pbkdf2_finish_hash"):
             require(launches[key] > 0, f"atx validation launched {key}")
         for key in ("pbkdf2_finish", "scan", "k2pow_search", *OFF_PATH):
@@ -3260,7 +3531,7 @@ def phase_atx(ctx: dict) -> None:
         idle = "idle share not measured (no device activity recorded)"
     log(f"[atx] {idle}; peak device memory over the phase: allocated "
         f"{peak / 2**30:.2f} GiB, reserved {peak_reserved / 2**30:.2f} GiB")
-    log(f"[atx] every verdict as constructed in {len(passes) + 2} farm "
+    log(f"[atx] every verdict as constructed in {len(passes) + 3} farm "
         f"passes and the inline pass; farm == inline: {len(farm_state[0])} "
         f"atxs rows and the cache's weights and heights; device='cpu': "
         f"{[ok for ok, _ in cpu]} in {cpu_s:.1f} s in two worker processes "
@@ -3272,11 +3543,443 @@ def phase_atx(ctx: dict) -> None:
         f"the card at {ck['certifier']['addr']} certified a real proof in "
         f"{ck['certifier']['cert_s']:.2f} s and refused the tampered one "
         f"({ck['certifier']['refused']})")
+    ls, cp = res["loop_split"], res["cprofiled"]
+    busy = ls["total"] - ls["seconds"].get("loop idle (epoll wait)", 0.0)
+    log(f"[atx] the event loop of a pass under cProfile ({cp['wall']:.3f} s "
+        f"wall with the profiler's overhead, {len(cp['verdicts']) / cp['wall']:.1f} "
+        f"ATXs/s; {ls['total']:.3f} s on the loop's thread, {busy:.3f} s "
+        f"of it busy): " + ", ".join(
+            f"{k} {v:.3f} s ({v / ls['total']:.1%})"
+            for k, v in ls["seconds"].items()))
+    log("[atx] the rest's largest: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in ls["rest_top"]))
+    turns = res["turns"]
+    by_mode = {m: [len(t["verdicts"]) / t["wall"] for mm, t in turns
+                   if mm == m] for m in ("native", "python")}
+    log(f"[atx] one-shot blake3 and VRF on the native library and on the "
+        f"Python twin, the same farm passes in turns "
+        f"{', '.join(m for m, _ in turns)}: " + ", ".join(
+            f"{m} {len(t['verdicts']) / t['wall']:.1f}" for m, t in turns)
+        + f" ATXs/s; native/Python "
+        f"{statistics.mean(by_mode['native']) / statistics.mean(by_mode['python']):.2f}x; "
+        f"latency p50 " + ", ".join(
+            f"{statistics.median(t['lat']) * 1e3:.1f}" for _, t in turns)
+        + " ms")
+    b3 = res["blake3_atx"]
+    log(f"[native] blake3 of a v1 ATX's encoding ({b3['bytes']:.0f} bytes, "
+        f"the median): native {b3['native_us']:.2f} us, Python "
+        f"{b3['python_us']:.1f} us per call "
+        f"({b3['python_us'] / b3['native_us']:.0f}x); an ATX id (encode + "
+        f"blake3) {res['split']['id_ms'] * 1e3:.1f} us")
     log(f"[atx] launches over the validation {json.dumps(launches)}; "
         f"phase {time.perf_counter() - t_phase:.1f} s")
+    fh = atx_finish_hash(ctx)
     log(f"[atx] {ctx['smi']}")
     ctx["atx"] = dict(launches={k: build_launches[k] + launches[k]
-                                for k in launches}, rate=rate)
+                                for k in launches}, rate=rate,
+                      cache=built["cache"], seeds=[
+                          hashlib.sha256(b"chip-smoke-atx-%d" % i).digest()
+                          for i in range(ATX_IDS)], finish_hash=fh)
+
+
+ATX_POST_LANES = ATX_IDS * 37  # a full [atx] POST batch: 64 proofs x k3
+ATX_TURNS = ("native", "python", "python", "native")
+
+
+
+def atx_finish_hash(ctx: dict) -> dict:
+    """finish_hash at [atx]'s own POST batch shape (2368 per-lane lanes)
+    against finish + the proving hash's plain twins, then timed with finish
+    alone in turns, beside its bound (outside the guard: the check runs
+    the plain twins)."""
+    from spacemesh_tpu_torch.ops import pbkdf2_cuda
+
+    b = ATX_POST_LANES
+    err, (cw, blk, ch, nonce, lo, hi) = finish_hash_case(b, True, 54)
+    fh = (lambda: pbkdf2_cuda.finish_hash(cw, blk, ch, nonce, lo, hi))
+    fin = (lambda: pbkdf2_cuda.finish(cw, blk))
+    turns = [kernel_ms(f, "finish_kernel", reps=50)
+             for f in (fin, fh, fh, fin)]
+    out = dict(max_abs_err=err, finish_fh_fh_finish_ms=turns,
+               kernel_ms=(turns[1] + turns[2]) / 2, ms=cuda_ms(fh, reps=50),
+               **bound(pbkdf2_cuda.int_ops(b, "finish_hash", True),
+                       pbkdf2_cuda.io_bytes(b, "finish_hash", True),
+                       ctx["int_ops_per_s"]))
+    log(f"[atx] finish_hash at B={b} per-lane (a full POST batch of the "
+        f"phase): == finish + proving hash plain (max_abs_err {err}); kernel "
+        f"ms finish, finish_hash, finish_hash, finish {json.dumps(turns)}; "
+        f"wrapper call rate {out['ms']:.4f} ms, bound {out['bound_ms']:.5f} "
+        f"ms ({out['bound_by']})")
+    return out
+
+
+# --- [consensus]: eligibility, hare and beacon over [atx]'s identities -----
+
+CONS_NODES = 8            # PubSub nodes on one LoopbackHub, 8 identities each
+CONS_LPE = 4032           # mainnet layers per epoch (node/config.py:222)
+CONS_COMMITTEE = 50       # mainnet's committee since layer 105720
+                          # (node/config.py:205-206 committee_upgrade)
+CONS_ITERATIONS = 4       # HareConfig.iteration_limit (leader_count 5 is
+                          # not read by Hare)
+CONS_ROUND_S = 0.7        # fastnet round_duration (mainnet 25 s)
+CONS_PREROUND_S = 1.0     # fastnet preround_delay (mainnet 25 s)
+CONS_LAYERS = 4           # hare layers run
+CONS_STAGGER = 4          # rounds between two layers' starts
+CONS_PROPOSALS = 5        # proposal ids per layer
+CONS_THETA = 0.00004      # BeaconConfig.theta, the configured value
+CONS_THETA_CUT = 0.25     # tests/test_beacon.py's, if no protocol beacon
+CONS_BEACON = dict(kappa=40, rounds_number=4, grace_period=0.5,
+                   proposal_duration=0.7, first_voting_round_duration=1.4,
+                   voting_round_duration=0.7)  # fastnet (node/config.py:243)
+
+
+def consensus_layout(ctx: dict) -> tuple:
+    """[atx]'s 64 identities (the smeshing node's signers) with the epoch
+    their ATXs target in its AtxCache, grouped 8 per node."""
+    from spacemesh_tpu_torch.core import signing
+
+    cache = ctx["atx"]["cache"]
+    epoch = ATX_EPOCHS + 1  # the last v1 epoch's target: 64 validated ATXs
+    atx_of = {info.node_id: atx_id for atx_id, info in cache.iter_epoch(epoch)}
+    signers = [signing.EdSigner(seed=s, prefix=ATX_GEN)
+               for s in ctx["atx"]["seeds"]]
+    require(cache.epoch_count(epoch) == ATX_IDS
+            and all(s.node_id in atx_of for s in signers),
+            f"the AtxCache holds all {ATX_IDS} identities for epoch {epoch}")
+    per = ATX_IDS // CONS_NODES
+    groups = [signers[i:i + per] for i in range(0, ATX_IDS, per)]
+    return cache, epoch, atx_of, groups
+
+
+async def consensus_beacon(cache, epoch: int, atx_of: dict, groups: list,
+                           theta: float) -> dict:
+    """One beacon epoch: a ProtocolDriver per node (its own state DB) on
+    one LoopbackHub, every identity proposing and voting with its weight."""
+    import asyncio
+
+    from spacemesh_tpu_torch.consensus import beacon, eligibility
+    from spacemesh_tpu_torch.core.signing import EdVerifier
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+    from spacemesh_tpu_torch.storage import db, misc
+
+    hub = ps.LoopbackHub()
+    drivers = []
+    for k, group in enumerate(groups):
+        node = ps.PubSub(node_name=b"consensus-%d" % k)
+        hub.join(node)
+        state = db.open_state(":memory:")
+        drivers.append((beacon.ProtocolDriver(
+            db=state, oracle=eligibility.Oracle(cache, CONS_LPE),
+            pubsub=node, genesis_id=ATX_GEN,
+            verifier=EdVerifier(prefix=ATX_GEN), theta=theta,
+            **CONS_BEACON), state, node, group))
+    t0 = time.perf_counter()
+    beacons = await asyncio.gather(*(
+        drv.run_epoch(epoch, None, None, None, participants=[
+            (s, s.vrf_signer(), atx_of[s.node_id]) for s in group])
+        for drv, _, _, group in drivers))
+    wall = time.perf_counter() - t0
+    sources = [misc.beacon_source(state, epoch) for _, state, _, _ in drivers]
+    proposals = max(len(drv._states.get(epoch, beacon._EpochState()).proposals)
+                    for drv, _, _, _ in drivers)
+    return dict(beacons=beacons, sources=sources, wall=wall, hub=hub,
+                drivers=drivers, proposals=proposals, theta=theta,
+                protocol=all(src == misc.BEACON_PROTOCOL for src in sources))
+
+
+async def consensus_hare(cache, epoch: int, atx_of: dict, groups: list,
+                         beacon_run: dict) -> dict:
+    """CONS_LAYERS hare layers on the beacon's nodes, staggered by
+    CONS_STAGGER rounds as the node runs sessions beside its layer loop:
+    one Hare per node over its 8 signers; identity X equivocates in the
+    first layer's preround; a forged seat count is offered first."""
+    import asyncio
+
+    from spacemesh_tpu_torch.consensus import eligibility, hare
+    from spacemesh_tpu_torch.core import signing
+    from spacemesh_tpu_torch.core.hashing import sum256
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+    from spacemesh_tpu_torch.utils import metrics
+
+    drivers = beacon_run["drivers"]
+    first = epoch * CONS_LPE
+    layers = list(range(first, first + CONS_LAYERS))
+    props = {layer: sorted(sum256(b"chip-smoke-proposal",
+                                  layer.to_bytes(4, "little"), bytes([j]))
+                           for j in range(CONS_PROPOSALS))
+             for layer in layers}
+    outs = [[] for _ in drivers]
+    equivs = [[] for _ in drivers]
+    late = [0]
+    rejected = [0]
+    hares, closed = [], []
+    for k, (drv, _state, node, group) in enumerate(drivers):
+        async def on_output(out, k=k):
+            outs[k].append((out.layer, tuple(out.proposals), out.completed))
+
+        h = hare.Hare(
+            signers=group, verifier=signing.EdVerifier(prefix=ATX_GEN),
+            oracle=eligibility.Oracle(cache, CONS_LPE), pubsub=node,
+            committee_size=CONS_COMMITTEE, round_duration=CONS_ROUND_S,
+            iteration_limit=CONS_ITERATIONS, preround_delay=CONS_PREROUND_S,
+            layers_per_epoch=CONS_LPE, beacon_of=drv.get,
+            atx_for=lambda e, node_id: atx_of.get(node_id),
+            proposals_for=lambda layer: list(props.get(layer, [])),
+            on_output=on_output, on_equivocation=equivs[k].append)
+        done: set = set()
+
+        def dispatch(msg, raw_signed=None, raw_full=None, _real=h._dispatch,
+                     _done=done):
+            if msg.layer in _done:  # its session here had closed
+                late[0] += 1
+            return _real(msg, raw_signed, raw_full)
+
+        h._dispatch = dispatch
+        handlers = node._handlers[ps.TOPIC_HARE]
+
+        def counted(fn):
+            async def handler(peer, data):
+                ok = await fn(peer, data)
+                if ok is False:
+                    rejected[0] += 1
+                return ok
+            return handler
+
+        node._handlers[ps.TOPIC_HARE] = [counted(fn) for fn in handlers]
+        hares.append(h)
+        closed.append(done)
+    beacon = await drivers[0][0].get(epoch)
+    # identity X: the first identity eligible in the first layer's preround
+    oracle = hares[0].oracle
+    who = [(s, oracle.hare_eligibility(
+        s.vrf_signer(), beacon, first, 0, epoch, atx_of[s.node_id],
+        CONS_COMMITTEE)) for group in groups for s in group]
+    evil, (evil_proof, evil_count) = next((s, el) for s, el in who if el)
+
+    def signed(signer, layer, values, proof, count):
+        msg = hare.HareMessage(
+            layer=layer, iteration=0, round=hare.PREROUND,
+            values=sorted(values), eligibility_proof=proof,
+            eligibility_count=count, atx_id=atx_of[signer.node_id],
+            node_id=signer.node_id, cert_msgs=[], signature=bytes(64))
+        msg.signature = signer.sign(signing.Domain.HARE, msg.signed_bytes())
+        return msg.to_bytes()
+
+    # a forged seat count is refused, the true one taken (for a layer no
+    # session runs: it is buffered, then dropped)
+    spare = first + 1000
+    sp_signer, sp_el = next(
+        (s, el) for group in groups for s in group
+        if (el := oracle.hare_eligibility(
+            s.vrf_signer(), beacon, spare, 0, epoch, atx_of[s.node_id],
+            CONS_COMMITTEE)))
+    forged = signed(sp_signer, spare, [sum256(b"x")], sp_el[0],
+                    sp_el[1] + 1)
+    honest = signed(sp_signer, spare, [sum256(b"x")], *sp_el)
+    forged_ok = await hares[0]._gossip(b"forger", forged)
+    honest_ok = await hares[0]._gossip(b"forger", honest)
+    hares[0]._pending.pop(spare, None)
+
+    evil_ps = ps.PubSub(node_name=b"equivocator")
+    beacon_run["hub"].join(evil_ps)
+    vrf_calls: dict = collections.Counter()
+    ed_calls: dict = collections.Counter()
+    real_vrf = signing.VrfVerifier.verify
+    real_ed = signing.EdVerifier.verify
+
+    def vrf_verify(self, public_key, alpha, proof):
+        if alpha[:4] == b"HARE":
+            vrf_calls[int.from_bytes(alpha[8:12], "little")] += 1
+        return real_vrf(self, public_key, alpha, proof)
+
+    def ed_verify(self, domain, public_key, msg, signature):
+        if domain == signing.Domain.HARE:
+            ed_calls[int.from_bytes(msg[:4], "little")] += 1
+        return real_ed(self, domain, public_key, msg, signature)
+
+    drops = metrics.pubsub_handler_drops
+    drops0 = sum(drops.sample().values())
+    start = time.time() + 0.5
+    starts = {layer: start + i * CONS_STAGGER * CONS_ROUND_S
+              for i, layer in enumerate(layers)}
+
+    async def run(k, layer):
+        out = await hares[k].run_layer(layer, layer_start=starts[layer])
+        closed[k].add(layer)
+        return out
+
+    async def equivocate():
+        await asyncio.sleep(starts[first] + CONS_PREROUND_S + 0.05
+                            - time.time())
+        await evil_ps.publish(ps.TOPIC_HARE, signed(
+            evil, first, [sum256(b"chip-smoke-equivocation")], evil_proof,
+            evil_count))
+
+    signing.VrfVerifier.verify = vrf_verify
+    signing.EdVerifier.verify = ed_verify
+    try:
+        t0, c0 = time.perf_counter(), time.thread_time()
+        await asyncio.gather(*(run(k, layer) for layer in layers
+                               for k in range(len(hares))), equivocate())
+        wall, busy = time.perf_counter() - t0, time.thread_time() - c0
+    finally:
+        signing.VrfVerifier.verify = real_vrf
+        signing.EdVerifier.verify = real_ed
+    await beacon_run["hub"].drain()
+    return dict(outs=outs, equivs=equivs, evil=evil.node_id, late=late[0],
+                rejected=rejected[0],
+                drops=sum(drops.sample().values()) - drops0,
+                forged_ok=forged_ok, honest_ok=honest_ok, wall=wall,
+                busy=busy, vrf=dict(vrf_calls), ed=dict(ed_calls),
+                layers=layers, props=props,
+                rounds=(wall - 0.5 - CONS_PREROUND_S) / CONS_ROUND_S)
+
+
+async def consensus_poet(atx_of: dict) -> dict:
+    """One round through a ``python -m spacemesh_tpu_torch.tools.poet_server``
+    process on 127.0.0.1 read by ``MultiPoet``, every identity registered;
+    its memberships (and a tampered one) checked through the farm's
+    membership kind."""
+    import asyncio
+
+    from spacemesh_tpu_torch.consensus import poet_remote
+    from spacemesh_tpu_torch.core.hashing import sum256
+    from spacemesh_tpu_torch.core.signing import EdVerifier
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.verify import farm as farm_mod
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "spacemesh_tpu_torch.tools.poet_server",
+         "--listen", "127.0.0.1:0", "--ticks", str(ATX_TICKS), "--id-seed",
+         "chip-smoke-consensus"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True, cwd=REPO)
+    farm = None
+    try:
+        ev = json.loads(proc.stdout.readline())
+        require(ev["event"] == "Serving", f"the poet server serves ({ev})")
+        boot_s = time.perf_counter() - t0
+        mp = poet_remote.MultiPoet([poet_remote.RemotePoetClient(
+            (ev["host"], ev["port"]), timeout=60)])
+        challenges = [sum256(b"chip-smoke-consensus-challenge", node_id)
+                      for node_id in sorted(atx_of)]
+        for ch in challenges:
+            await mp.register("1", ch)
+        result = await mp.execute_round("1")
+        farm = farm_mod.VerificationFarm(
+            ed_verifier=EdVerifier(prefix=ATX_GEN),
+            post_params=prover.ProofParams(), device="cuda")
+        n = len(result.members)
+        reqs = [farm_mod.MembershipRequest(
+            member=ch, proof=result.membership(ch), root=result.proof.root,
+            leaf_count=n) for ch in challenges]
+        bad = dataclasses.replace(reqs[0], member=sum256(b"not a member"))
+        verdicts = await asyncio.gather(*(farm.submit(r)
+                                          for r in reqs + [bad]))
+    finally:
+        if farm is not None:
+            await farm.aclose()
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return dict(boot_s=boot_s, members=n, ticks=result.proof.ticks,
+                verdicts=verdicts, wall=time.perf_counter() - t0,
+                addr=f"{ev['host']}:{ev['port']}")
+
+
+def phase_consensus(ctx: dict) -> None:
+    import asyncio
+
+    from spacemesh_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    cache, epoch, atx_of, groups = consensus_layout(ctx)
+    weights = sorted(cache.get(epoch, a).weight for a in atx_of.values())
+    log(f"[consensus] the Oracle reads [atx]'s AtxCache (the smeshing node's "
+        f"own validated ATXs): epoch {epoch}, {len(atx_of)} identities, total "
+        f"weight {cache.epoch_weight(epoch)} (each {weights[0]}-{weights[-1]}); "
+        f"{CONS_NODES} PubSub nodes on a LoopbackHub with "
+        f"{len(groups[0])} identities each")
+    native.zero_counts()
+    zero_launches()
+    GUARD.start()
+
+    async def drive():
+        theta = CONS_THETA
+        b = await consensus_beacon(cache, epoch, atx_of, groups, theta)
+        cut = None
+        if not b["protocol"]:
+            cut = b
+            b = await consensus_beacon(cache, epoch, atx_of, groups,
+                                       CONS_THETA_CUT)
+        h = await consensus_hare(cache, epoch, atx_of, groups, b)
+        p = await consensus_poet(atx_of)
+        return b, cut, h, p
+
+    b, cut, h, p = asyncio.run(drive())
+    guard = GUARD.stop()
+    counts = native.counts()
+    launches = launch_counts()
+    require_no_twins(guard, "consensus")
+    require_native(counts, "consensus (beacon, hare, poet)")
+    require(not any(launches.values()), f"consensus launched no kernel "
+            f"({json.dumps(launches)})")
+    if cut is not None:
+        log(f"[consensus] at theta {CONS_THETA} the beacon fell back "
+            f"(sources {cut['sources']}, {cut['proposals']} proposals); "
+            f"ran again at theta {CONS_THETA_CUT} (a cut)")
+    require(len(set(b["beacons"])) == 1 and b["protocol"],
+            f"every driver decided one protocol beacon ({b['beacons']}, "
+            f"sources {b['sources']})")
+    log(f"[consensus] beacon epoch {epoch}: {len(b['drivers'])} drivers "
+        f"decided {b['beacons'][0].hex()} (source protocol on every node, "
+        f"{b['proposals']} proposals, kappa {CONS_BEACON['kappa']}, "
+        f"{CONS_BEACON['rounds_number']} rounds, theta {b['theta']}) in "
+        f"{b['wall']:.3f} s wall")
+    for layer in h["layers"]:
+        got = {tuple(o[1:]) for outs in h["outs"] for o in outs
+               if o[0] == layer}
+        require(len(got) == 1 and all(
+            sum(o[0] == layer for o in outs) == 1 for outs in h["outs"]),
+            f"layer {layer}: every node output one hare set ({got})")
+        (props, completed), = got
+        require(completed and list(props) == h["props"][layer],
+                f"layer {layer}: agreement on the layer's proposals")
+    require(all([e.node_id for e in per] == [h["evil"]] for per in h["equivs"]),
+            f"every node reported the equivocator once "
+            f"({[[e.node_id.hex()[:8] for e in per] for per in h['equivs']]})")
+    require(h["forged_ok"] is False and h["honest_ok"] is True,
+            f"a forged seat count is refused ({h['forged_ok']}) and the true "
+            f"one taken ({h['honest_ok']})")
+    require(all(p["verdicts"][:-1]) and p["verdicts"][-1] is False,
+            f"the poet's {p['members']} memberships verify through the "
+            f"farm and a wrong member does not")
+    n = len(h["layers"])
+    log(f"[consensus] hare: {n} layers from {h['layers'][0]}, committee "
+        f"{CONS_COMMITTEE}, {CONS_ITERATIONS} iterations at most, rounds "
+        f"{CONS_ROUND_S} s after a {CONS_PREROUND_S} s preround delay, "
+        f"layers {CONS_STAGGER} rounds apart: every node output the same "
+        f"{CONS_PROPOSALS} proposals per layer; identity "
+        f"{h['evil'].hex()[:16]}'s two prerounds reported once by each of "
+        f"{len(h['equivs'])} nodes; a forged seat count refused")
+    log(f"[consensus] hare per layer: VRF verifies "
+        f"{json.dumps({k: h['vrf'].get(k, 0) for k in h['layers']})}, "
+        f"Ed25519 checks "
+        f"{json.dumps({k: h['ed'].get(k, 0) for k in h['layers']})}; the "
+        f"event loop busy {h['busy']:.3f} s of {h['wall']:.3f} s "
+        f"({h['busy'] / h['wall']:.1%}) over ~{h['rounds']:.0f} rounds; "
+        f"messages after their session closed {h['late']}, refused "
+        f"{h['rejected']}, dropped (pubsub_handler_drops_total) {h['drops']}")
+    log(f"[consensus] poet: python -m spacemesh_tpu_torch.tools.poet_server "
+        f"at {p['addr']} (served in {p['boot_s']:.2f} s), one round of "
+        f"{p['members']} members and {p['ticks']} ticks through MultiPoet; "
+        f"every membership verified through the farm's membership kind, a "
+        f"wrong member refused; {p['wall']:.2f} s")
+    log(f"[consensus] phase {time.perf_counter() - t_phase:.1f} s; "
+        f"{ctx['smi']}")
 
 
 # --- [trace]: instrumentation and self-healing on the card -----------------
@@ -4433,6 +5136,7 @@ def main() -> int:
     ctx: dict = {}
     t0 = time.perf_counter()
     phase_device(ctx)
+    phase_native(ctx)
     phase_romix(ctx)
     GUARD.install()
     phase_pbkdf2(ctx)
@@ -4446,6 +5150,7 @@ def main() -> int:
     phase_verifyd(ctx)
     phase_fleet(ctx)
     phase_atx(ctx)
+    phase_consensus(ctx)
     phase_trace(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
@@ -4470,6 +5175,9 @@ def main() -> int:
                  "kernel_ms", "widest")}}
     for key in ("proving_hash", "k2pow_verify"):
         extra[key]["empty_kernel"] = ctx["empty_kernel"]
+    extra["pbkdf2_finish_hash"]["atx_batch"] = {
+        k: ctx["atx"]["finish_hash"][k] for k in (
+            "kernel_ms", "ms", "bound_ms", "finish_fh_fh_finish_ms")}
     for key in extra:
         extra[key]["tenants_launches"] = ctx["tenants"]["launches"][key]
         extra[key]["verifyd_launches"] = ctx["verifyd"]["launches"][key]

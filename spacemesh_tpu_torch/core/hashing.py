@@ -1,20 +1,29 @@
-"""BLAKE3 hashing, the framework's canonical hash (port of the pure-Python
-half of ``spacemesh_tpu/core/hashing.py``).
+"""BLAKE3 hashing, the framework's canonical hash (port of
+``spacemesh_tpu/core/hashing.py``).
 
 The reference hashes everything with blake3 (reference hash/hash.go:16
 ``hash.Sum``). This is the JAX package's from-spec implementation (7-round
 compression, 1024-byte chunks, binary tree with the chunk-stack merge
-rule), copied whole. The JAX package's native C++ twin of the one-shot
-paths is left out: the verification farm's membership kind hashes a few
-32-byte nodes per check, where the pure-Python path costs tens of
-microseconds. Of the one-shot helpers :func:`sum256` (membership, ids)
-and :func:`sum160` (``core/types.py``'s addresses) are here; ``keyed``
-waits for its first user.
+rule), copied whole.
+
+The ONE-SHOT paths (:func:`sum256`, :func:`sum160`, :func:`keyed`: every
+gossip message id, codec content id, address and merkle node) dispatch to
+the native C++ twin (``native/blake3.cpp``, the port's own copy, built on
+first use and loaded with ctypes), as the JAX package's do. The pure-Python
+path costs 0.72-0.78 ms per ATX id on the H100 machine's host CPU, and
+the farm's membership kind spent 0.337 s in 12 batches on it there
+(``chip_smoke.py`` ``[atx]``, PERF.md). This module stays the reference implementation and the fallback when the
+toolchain is absent; ``native.counts()`` says which path answered each
+one-shot call. ``Hasher`` (incremental) is Python-only: it sits on cold
+paths.
 """
 
 from __future__ import annotations
 
+import ctypes as _ctypes
 import struct as _struct
+
+from .. import native as _native_mod
 
 _IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
        0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
@@ -169,11 +178,50 @@ class Hasher:
         return self.digest(length).hex()
 
 
+# --- native dispatch -------------------------------------------------------
+
+_native = None
+
+
+def _load_native():
+    global _native
+    if _native is not None:
+        return _native
+    lib = _native_mod.load("blake3")
+    if lib is not None:
+        lib.smtpu_blake3.argtypes = [
+            _ctypes.c_char_p, _ctypes.c_size_t, _ctypes.c_char_p,
+            _ctypes.c_char_p, _ctypes.c_size_t]
+        lib.smtpu_blake3.restype = None
+    _native = lib if lib is not None else False
+    return _native
+
+
+def _hash_oneshot(data: bytes, key: bytes | None, length: int) -> bytes:
+    lib = _load_native()
+    if lib:
+        _native_mod.count("blake3", "native")
+        out = _ctypes.create_string_buffer(length)
+        lib.smtpu_blake3(data, len(data), key, out, length)
+        return out.raw
+    _native_mod.count("blake3", "python")
+    h = Hasher(key=key)
+    h.update(data)
+    return h.digest(length)
+
+
 def sum256(*chunks: bytes) -> bytes:
     """32-byte hash of the concatenation (reference hash.Sum)."""
-    return Hasher().update(b"".join(chunks)).digest(32)
+    return _hash_oneshot(b"".join(chunks), None, 32)
 
 
 def sum160(*chunks: bytes) -> bytes:
     """20-byte truncated hash (reference hash/hash.go Sum20 for addresses)."""
-    return Hasher().update(b"".join(chunks)).digest(20)
+    return _hash_oneshot(b"".join(chunks), None, 20)
+
+
+def keyed(key: bytes, *chunks: bytes) -> bytes:
+    """32-byte keyed hash of the concatenation."""
+    if len(key) != 32:
+        raise ValueError("key must be 32 bytes")
+    return _hash_oneshot(b"".join(chunks), key, 32)

@@ -15,8 +15,13 @@ EdVerifier, signing/vrf.go ECVRF via curve25519-voi):
 Port of ``spacemesh_tpu/core/signing.py``, with the same rule for ed25519:
 OpenSSL through ``cryptography`` where it imports, the RFC 8032
 pure-Python path (cofactored, with the Pippenger batch check) where it
-does not. Left out: the native ECVRF twin (``native/ecvrf.cpp``); the
-pure-Python VRF here is the JAX package's own oracle for it.
+does not. As in the JAX package, the VRF's public key, prove, output and
+verify go through the native twin (``native/ecvrf.cpp``, the port's own
+copy, about 20x the Python rate) when it builds; the Python
+implementation is the fallback AND the test oracle
+(``tests/test_torch_native.py`` holds the two bit-identical). Set
+``SPACEMESH_NO_NATIVE_VRF=1`` to force the Python path;
+``native.counts()["vrf"]`` says which path answered each call.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from __future__ import annotations
 import enum
 import hashlib
 import os
+
+from .. import native as _native
 
 try:  # the fast path: OpenSSL ed25519 via pyca/cryptography
     from cryptography.hazmat.primitives.asymmetric.ed25519 import (
@@ -449,6 +456,37 @@ def _pt_decode(data: bytes):
 
 _SUITE = b"\x03"
 
+_NATIVE_VRF_UNSET = object()
+_NATIVE_VRF = _NATIVE_VRF_UNSET
+
+
+def _native_vrf():
+    """libsmtpu_ecvrf handle, or None (build failure / opt-out)."""
+    global _NATIVE_VRF
+    if _NATIVE_VRF is _NATIVE_VRF_UNSET:
+        import ctypes
+
+        lib = None
+        if os.environ.get("SPACEMESH_NO_NATIVE_VRF"):
+            _native.opt_out("ecvrf", "SPACEMESH_NO_NATIVE_VRF is set")
+        else:
+            lib = _native.load("ecvrf")
+            if lib is not None:
+                for fn, args in (
+                        ("smtpu_vrf_public_key", 2),
+                        ("smtpu_vrf_output", 2)):
+                    getattr(lib, fn).argtypes = \
+                        [ctypes.c_char_p] * args
+                    getattr(lib, fn).restype = ctypes.c_int
+                for fn in ("smtpu_vrf_prove", "smtpu_vrf_verify"):
+                    getattr(lib, fn).argtypes = [
+                        ctypes.c_char_p, ctypes.c_char_p,
+                        ctypes.c_size_t, ctypes.c_char_p]
+                    getattr(lib, fn).restype = ctypes.c_int
+        _NATIVE_VRF = lib
+    return _NATIVE_VRF
+
+
 def _expand_key(seed32: bytes) -> tuple[int, bytes]:
     h = hashlib.sha512(seed32).digest()
     x = int.from_bytes(h[:32], "little")
@@ -481,8 +519,25 @@ class VrfSigner:
             raise ValueError("vrf seed must be 32 bytes")
         self._seed = seed32
         self._x, self._nonce_key = _expand_key(seed32)
+        # the Python scalar mult for the public key costs ~1/4 of a full
+        # Python prove, and VrfSigners are constructed per eligibility
+        # check — when the native library is up it derives the key and
+        # the Python point stays lazy
         self.__y = None
-        self.public_key = _pt_encode(self._y_point)
+        lib = _native_vrf()
+        if lib is not None:
+            import ctypes
+
+            buf = ctypes.create_string_buffer(32)
+            if lib.smtpu_vrf_public_key(seed32, buf) == 0:
+                _native.count("vrf", "native")
+                self.public_key = buf.raw
+            else:  # pragma: no cover - native failure
+                _native.count("vrf", "python")
+                self.public_key = _pt_encode(self._y_point)
+        else:
+            _native.count("vrf", "python")
+            self.public_key = _pt_encode(self._y_point)
         if public_key is not None and public_key != self.public_key:
             raise ValueError("public key mismatch")
 
@@ -493,6 +548,17 @@ class VrfSigner:
         return self.__y
 
     def prove(self, alpha: bytes) -> bytes:
+        lib = _native_vrf()
+        if lib is not None:
+            import ctypes
+
+            buf = ctypes.create_string_buffer(VRF_PROOF_SIZE)
+            if lib.smtpu_vrf_prove(self._seed, alpha, len(alpha),
+                                   buf) == 0:
+                _native.count("vrf", "native")
+                return buf.raw
+            # fall through to the Python twin on any native failure
+        _native.count("vrf", "python")
         h_pt = _hash_to_curve_tai(self.public_key, alpha)
         h_bytes = _pt_encode(h_pt)
         gamma = _pt_mul(self._x, h_pt)
@@ -510,6 +576,17 @@ class VrfSigner:
 
 def vrf_output(proof: bytes) -> bytes:
     """beta = proof_to_hash(pi): the uniform VRF output (64 bytes)."""
+    lib = _native_vrf()
+    if lib is not None and len(proof) >= 32:
+        import ctypes
+
+        _native.count("vrf", "native")
+        out = ctypes.create_string_buffer(64)
+        rc = lib.smtpu_vrf_output(proof[:32], out)
+        if rc == 0:
+            return out.raw
+        raise ValueError("invalid vrf proof")
+    _native.count("vrf", "python")
     gamma = _pt_decode(proof[:32])
     if gamma is None:
         raise ValueError("invalid vrf proof")
@@ -521,6 +598,12 @@ class VrfVerifier:
     def verify(self, public_key: bytes, alpha: bytes, proof: bytes) -> bool:
         if len(proof) != VRF_PROOF_SIZE or len(public_key) != 32:
             return False
+        lib = _native_vrf()
+        if lib is not None:
+            _native.count("vrf", "native")
+            return bool(lib.smtpu_vrf_verify(public_key, alpha,
+                                             len(alpha), proof))
+        _native.count("vrf", "python")
         y = _pt_decode(public_key)
         gamma = _pt_decode(proof[:32])
         if y is None or gamma is None:
