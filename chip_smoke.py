@@ -178,6 +178,44 @@ package. Phases, each printed as it runs:
    member does not), no kernel launches and the native guard holds;
    reports VRF verifies and Ed25519 checks per layer, the loop's busy
    share, late, refused and dropped messages and the beacon's wall;
+10c. [mesh] the mesh and its state: (a) ``[atx]``'s 64 identities publish
+   one more epoch of v1 ATXs from the smeshing node (its stores and
+   ``PostClient``s on the card) over a poet round of 2^22 ticks, so each
+   weighs about 1300 times its 3150 proposal slots; each ATX's coinbase is
+   its identity's wallet; ``[consensus]``'s beacon is the epoch's. 8 nodes
+   of 8 identities on one ``LoopbackHub``, each restored at the layer
+   before the epoch with a file state DB and a local DB, ``VM``,
+   ``ConservativeState``, ``Tortoise`` (mainnet's hdist 10, zdist 2,
+   window 4032), ``ProposalStore``, ``Executor``, ``Mesh``, ``Generator``,
+   ``Certifier`` (committee 50, threshold 26), a ``ProposalBuilder`` per
+   identity over an ``ActiveSetGenerator``, ``ProposalHandler`` and a
+   TOPIC_TX handler; node 0 over ``VerificationFarm(device="cuda")``, the
+   rest inline. Every node validates the ATXs; the epoch's proposal VRF
+   proofs are made once, in 8 worker processes. 36 layers: every builder
+   builds and publishes, every node validates; hare (real sessions for
+   the first 4, staggered 4 rounds; then the proposals every node holds);
+   the block generated and applied, certified by every eligible identity
+   and its certificate validated on every node; ``Mesh.process_layer``;
+   64 seeded wallet spends a layer (an overdraft and a stale nonce
+   refused); one identity double-publishes a ballot. From layer 20 on
+   ``[verifyd]``'s 10240 POST items flood node 0's farm (GOSSIP lane) in
+   waves, 2 layers of it under the profiler. Fails unless every node holds
+   the same non-empty block, state root and aggregated hash in every
+   layer, verifies the same layer (at least the last - 11), holds equal
+   balances whose total is the rewards minted less the fees, marks the
+   equivocator and counts it at weight 0; every certificate validates and
+   a forged one does not; the flood's verdicts equal the serial ones; one
+   declared active set; ``layer_apply_seconds`` observed once per node
+   and layer and read by the ``layer_apply_p99`` SLI; both guards hold.
+   Reports layers applied/s, per-layer build, validation, apply, certify,
+   tally and transaction times, ballots, seats and VRF verifies per
+   layer, node 0's certificate and ballot-signature latency p50/p99 with
+   the farm idle and under the flood, the flood's proofs/s and the card's
+   idle share, the tortoise's modes and peak memory. (b) the port's
+   tortoise alone at ``tests/test_tortoise_stress.py``'s full shape (1000
+   layers, window 600 for mainnet's 4032, 50 ballots and 3 blocks a layer,
+   10k ATXs an epoch): its invariants, tally mean and p99, ingest a layer
+   in the second and last quarters, peak RSS, the ``updates()`` digest;
 11. [trace] instrumentation and self-healing: (a) init of 2^19 labels at
    the main path's width with tracing off, on, and on with the
    ``torch.profiler`` bridge inside a profiler capture, twice each in the
@@ -215,7 +253,8 @@ package. Phases, each printed as it runs:
    shape under ``perlane``), with each later path's launches beside the
    main path's (``tenants_launches``, ``verifyd_launches``,
    ``fleet_launches``, ``atx_launches``: the inits, proves and validation
-   of ``[atx]``). ``path`` names the path whose count ``launches``
+   of ``[atx]``; ``mesh_launches``: ``[mesh]``'s ATX proves and
+   validation and its flood). ``path`` names the path whose count ``launches``
    is: the main path's, but for k2pow verify, which only the verification
    paths run (``[verifyd]``'s warm run; ``main_launches`` 0), and
    ``none`` for the standalone proving hash and the k2pow mask search,
@@ -2697,16 +2736,17 @@ def atx_golden() -> bytes:
     return sum256(b"golden", ATX_GEN)
 
 
-def atx_poet_service(poet_id: bytes):
-    """A ``PoetService`` that signals when a round holds the members it
-    expects (the merged epoch's identities register from their own tasks)."""
+def atx_poet_service(poet_id: bytes, ticks: int = ATX_TICKS):
+    """A ``PoetService`` of ``ticks`` ticks a round that signals when a
+    round holds the members it expects (the merged epoch's identities
+    register from their own tasks)."""
     import asyncio
 
     from spacemesh_tpu_torch.consensus import poet
 
     class RoundPoet(poet.PoetService):
         def __init__(self):
-            super().__init__(poet_id=poet_id, ticks=ATX_TICKS)
+            super().__init__(poet_id=poet_id, ticks=ticks)
             self.counts: dict = {}
             self.full: dict = {}
 
@@ -3268,7 +3308,9 @@ def phase_atx(ctx: dict) -> None:
     native.zero_counts()
     zero_launches()
     GUARD.start()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-atx-") as d:
+    # the identities' stores outlive the phase: [mesh] proves over them
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-atx-")
+    with contextlib.nullcontext(tmp.name) as d:
         t0 = time.perf_counter()
         clients = {}
         for s in signers:
@@ -3579,7 +3621,8 @@ def phase_atx(ctx: dict) -> None:
                                 for k in launches}, rate=rate,
                       cache=built["cache"], seeds=[
                           hashlib.sha256(b"chip-smoke-atx-%d" % i).digest()
-                          for i in range(ATX_IDS)], finish_hash=fh)
+                          for i in range(ATX_IDS)], finish_hash=fh,
+                      tmp=tmp, clients=clients, node_db=built["node_db"])
 
 
 ATX_POST_LANES = ATX_IDS * 37  # a full [atx] POST batch: 64 proofs x k3
@@ -3978,8 +4021,1009 @@ def phase_consensus(ctx: dict) -> None:
         f"{p['members']} members and {p['ticks']} ticks through MultiPoet; "
         f"every membership verified through the farm's membership kind, a "
         f"wrong member refused; {p['wall']:.2f} s")
+    ctx["consensus"] = dict(beacon=b["beacons"][0], epoch=epoch)
     log(f"[consensus] phase {time.perf_counter() - t_phase:.1f} s; "
         f"{ctx['smi']}")
+
+
+# --- [mesh]: the mesh and its state on the card's node ---------------------
+
+MESH_NODES = 8            # nodes on one LoopbackHub, 8 identities each
+MESH_LAYERS = 32          # layers run: the frontier passes hdist + zdist
+MESH_HARE = 4             # leading layers whose hare runs real sessions
+MESH_IDLE = range(6, 16)  # layer indices timed with node 0's farm idle
+MESH_FLOOD = range(16, 26)  # ... and timed under the POST flood
+MESH_PROFILED = range(26, 28)  # flood layers under the profiler (idle share)
+MESH_EQUIVOCATE = 4       # layer index where one identity double-publishes
+MESH_BAD_TXS = 3          # layer index after which an overdraft and a stale
+                          # nonce are offered
+MESH_TICKS = 1 << 22      # the mesh epoch's poet ticks: weight >> slots
+MESH_HDIST, MESH_ZDIST, MESH_WINDOW = 10, 2, 4032  # mainnet's tortoise
+                          # (node/config.py:207)
+MESH_COMMITTEE = 50       # certifier committee (mainnet hare's)
+MESH_THRESHOLD = MESH_COMMITTEE // 2 + 1  # node/app.py:254
+MESH_MIN_WEIGHT = [(0, 1_000_000)]  # mainnet's min active-set weight
+                                    # (node/config.py:208)
+MESH_LAYER_S = 300.0      # mainnet's layer duration (node/config.py:202)
+MESH_NET_DELAY = 1800.0   # ActiveSetConfig.network_delay's default
+MESH_SPENDS = 64          # seeded spends a layer
+MESH_WORKERS = 8          # processes computing the epoch's proposal VRFs
+MESH_SEED = b"chip-smoke-mesh"
+# (b): tests/test_tortoise_stress.py's shape with SPACEMESH_STRESS_FULL=1
+# (docs/TORTOISE_STRESS.md); mainnet's window of 4032 is cut to 600
+STRESS = dict(layers=1000, window=600, ballots=50, blocks=3, atxs=10000,
+              lpe=100, hdist=10, zdist=8)
+
+
+def mesh_slot_proofs(job: dict) -> dict:
+    """One worker's share of the epoch's proposal eligibility: every slot
+    VRF proof of each identity in ``job`` (seed, slot count), kept for the
+    layers the phase runs. Runs in a spawned process."""
+    from spacemesh_tpu_torch import native
+    from spacemesh_tpu_torch.consensus import eligibility
+    from spacemesh_tpu_torch.core import signing
+    from spacemesh_tpu_torch.storage.cache import AtxCache
+
+    native.zero_counts()
+    oracle = eligibility.Oracle(AtxCache(), job["lpe"])
+    lo, hi = job["layers"]
+    out, proves = {}, 0
+    for seed, n in job["ids"]:
+        vrf = signing.EdSigner(seed=seed, prefix=ATX_GEN).vrf_signer()
+        by_layer: dict = {}
+        for j in range(n):
+            proof = vrf.prove(eligibility.proposal_alpha(
+                job["beacon"], job["epoch"], j))
+            proves += 1
+            layer = oracle.slot_layer(job["epoch"], proof)
+            if lo <= layer < hi:
+                by_layer.setdefault(layer, []).append((j, proof))
+        out[(vrf.public_key, job["beacon"], job["epoch"], n)] = by_layer
+    return dict(slots=out, proves=proves, counts=native.counts(),
+                status=native.status())
+
+
+def mesh_oracle(cache, slots: dict):
+    """The node's ``Oracle`` (mainnet's slots and min-weight table) with
+    each identity's proposal slots for the epoch looked up in ``slots``,
+    computed once per epoch as the reference's proposal builder keeps
+    them (the port's ``eligible_slots_for_layer`` proves every slot of
+    the epoch on each call); any other query is the port's own."""
+    from spacemesh_tpu_torch.consensus import eligibility
+
+    class EpochSlots(eligibility.Oracle):
+        def __init__(self):
+            super().__init__(cache, CONS_LPE,
+                             min_weight_table=MESH_MIN_WEIGHT)
+            self.hits = self.misses = 0
+
+        def eligible_slots_for_layer(self, vrf_signer, beacon, epoch, atx_id,
+                                     layer, total_override=None):
+            n = self.num_slots(epoch, atx_id, total_override)
+            got = slots.get((vrf_signer.public_key, beacon, epoch, n))
+            if got is None or n == 0:
+                self.misses += 1
+                return super().eligible_slots_for_layer(
+                    vrf_signer, beacon, epoch, atx_id, layer, total_override)
+            self.hits += 1
+            return list(got.get(layer, ()))
+
+    return EpochSlots()
+
+
+def mesh_node(k: int, d: str, group: list, farm, env: dict, device: str):
+    """Node ``k``: the JAX ``node/app.py`` wiring of the mesh slice (its
+    ``_wire``, the TOPIC_TX handler of :1060-1064, the double-ballot
+    callback of :302) over a file state DB and a local DB, restored at a
+    checkpoint at the layer before the epoch (genesis applied, every
+    earlier layer settled empty)."""
+    import types as pytypes
+
+    from spacemesh_tpu_torch.consensus import activation as act
+    from spacemesh_tpu_torch.consensus import blocks, hare, miner
+    from spacemesh_tpu_torch.consensus import mesh as mesh_mod
+    from spacemesh_tpu_torch.consensus import tortoise as tortoise_mod
+    from spacemesh_tpu_torch.consensus.activeset import ActiveSetGenerator
+    from spacemesh_tpu_torch.consensus.poet import PoetBlob
+    from spacemesh_tpu_torch.core.signing import EdVerifier
+    from spacemesh_tpu_torch.core.types import Transaction
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.storage import cache as cache_mod
+    from spacemesh_tpu_torch.storage import db
+    from spacemesh_tpu_torch.storage import layers as layerstore
+    from spacemesh_tpu_torch.storage import misc
+    from spacemesh_tpu_torch.txs import ConservativeState
+    from spacemesh_tpu_torch.vm import VM, TxValidity
+
+    n = pytypes.SimpleNamespace(k=k, group=group, farm=farm, malicious=[],
+                                hare_out={}, modes=[])
+    n.state = db.open_state(os.path.join(d, f"mesh-{k}.sql"),
+                            read_pool=ATX_READ_POOL)
+    n.local = db.open_local(os.path.join(d, f"mesh-{k}-local.sql"))
+    n.cache = cache_mod.AtxCache()
+    n.pubsub = ps.PubSub(node_name=b"mesh-%d" % k)
+    verifier = EdVerifier(prefix=ATX_GEN)
+    n.atx = act.Handler(
+        db=n.state, cache=n.cache, verifier=verifier,
+        golden_atx=atx_golden(), post_params=prover.ProofParams(),
+        labels_per_unit=ATX_LPU, scrypt_n=N_MAIN, pubsub=n.pubsub,
+        farm=farm, device=device)
+
+    async def on_poet(peer: bytes, data: bytes) -> bool:
+        act.store_poet_blob(n.state, PoetBlob.from_bytes(data))
+        return True
+
+    n.pubsub.register(ps.TOPIC_POET, on_poet)
+    n.oracle = mesh_oracle(n.cache, env["slots"])
+    n.vm = VM(n.state, verifier)
+    n.cstate = ConservativeState(n.state, n.vm)
+    # the checkpoint: genesis (no allocations), then the epoch's previous
+    # layer applied empty and processed
+    root = n.vm.apply_genesis({})
+    layerstore.set_applied(n.state, env["first"] - 1, mesh_mod.EMPTY, root)
+    layerstore.set_processed(n.state, env["first"] - 1)
+    misc.set_beacon(n.state, env["epoch"], env["beacon"])
+    n.tortoise = tortoise_mod.Tortoise.recover(
+        n.state, n.cache, n.oracle, layers_per_epoch=CONS_LPE,
+        hdist=MESH_HDIST, zdist=MESH_ZDIST, window=MESH_WINDOW)
+    n.store = mesh_mod.ProposalStore()
+    n.executor = mesh_mod.Executor(n.state, n.vm, n.cstate)
+    n.mesh = mesh_mod.Mesh(db=n.state, tortoise=n.tortoise,
+                           executor=n.executor, proposals=n.store,
+                           cache=n.cache)
+    n.generator = blocks.Generator(mesh=n.mesh, proposals=n.store,
+                                   cache=n.cache, layers_per_epoch=CONS_LPE)
+
+    async def beacon_of(epoch: int) -> bytes:
+        return env["beacon"]
+
+    n.certifier = blocks.Certifier(
+        db=n.state, signer=group[0], verifier=verifier, pubsub=n.pubsub,
+        oracle=n.oracle, committee_size=MESH_COMMITTEE,
+        threshold=MESH_THRESHOLD, layers_per_epoch=CONS_LPE,
+        beacon_getter=beacon_of, farm=farm)
+    n.certifier.on_certificate = n.mesh.adopt_certified
+    n.asgen = ActiveSetGenerator(
+        n.state, n.local, n.cache, layers_per_epoch=CONS_LPE,
+        layer_duration=MESH_LAYER_S, genesis_time=env["genesis_time"],
+        network_delay=MESH_NET_DELAY)
+    n.asgen_paths = []
+    real_generate = n.asgen.generate
+
+    def generate(current_layer, target_epoch):
+        path = "prepared" if n.asgen.get_prepared(target_epoch) else "graded"
+        out = real_generate(current_layer, target_epoch)
+        n.asgen_paths.append(path)
+        return out
+
+    n.asgen.generate = generate
+    n.builders = [miner.ProposalBuilder(
+        signer=s, db=n.state, cache=n.cache, oracle=n.oracle,
+        tortoise=n.tortoise, cstate=n.cstate, pubsub=n.pubsub,
+        layers_per_epoch=CONS_LPE, beacon_getter=beacon_of,
+        activeset_gen=n.asgen) for s in group]
+
+    def on_double_ballot(node_id, b1, b2):
+        # node/app.py:302 publishes the proof, which its own malfeasance
+        # handler turns into this call
+        n.malicious.append(node_id)
+        n.tortoise.on_malfeasance(node_id)
+
+    n.handler = miner.ProposalHandler(
+        db=n.state, cache=n.cache, oracle=n.oracle, tortoise=n.tortoise,
+        store=n.store, verifier=verifier, pubsub=n.pubsub,
+        layers_per_epoch=CONS_LPE, beacon_getter=beacon_of,
+        on_malfeasance=on_double_ballot, farm=farm)
+
+    async def fetch_active_set(root: bytes) -> bool:
+        # the fetcher over the loopback: the set from any peer holding it
+        for peer in env["nodes"]:
+            ids = misc.active_set(peer.state, root)
+            if ids is not None:
+                misc.add_active_set(n.state, root, env["epoch"], ids)
+                return True
+        return False
+
+    n.handler.fetch_active_set = fetch_active_set
+
+    async def on_tx(peer: bytes, data: bytes) -> bool:
+        tx = Transaction(raw=data)
+        validity = n.cstate.add(tx)
+        env["tx_verdicts"].setdefault(tx.id, []).append(int(validity))
+        return validity == TxValidity.VALID
+
+    n.pubsub.register(ps.TOPIC_TX, on_tx)
+
+    async def on_output(out):
+        n.hare_out[out.layer] = out
+
+    n.hare = hare.Hare(
+        signers=group, verifier=verifier, oracle=n.oracle, pubsub=n.pubsub,
+        committee_size=MESH_COMMITTEE, round_duration=CONS_ROUND_S,
+        iteration_limit=CONS_ITERATIONS, preround_delay=CONS_PREROUND_S,
+        layers_per_epoch=CONS_LPE, beacon_of=beacon_of,
+        atx_for=lambda e, node_id: env["atx_of"].get(node_id),
+        proposals_for=n.store.ids_in_layer, on_output=on_output)
+    return n
+
+
+async def mesh_build_atxs(ctx: dict, epoch: int) -> dict:
+    """[atx]'s 64 identities publish one more epoch of v1 ATXs from the
+    smeshing node (its state DB, stores and ``PostClient``s on the card),
+    over a poet round of ``MESH_TICKS`` ticks; each ATX's coinbase is its
+    identity's wallet. The node validates its own inline on the card.
+    Returns the carried poet blob and ATX bytes."""
+    import asyncio
+
+    from spacemesh_tpu_torch.consensus import activation as act
+    from spacemesh_tpu_torch.core.hashing import sum256
+    from spacemesh_tpu_torch.core.signing import EdSigner, EdVerifier
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.vm import sdk
+
+    a = ctx["atx"]
+    node_ps = ps.PubSub(node_name=b"smesher")
+    carried: list = []
+
+    def recorder(topic):
+        async def record(peer, data):
+            carried.append((topic, data))
+            return True
+        return record
+
+    handler = act.Handler(
+        db=a["node_db"], cache=a["cache"], verifier=EdVerifier(prefix=ATX_GEN),
+        golden_atx=atx_golden(), post_params=prover.ProofParams(),
+        labels_per_unit=ATX_LPU, scrypt_n=N_MAIN, pubsub=node_ps, farm=None,
+        device="cuda")
+    for topic in (ps.TOPIC_POET, ps.TOPIC_ATX):
+        node_ps.register(topic, recorder(topic))
+    p = atx_poet_service(sum256(b"poet", ATX_GEN), ticks=MESH_TICKS)
+    signers = [EdSigner(seed=s, prefix=ATX_GEN) for s in a["seeds"]]
+    smeshers = [act.Builder(
+        signer=s, db=a["node_db"], pubsub=node_ps, poet=p,
+        post_client=a["clients"][s.node_id], golden_atx=atx_golden(),
+        coinbase=sdk.wallet_address(s.public_key).raw, handler=handler,
+        num_units=1) for s in signers]
+    for b in smeshers:
+        await b.register_challenge(epoch)
+    await p.execute_round(str(epoch))
+    atxs = await asyncio.gather(*(b.finish(epoch) for b in smeshers))
+    blobs = list(dict.fromkeys(d for t, d in carried if t == ps.TOPIC_POET))
+    sent = [d for t, d in carried if t == ps.TOPIC_ATX]
+    require(sorted(sent) == sorted(x.to_bytes() for x in atxs)
+            and len(blobs) == 1, "the smeshing node carried one poet blob "
+            "and every ATX of the mesh epoch")
+    return dict(blobs=blobs, atxs=sent)
+
+
+def mesh_stress(Tortoise, Opinion, AtxCache, AtxInfo, shape: dict) -> dict:
+    """``tests/test_tortoise_stress.py``'s harness at ``shape``: each layer
+    ``blocks`` blocks (the first hare's), a weak coin, ``ballots`` ballots
+    on the previous layer's first ballot supporting the previous layer's
+    hare block, one tally, the updates drained. Takes the tortoise's
+    classes so one harness serves any package that provides them.
+    Returns the times, live state, peak RSS and the sha256 of the
+    ``updates()`` stream (layer, block id, valid)."""
+    import numpy as np
+
+    layers, lpe, blocks_n = shape["layers"], shape["lpe"], shape["blocks"]
+    rss_start = rss_mb("VmRSS")
+    cache = AtxCache()
+    for epoch in range(layers // lpe + 2):
+        for i in range(shape["atxs"]):
+            nid = b"N%05d" % i + bytes(26)
+            cache.add(epoch, b"A%05d%04d" % (i, epoch) + bytes(22),
+                      AtxInfo(node_id=nid, weight=100, base_height=0,
+                              height=1, num_units=1, vrf_nonce=0,
+                              vrf_public_key=nid))
+    t = Tortoise(cache, lpe, hdist=shape["hdist"], zdist=shape["zdist"],
+                 window=shape["window"])
+    rng = np.random.default_rng(7)
+    digest = hashlib.sha256()
+    prev, tally, ingest, n_updates = None, [], [], 0
+    t_start = time.perf_counter()
+    for layer in range(1, layers + 1):
+        t0 = time.perf_counter()
+        for i in range(blocks_n):
+            t.on_block(layer, b"B%07d%03d" % (layer, i) + bytes(18))
+        t.on_hare_output(layer, b"B%07d%03d" % (layer, 0) + bytes(18))
+        t.on_weak_coin(layer, bool(rng.integers(2)))
+        support = ([b"B%07d%03d" % (layer - 1, 0) + bytes(18)]
+                   if layer > 1 else [])
+        for i in range(shape["ballots"]):
+            op = Opinion(base=prev if prev else bytes(32),
+                         support=list(support), against=[], abstain=[])
+            t._ingest(b"L%07d%03d" % (layer, i) + bytes(18), layer,
+                      b"N%05d" % (i % shape["atxs"]) + bytes(26), op,
+                      weight=100)
+        prev = b"L%07d%03d" % (layer, 0) + bytes(18)
+        t1 = time.perf_counter()
+        t.tally_votes(layer)
+        t2 = time.perf_counter()
+        ingest.append(t1 - t0)
+        tally.append(t2 - t1)
+        for u in t.updates():
+            digest.update(u.layer.to_bytes(8, "little") + u.block_id
+                          + bytes([u.valid]))
+            n_updates += 1
+    total = time.perf_counter() - t_start
+    q = layers // 4
+    return dict(total_s=total, tally=tally, ingest=ingest, verified=t.verified,
+                hdist=t.hdist, ballots=len(t._ballots), cols=t._cols,
+                hare=len(t._hare), validity=len(t._validity),
+                coins=len(t._coin), updates=n_updates,
+                digest=digest.hexdigest(),
+                early=sum(tally[q:2 * q]) / q, late=sum(tally[-q:]) / q,
+                ingest_q2=sum(ingest[q:2 * q]) / q,
+                ingest_q4=sum(ingest[-q:]) / q,
+                rss_mb=rss_mb("VmHWM"), rss_start_mb=rss_start)
+
+
+def rss_mb(field: str) -> float:
+    """``VmRSS`` (now) or ``VmHWM`` (the peak, which a spawned child starts
+    afresh at its exec) of this process, from ``/proc/self/status``; else
+    ``ru_maxrss`` (which Linux carries across exec from the forking
+    parent)."""
+    import resource
+
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith(field + ":"):
+                    return int(line.split()[1]) / 1024
+    except OSError:
+        pass
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def mesh_stress_port(shape: dict) -> dict:
+    """``mesh_stress`` over the port's tortoise, with its invariants, in a
+    process of its own (its peak RSS is the harness's). Runs in a spawned
+    process."""
+    from spacemesh_tpu_torch.consensus.tortoise import Tortoise
+    from spacemesh_tpu_torch.core.types import Opinion
+    from spacemesh_tpu_torch.storage.cache import AtxCache, AtxInfo
+
+    s = mesh_stress(Tortoise, Opinion, AtxCache, AtxInfo, shape)
+    mesh_stress_check(s, shape)
+    return s
+
+
+def mesh_stress_check(s: dict, shape: dict) -> None:
+    """The stress harness's invariants (tests/test_tortoise_stress.py)."""
+    require(s["verified"] >= shape["layers"] - s["hdist"] - 1,
+            f"stress: the frontier keeps up ({s['verified']})")
+    require(s["late"] < s["early"] * 4 + 0.05,
+            f"stress: the late-quarter tally {s['late'] * 1e3:.3f} ms under "
+            f"4x the early {s['early'] * 1e3:.3f} ms (+50 ms)")
+    w = shape["window"]
+    slack = w + max(w // 10, 16) + s["hdist"] + 2
+    require(s["ballots"] <= slack * shape["ballots"]
+            and s["cols"] <= slack * shape["blocks"]
+            and s["hare"] <= slack and s["validity"] <= slack * shape["blocks"]
+            and s["coins"] <= slack, f"stress: live state bounded by the "
+            f"window ({s['ballots']} ballots, {s['cols']} blocks)")
+
+
+def mesh_gates(env: dict, nodes: list, res: dict, apply_hist, apply0: int,
+               sampler) -> None:
+    """[mesh] (a)'s gates over the 8 nodes' stores and state."""
+    from spacemesh_tpu_torch.consensus.mesh import EMPTY
+    from spacemesh_tpu_torch.obs import sli
+    from spacemesh_tpu_torch.storage import ballots as ballotstore
+    from spacemesh_tpu_torch.storage import layers as layerstore
+    from spacemesh_tpu_torch.vm import TxValidity
+
+    first, last = env["first"], env["first"] + MESH_LAYERS - 1
+    for layer in range(first, last + 1):
+        got = {(layerstore.applied_block(n.state, layer),
+                layerstore.state_hash(n.state, layer),
+                layerstore.aggregated_hash(n.state, layer)) for n in nodes}
+        require(len(got) == 1 and next(iter(got))[0] not in (None, EMPTY),
+                f"layer {layer}: every node applied one non-empty block, "
+                f"with one state root and one aggregated hash ({len(got)})")
+    verified = {n.tortoise.verified for n in nodes}
+    require(len(verified) == 1 and min(verified) >= last - (MESH_HDIST + 1),
+            f"every node verified one layer, at least the last - (hdist + 1) "
+            f"({sorted(verified)}, last {last})")
+    ledgers = [mesh_ledger(n) for n in nodes]
+    accounts, minted, fees = ledgers[0]
+    total = sum(b for b, _ in accounts.values())
+    require(all(x == ledgers[0] for x in ledgers) and minted > 0
+            and total == minted - fees, f"balances equal on every node, "
+            f"their total {total} == minted {minted} - fees {fees}")
+    evil = res["evil"]
+    for n in nodes:
+        rows = n.tortoise._node_rows.get(evil, [])
+        require(n.cache.is_malicious(evil) and n.malicious == [evil]
+                and rows and not any(n.tortoise._weights[r] for r in rows),
+                f"node {n.k}: the double ballot marked the equivocator "
+                f"malicious and the tortoise counts its ballots at 0")
+    require(res["forged"] == [False, False], f"a forged certificate refused "
+            f"over the farm and inline ({res['forged']})")
+    bad = res["txs"].bad
+    want = {"overdraft": TxValidity.INSUFFICIENT_FUNDS,
+            "stale_nonce": TxValidity.INVALID_NONCE}
+    for name, tx_id in bad.items():
+        require(env["tx_verdicts"][tx_id] == [int(want[name])] * MESH_NODES,
+                f"the {name} refused by every node "
+                f"({env['tx_verdicts'][tx_id]})")
+    good = [v for t, v in env["tx_verdicts"].items() if t not in bad.values()]
+    require(len(good) == res["txs"].sent - len(bad) and all(
+        v == [int(TxValidity.VALID)] * MESH_NODES for v in good),
+        "every other transaction admitted by every node")
+    roots = {b.epoch_data.active_set_root for n in nodes
+             for layer in range(first, last + 1)
+             for b in ballotstore.in_layer(n.state, layer)
+             if b.epoch_data is not None}
+    paths = [collections.Counter(n.asgen_paths) for n in nodes]
+    env["asgen"] = (f"{len(roots)} declared set over every ref ballot; the "
+                    f"generators' paths per node "
+                    f"{[dict(p) for p in paths]}")
+    require(len(roots) == 1 and all(p["graded"] == 1 for p in paths),
+            f"one declared active set, generated by grading once per node "
+            f"({env['asgen']})")
+    count = sum(v[2] for v in apply_hist.sample().values()) - apply0
+    require(count == MESH_NODES * MESH_LAYERS, f"layer_apply_seconds "
+            f"observed once per node and layer ({count})")
+    spec = next(s for s in sli.default_slis() if s.name == "layer_apply_p99")
+    p99 = sampler.compute(spec)
+    require(p99 is not None, "the layer_apply_p99 SLI reads the histogram")
+    env["layer_apply_p99"] = p99
+
+
+def mesh_ledger(n) -> tuple:
+    """The node's accounts (address -> (balance, nonce)), the rewards the
+    VM minted and the fees it took over the applied blocks."""
+    from spacemesh_tpu_torch.core.types import TransactionResult
+    from spacemesh_tpu_torch.storage import transactions as txstore
+
+    accounts = {bytes(r["address"]): (r["balance"], r["next_nonce"])
+                for r in txstore.all_current_accounts(n.state)}
+    minted = n.state.one("SELECT COALESCE(SUM(total_reward), 0) s FROM "
+                         "rewards")["s"]
+    fees = sum(TransactionResult.from_bytes(r["result"]).fee
+               for r in n.state.all("SELECT result FROM transactions WHERE "
+                                    "result IS NOT NULL"))
+    return accounts, minted, fees
+
+
+def mesh_quant(xs: list) -> str:
+    xs = sorted(xs)
+    return (f"p50 {statistics.median(xs) * 1e3:.2f} ms, p99 "
+            f"{xs[min(len(xs) - 1, int(0.99 * len(xs)))] * 1e3:.2f} ms "
+            f"(n={len(xs)})")
+
+
+class MeshTxs:
+    """The seeded wallet traffic: spawns for rewarded coinbases, then
+    ``MESH_SPENDS`` spends a layer between the spawned wallets, from a
+    ``PubSub`` of its own; projections from node 0's state."""
+
+    def __init__(self, signers: list, pubsub, node):
+        import random
+
+        from spacemesh_tpu_torch.vm import sdk
+
+        self.sdk = sdk
+        self.rng = random.Random(MESH_SEED)
+        self.signers = signers
+        self.addr = {s.node_id: sdk.wallet_address(s.public_key)
+                     for s in signers}
+        self.pubsub = pubsub
+        self.node = node
+        self.spawned: set = set()
+        self.sent = self.spends = 0
+        self.bad: dict = {}
+
+    async def _send(self, tx) -> None:
+        from spacemesh_tpu_torch.p2p import pubsub as ps
+
+        await self.pubsub.publish(ps.TOPIC_TX, tx.raw)
+        self.sent += 1
+
+    async def submit(self, bad: bool) -> None:
+        from spacemesh_tpu_torch.storage import transactions as txstore
+
+        state = {}
+        for s in self.signers:
+            nonce, balance = self.node.cstate.projected(self.addr[s.node_id].raw)
+            state[s.node_id] = [nonce, balance]
+        for s in self.signers:
+            if s.node_id in self.spawned:
+                continue
+            nonce, balance = state[s.node_id]
+            if balance > 10_000:
+                await self._send(self.sdk.spawn_wallet(s))
+                state[s.node_id] = [1, balance - 10_000]
+                self.spawned.add(s.node_id)
+        ready = [s for s in self.signers if s.node_id in self.spawned
+                 and txstore.account(self.node.state,
+                                     self.addr[s.node_id].raw)["template"]]
+        if not ready:
+            return
+        for _ in range(MESH_SPENDS):
+            src = self.rng.choice(ready)
+            dst = self.rng.choice(self.signers)
+            nonce, balance = state[src.node_id]
+            amount = self.rng.randint(1, max(1, (balance - 10_000) // 64))
+            await self._send(self.sdk.spend(
+                self.addr[src.node_id], [src], self.addr[dst.node_id],
+                amount, nonce=nonce))
+            state[src.node_id] = [nonce + 1, balance - amount - 1_000]
+            self.spends += 1
+        if bad:
+            # the next nonce of a wallet, after this round's spends
+            src = ready[0]
+            nonce, balance = state[src.node_id]
+            over = self.sdk.spend(self.addr[src.node_id], [src],
+                                  self.addr[ready[-1].node_id],
+                                  2 * balance + 1, nonce=nonce)
+            stale = self.sdk.spend(self.addr[src.node_id], [src],
+                                   self.addr[ready[-1].node_id], 1,
+                                   nonce=nonce - 1)
+            self.bad = {"overdraft": over.id, "stale_nonce": stale.id}
+            await self._send(over)
+            await self._send(stale)
+
+
+async def mesh_build(env: dict, nodes: list, hub, txs, i: int) -> dict:
+    """Layer ``i``'s proposals: every builder builds and publishes, every
+    node validates (at ``MESH_EQUIVOCATE`` one identity publishes a second
+    ballot)."""
+    import asyncio
+
+    from spacemesh_tpu_torch.core import signing
+    from spacemesh_tpu_torch.core.types import Proposal
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+
+    env["i"] = i
+    layer = env["first"] + i
+    row = dict(layer=layer)
+    t0 = time.perf_counter()
+    built = await asyncio.gather(*(b.build(layer) for n in nodes
+                                   for b in n.builders))
+    row["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    await hub.drain()
+    row["validate"] = time.perf_counter() - t0
+    row["ballots"] = sum(p is not None for p in built)
+    row["eligibilities"] = sum(len(p.ballot.eligibilities)
+                               for p in built if p is not None)
+    if i == MESH_EQUIVOCATE:
+        p = next(p for p in built if p is not None)
+        s = next(s for n in nodes for s in n.group
+                 if s.node_id == p.ballot.node_id)
+        op = p.ballot.opinion
+        b2 = dataclasses.replace(p.ballot, opinion=dataclasses.replace(
+            op, abstain=list(op.abstain) + [layer - 1]), signature=bytes(64))
+        b2 = dataclasses.replace(b2, signature=s.sign(
+            signing.Domain.BALLOT, b2.signed_bytes()))
+        p2 = Proposal(ballot=b2, tx_ids=list(p.tx_ids), mesh_hash=p.mesh_hash,
+                      signature=bytes(64))
+        p2 = dataclasses.replace(p2, signature=s.sign(
+            signing.Domain.BALLOT, p2.signed_bytes()))
+        await txs.pubsub.publish(ps.TOPIC_PROPOSAL, p2.to_bytes())
+        await hub.drain()
+        env["evil"] = s.node_id
+    return row
+
+
+async def mesh_settle(env: dict, nodes: list, hub, txs, i: int, outs: list,
+                      row: dict) -> None:
+    """Layer ``i`` after its hare: ``Generator`` builds the block and the
+    mesh applies it; every eligible identity certifies it and every node
+    validates the shares; ``Mesh.process_layer`` tallies; every node
+    validates its certificate (node 0 over the farm, all nodes'
+    certificates, timed); then the next layer's transactions."""
+    from spacemesh_tpu_torch.storage import misc
+
+    env["i"] = i
+    layer = env["first"] + i
+    n0 = nodes[0]
+    require(all(o.completed and o.proposals == outs[0].proposals
+                for o in outs) and outs[0].proposals,
+            f"layer {layer}: every node's hare output is the same non-empty "
+            f"set ({[(o.completed, len(o.proposals)) for o in outs]})")
+    t0 = time.perf_counter()
+    blocks = []
+    for n, out in zip(nodes, outs):
+        if out.coin is not None:
+            n.tortoise.on_weak_coin(layer, out.coin)
+        blocks.append(n.generator.process_hare_output(out))
+    row["apply"] = time.perf_counter() - t0
+    require(all(b is not None and b.id == blocks[0].id for b in blocks),
+            f"layer {layer}: one block on every node")
+    t0 = time.perf_counter()
+    for n, blk in zip(nodes, blocks):
+        for s in n.group:
+            await n.certifier.certify_if_eligible(
+                layer, blk.id, env["atx_of"].get(s.node_id), signer=s)
+    await hub.drain()
+    row["certify"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for n in nodes:
+        n.mesh.process_layer(layer)
+        if not n.modes or n.modes[-1][1] != n.tortoise.mode:
+            n.modes.append((layer, n.tortoise.mode))
+    row["tally"] = time.perf_counter() - t0
+    certs = [misc.certificate(n.state, layer) for n in nodes]
+    require(all(c is not None and c.block_id == blocks[0].id for c in certs),
+            f"layer {layer}: every node assembled a certificate for the block")
+    for n, c in zip(nodes[1:], certs[1:]):
+        require(await n.certifier.validate_certificate(layer, c),
+                f"layer {layer}: node {n.k}'s certificate validates")
+    for c in certs:
+        t0 = time.perf_counter()
+        ok = await n0.certifier.validate_certificate(layer, c)
+        env["cert_lat"].append((i, time.perf_counter() - t0))
+        require(ok, f"layer {layer}: node 0 validates the certificate over "
+                f"the farm")
+    row["seats"] = sum(m.eligibility_count for m in certs[0].signatures)
+    t0 = time.perf_counter()
+    await txs.submit(bad=i == MESH_BAD_TXS)
+    await hub.drain()
+    row["txs"] = time.perf_counter() - t0
+
+
+async def mesh_layers(env: dict, nodes: list, hub, txs: MeshTxs, farm,
+                      flood: dict) -> dict:
+    """The layers. The first ``MESH_HARE`` are built first, then run real
+    ``Hare`` sessions, each started ``CONS_STAGGER`` rounds after the
+    previous one's, and settle in order once all are out; the rest take an
+    honest hare's output (the proposals every node holds) and settle at
+    once. The POST flood runs through the ``MESH_FLOOD`` and
+    ``MESH_PROFILED`` layers."""
+    import asyncio
+
+    from spacemesh_tpu_torch.consensus.hare import ConsensusOutput
+    from spacemesh_tpu_torch.core import signing
+    from spacemesh_tpu_torch.storage import misc
+
+    n0 = nodes[0]
+    rows = []
+    env["cert_lat"], env["sig_lat"] = [], []
+    real_sig = n0.handler._verify_sig
+
+    async def timed_sig(*a, **kw):
+        t0 = time.perf_counter()
+        ok = await real_sig(*a, **kw)
+        env["sig_lat"].append((env["i"], time.perf_counter() - t0))
+        return ok
+
+    vrf_calls = collections.Counter()
+    real_vrf = signing.VrfVerifier.verify
+
+    def vrf_verify(self, public_key, alpha, proof):
+        vrf_calls[env["i"]] += 1
+        return real_vrf(self, public_key, alpha, proof)
+
+    flood_task = stop = prof = None
+    n0.handler._verify_sig = timed_sig
+    signing.VrfVerifier.verify = vrf_verify
+    t_loop = time.perf_counter()
+    try:
+        # the hare layers' proposals first, so that their sessions have
+        # the loop to themselves, as in [consensus]
+        for i in range(MESH_HARE):
+            rows.append(await mesh_build(env, nodes, hub, txs, i))
+        start = time.time()
+        t0 = time.perf_counter()
+        await asyncio.gather(*(
+            n.hare.run_layer(env["first"] + i, layer_start=start
+                             + i * CONS_STAGGER * CONS_ROUND_S)
+            for i in range(MESH_HARE) for n in nodes))
+        hare_s = time.perf_counter() - t0
+        for i in range(MESH_HARE):
+            rows[i]["hare"] = hare_s / MESH_HARE
+            outs = [n.hare_out.pop(env["first"] + i) for n in nodes]
+            await mesh_settle(env, nodes, hub, txs, i, outs, rows[i])
+            rows[i]["vrf"] = vrf_calls[i]
+        for i in range(MESH_HARE, MESH_LAYERS):
+            if i == MESH_FLOOD.start:
+                stop = asyncio.Event()
+                flood_task = asyncio.ensure_future(
+                    mesh_flood(farm, flood, stop))
+            if i == MESH_PROFILED.start and env["device"] == "cuda":
+                import torch
+
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            row = await mesh_build(env, nodes, hub, txs, i)
+            layer = env["first"] + i
+            held = set.intersection(*(set(n.store.ids_in_layer(layer))
+                                      for n in nodes))
+            row["hare"] = 0.0
+            await mesh_settle(env, nodes, hub, txs, i, [ConsensusOutput(
+                layer=layer, proposals=sorted(held)) for _ in nodes], row)
+            if i == MESH_PROFILED[-1] and prof is not None:
+                import torch
+
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                env["prof"] = (prof, time.perf_counter() - t_prof)
+            if i == MESH_PROFILED[-1]:
+                stop.set()
+                await flood_task
+            row["vrf"] = vrf_calls[i]
+            rows.append(row)
+    finally:
+        signing.VrfVerifier.verify = real_vrf
+        n0.handler._verify_sig = real_sig
+        if stop is not None and not stop.is_set():
+            stop.set()
+            await asyncio.gather(flood_task, return_exceptions=True)
+    wall = time.perf_counter() - t_loop
+    # a forged certificate: one share's signature flipped
+    last = env["first"] + MESH_LAYERS - 1
+    cert = misc.certificate(n0.state, last)
+    share = cert.signatures[0]
+    forged = dataclasses.replace(cert, signatures=[dataclasses.replace(
+        share, signature=bytes([share.signature[0] ^ 1])
+        + share.signature[1:])] + list(cert.signatures[1:]))
+    refused = [await n.certifier.validate_certificate(last, forged)
+               for n in (n0, nodes[1])]
+    return dict(rows=rows, wall=wall, hare_s=hare_s, sig_lat=env["sig_lat"],
+                cert_lat=env["cert_lat"], evil=env["evil"], forged=refused)
+
+
+async def mesh_flood(farm, flood: dict, stop) -> None:
+    """``[verifyd]``'s POST items straight to the farm on the GOSSIP lane,
+    wave after wave until ``stop``; each wave's verdicts kept."""
+    import asyncio
+
+    from spacemesh_tpu_torch.verify.farm import Lane
+
+    t0 = time.perf_counter()
+    while not stop.is_set():
+        tw = time.perf_counter()
+        got = await asyncio.gather(*(farm.submit(r, lane=Lane.GOSSIP)
+                                     for r in flood["posts"]))
+        flood["waves"].append(dict(s=time.perf_counter() - tw,
+                                   equal=list(got) == flood["serial"]))
+    flood["wall"] = time.perf_counter() - t0
+
+
+def phase_mesh(ctx: dict, device: str = "cuda") -> None:
+    """[mesh]: (a) 8 nodes of [atx]'s identities run the mesh epoch's layers
+    over real ATXs, node 0 over the card's farm beside a POST flood; (b) the
+    port's tortoise alone at the stress harness's full shape."""
+    import asyncio
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from spacemesh_tpu_torch import native
+    from spacemesh_tpu_torch.consensus import activeset, eligibility
+    from spacemesh_tpu_torch.core import signing
+    from spacemesh_tpu_torch.obs import sli
+    from spacemesh_tpu_torch.p2p import pubsub as ps
+    from spacemesh_tpu_torch.post import prover
+    from spacemesh_tpu_torch.tools.measure import busy_us, device_intervals
+    from spacemesh_tpu_torch.utils import metrics
+    from spacemesh_tpu_torch.verify.farm import VerificationFarm
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    publish = ATX_EPOCHS + 2      # after the 8 v1 epochs and the merged one
+    epoch = publish + 1
+    first = epoch * CONS_LPE
+    beacon = ctx["consensus"]["beacon"]
+    seeds = ctx["atx"]["seeds"]
+    signers = [signing.EdSigner(seed=s, prefix=ATX_GEN) for s in seeds]
+    per = ATX_IDS // MESH_NODES
+    groups = [signers[i:i + per] for i in range(0, ATX_IDS, per)]
+    n_slots = activeset.num_eligible_slots(
+        MESH_TICKS, activeset.select_min_weight(epoch, MESH_MIN_WEIGHT),
+        MESH_TICKS * ATX_IDS, 50, CONS_LPE)
+    log(f"[mesh] epoch {epoch} (layers from {first}): {ATX_IDS} identities "
+        f"publish v1 ATXs in epoch {publish} over a poet round of "
+        f"{MESH_TICKS} ticks: weight {MESH_TICKS} each, {n_slots} proposal "
+        f"slots each ({MESH_TICKS / n_slots:.0f} weight a slot, "
+        f"{MESH_TICKS % n_slots / MESH_TICKS:.5%} rounded away); beacon "
+        f"{beacon.hex()} ([consensus]'s)")
+    native.zero_counts()
+    zero_launches()
+    GUARD.start()
+    apply_hist = metrics.layer_apply_seconds
+    apply0 = sum(v[2] for v in apply_hist.sample().values())
+    sampler = sli.SliSampler(window_s=3600.0)
+    sampler.sample()
+    env = dict(epoch=epoch, first=first, beacon=beacon, nodes=[],
+               tx_verdicts={}, atx_of={}, i=-1, device=device, evil=None,
+               prof=(None, 0.0),
+               # the epoch starts 4 network delays and a layer after the
+               # ATXs arrive: the grading path (activeset.py:128-255)
+               genesis_time=time.time() + 4 * MESH_NET_DELAY + MESH_LAYER_S
+               - epoch * CONS_LPE * MESH_LAYER_S)
+    pool = ProcessPoolExecutor(max_workers=MESH_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    t_slots = time.perf_counter()
+    try:
+        jobs = [pool.submit(mesh_slot_proofs, dict(
+            ids=[(s, n_slots) for s in seeds[w::MESH_WORKERS]],
+            beacon=beacon, epoch=epoch, lpe=CONS_LPE,
+            layers=(first, first + MESH_LAYERS)))
+            for w in range(MESH_WORKERS)]
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as d:
+            t0 = time.perf_counter()
+            made = asyncio.run(mesh_build_atxs(ctx, publish))
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            done = [j.result(timeout=600) for j in jobs]
+            slots_s = time.perf_counter() - t_slots
+            slots_wait = time.perf_counter() - t0
+            env["slots"] = {}
+            for got in done:
+                env["slots"].update(got["slots"])
+                require(got["counts"]["vrf"]["python"] == 0
+                        and got["counts"]["vrf"]["native"] >= got["proves"]
+                        and got["status"]["ecvrf"]["loaded"],
+                        f"the slot workers' VRF ran native "
+                        f"({json.dumps(got['counts'])})")
+            proves = sum(g["proves"] for g in done)
+
+            async def run():
+                farm = VerificationFarm(
+                    ed_verifier=signing.EdVerifier(prefix=ATX_GEN),
+                    post_params=prover.ProofParams(), device=device)
+                try:
+                    nodes = [mesh_node(k, d, g, farm if k == 0 else None,
+                                       env, device)
+                             for k, g in enumerate(groups)]
+                    env["nodes"] = nodes
+                    hub = ps.LoopbackHub()
+                    for n in nodes:
+                        hub.join(n.pubsub)
+                    wallet = ps.PubSub(node_name=b"wallets",
+                                       deliver_self=False)
+                    hub.join(wallet)
+                    # every node validates the epoch's ATXs (not timed)
+                    t0 = time.perf_counter()
+                    for blob in made["blobs"]:
+                        for n in nodes:
+                            require(await n.pubsub.deliver(
+                                ps.TOPIC_POET, b"smesher", blob),
+                                "the poet blob stored")
+                    verdicts = await asyncio.gather(*(
+                        n.pubsub.deliver(ps.TOPIC_ATX, b"smesher", raw)
+                        for n in nodes for raw in made["atxs"]))
+                    atx_s = time.perf_counter() - t0
+                    require(all(verdicts) and len(verdicts)
+                            == MESH_NODES * ATX_IDS,
+                            f"every node validated the {ATX_IDS} ATXs")
+                    env["atx_of"] = {info.node_id: a for a, info in
+                                     nodes[0].cache.iter_epoch(epoch)}
+                    for n in nodes:
+                        require(n.cache.epoch_count(epoch) == ATX_IDS
+                                and n.cache.epoch_weight(epoch)
+                                == MESH_TICKS * ATX_IDS
+                                and all(n.oracle.num_slots(epoch, a) == n_slots
+                                        for a in env["atx_of"].values()),
+                                f"node {n.k}: {ATX_IDS} ATXs of weight "
+                                f"{MESH_TICKS}, {n_slots} slots each")
+                    # the precomputed slots against the port's own
+                    # computation, for one identity and layer
+                    s0 = groups[0][0]
+                    o = nodes[0].oracle
+                    args = (s0.vrf_signer(), beacon, epoch,
+                            env["atx_of"][s0.node_id], first + 1)
+                    require(o.eligible_slots_for_layer(*args)
+                            == eligibility.Oracle.eligible_slots_for_layer(
+                                o, *args), "the epoch's precomputed slots "
+                            "== Oracle.eligible_slots_for_layer's")
+                    txs = MeshTxs(signers, wallet, nodes[0])
+                    flood = dict(posts=ctx["verifyd"]["posts"],
+                                 serial=ctx["verifyd"]["serial"], waves=[])
+                    res = await mesh_layers(env, nodes, hub, txs, farm, flood)
+                    res.update(atx_s=atx_s, flood=flood, txs=txs,
+                               farm_stats=dict(farm.stats))
+                    return nodes, res
+                finally:
+                    await farm.aclose()
+
+            nodes, res = asyncio.run(run())
+            if device == "cuda":
+                torch.cuda.synchronize()
+            guard = GUARD.stop()
+            counts = native.counts()
+            launches = launch_counts()
+            sampler.sample()
+            peak_reserved = torch.cuda.max_memory_reserved() \
+                if device == "cuda" else 0
+            mesh_gates(env, nodes, res, apply_hist, apply0, sampler)
+            for n in nodes:
+                n.state.close()
+                n.local.close()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    require_no_twins(guard, "mesh")
+    require_native(counts, "mesh (build, validation, hare, certificates, "
+                   "blocks, the VM, the flood)")
+    rows = res["rows"]
+    flood = res["flood"]
+    n_items = sum(len(flood["posts"]) for _ in flood["waves"])
+    flood_s = sum(w["s"] for w in flood["waves"])
+    require(flood["waves"] and all(w["equal"] for w in flood["waves"]),
+            f"the flood's verdicts == [verifyd]'s serial verdicts in each of "
+            f"{len(flood['waves'])} waves")
+    if device == "cuda":
+        require(launches["romix"] > 0 and launches["pbkdf2_finish_hash"] > 0,
+                f"[mesh] launched the verify kernels ({json.dumps(launches)})")
+    log(f"[mesh] the ATXs: built by 64 Builders over [atx]'s PostClients in "
+        f"{build_s:.1f} s; validated by {MESH_NODES} nodes in "
+        f"{res['atx_s']:.1f} s (node 0 over its farm, the rest inline on the "
+        f"card); the epoch's proposal slots: {proves} VRF proofs in "
+        f"{MESH_WORKERS} processes in {slots_s:.1f} s (the phase waited "
+        f"{slots_wait:.1f} s)")
+    wall = res["wall"]
+    steps = ("build", "validate", "apply", "certify", "tally", "txs")
+    rest = sum(r[k] for r in rows[MESH_HARE:] for k in steps)
+    log(f"[mesh] {MESH_LAYERS} layers on {MESH_NODES} nodes in {wall:.2f} s: "
+        f"{MESH_LAYERS / wall:.3f} layers applied/s; "
+        f"{(MESH_LAYERS - MESH_HARE) / rest:.3f} layers/s after the "
+        f"{MESH_HARE} hare layers (their steps' sum); the hare layers' "
+        f"sessions {res['hare_s']:.2f} s, {CONS_STAGGER} rounds apart")
+    for key in steps:
+        xs = [r[key] for r in rows[MESH_HARE:]]
+        log(f"[mesh] per layer ({MESH_NODES} nodes) {key}: {quantiles(xs)}")
+    log(f"[mesh] ballots a layer {[r['ballots'] for r in rows]}; "
+        f"eligibilities {[r['eligibilities'] for r in rows]}; certificate "
+        f"seats {[r['seats'] for r in rows]}; VRF verifies "
+        f"{[r['vrf'] for r in rows]}")
+    for name, lat in (("certificate validation (BLOCK lane)",
+                       res["cert_lat"]),
+                      ("ballot and proposal signature", res["sig_lat"])):
+        idle = [x for i, x in lat if i in MESH_IDLE]
+        fl = [x for i, x in lat if i in MESH_FLOOD]
+        log(f"[mesh] node 0 {name}: farm idle {mesh_quant(idle)}; under the "
+            f"flood {mesh_quant(fl)}")
+    prof, prof_s = env["prof"]
+    if device == "cuda":
+        intervals = device_intervals(prof)
+        busy = busy_us(intervals) / 1e6 if intervals else 0.0
+        idle_share = (f"idle share {1 - busy / prof_s:.1%} (busy {busy:.3f} s "
+                      f"of {prof_s:.3f} s)") if intervals else "not measured"
+    else:
+        idle_share = "not measured"
+    log(f"[mesh] the flood: {len(flood['waves'])} waves of "
+        f"{len(flood['posts'])} POST items on node 0's farm (GOSSIP lane), "
+        f"{n_items / flood_s:.1f} proofs/s over {flood_s:.2f} s, verdicts == "
+        f"serial in every wave; the card over {len(MESH_PROFILED)} profiled "
+        f"flood layers: {idle_share}")
+    txs = res["txs"]
+    log(f"[mesh] transactions: {txs.sent} sent ({len(txs.spawned)} spawns, "
+        f"{txs.spends} spends), the overdraft and the stale nonce refused by "
+        f"every node; farm {json.dumps(res['farm_stats'])}")
+    log(f"[mesh] tortoise modes per node "
+        f"{[[(l - first, m) for l, m in n.modes] for n in nodes]}; active "
+        f"sets: {env['asgen']}; peak reserved "
+        f"{peak_reserved / 2**30:.2f} GiB; launches {json.dumps(launches)}")
+    # (b) the port's tortoise alone at the stress harness's full shape, in
+    # a process of its own
+    with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing
+                             .get_context("spawn")) as one:
+        s = one.submit(mesh_stress_port, STRESS).result(timeout=600)
+    tally = sorted(s["tally"])
+    log(f"[mesh] (b) tortoise stress at {json.dumps(STRESS)} (mainnet's "
+        f"window 4032 cut to {STRESS['window']}): {s['total_s']:.2f} s; tally "
+        f"mean {statistics.mean(tally) * 1e3:.3f} ms, p99 "
+        f"{tally[int(0.99 * len(tally))] * 1e3:.3f} ms; ingest a layer "
+        f"{s['ingest_q2'] * 1e3:.2f} ms (2nd quarter), {s['ingest_q4'] * 1e3:.2f}"
+        f" ms (last); its process's peak RSS {s['rss_mb']:.0f} MiB, "
+        f"{s['rss_start_mb']:.0f} MiB before the harness began; "
+        f"{s['updates']} updates, sha256 {s['digest']}")
+    ctx["mesh"] = dict(launches=launches, stress=s)
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s; {ctx['smi']}")
 
 
 # --- [trace]: instrumentation and self-healing on the card -----------------
@@ -5151,6 +6195,8 @@ def main() -> int:
     phase_fleet(ctx)
     phase_atx(ctx)
     phase_consensus(ctx)
+    phase_mesh(ctx)
+    ctx["atx"]["tmp"].cleanup()
     phase_trace(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
@@ -5183,6 +6229,7 @@ def main() -> int:
         extra[key]["verifyd_launches"] = ctx["verifyd"]["launches"][key]
         extra[key]["fleet_launches"] = ctx["fleet"]["launches"][key]
         extra[key]["atx_launches"] = ctx["atx"]["launches"][key]
+        extra[key]["mesh_launches"] = ctx["mesh"]["launches"][key]
         twins = ctx["verifyd"]["twins"]
         if all(key in errs for errs in twins.values()):
             extra[key]["verifyd_max_abs_err"] = {

@@ -4,8 +4,10 @@ The package runs label init, proving and verification on one NVIDIA H100
 (sm_90a), and the layers above them that the port has reached so far: the
 PoST worker, the multi-tenant scheduler, verifyd and its fleet, ATX
 validation (the codec, the state database, gossip, the activation
-handlers), and the host-side consensus protocols (eligibility, hare,
-beacon, the external poet). It imports ``torch`` and never JAX, and
+handlers), the host-side consensus protocols (eligibility, hare,
+beacon, the external poet), and the mesh and its state (the VM and its
+mempool, the tortoise, blocks and certificates, the miner). It imports
+``torch`` and never JAX, and
 nothing of the JAX package: what it needs from there is copied here. The
 card's work runs in CUDA C++ kernels under ``csrc/`` (ROMix, PBKDF2, the
 proving scan, k2pow), built by ``nvcc`` at first use (``ops/_build.py``);

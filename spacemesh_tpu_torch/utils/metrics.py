@@ -454,6 +454,13 @@ gossip_handler_seconds = REGISTRY.histogram(
     "per-handler gossip validation seconds (label: topic)",
     buckets=(0.0005, 0.002, 0.01, 0.05, 0.25, 1.0, 5.0, float("inf")))
 
+# mesh (consensus/mesh.py): one observation per process_layer, read by
+# obs/sli.py's layer_apply SLIs and obs/health.py's layer_apply_latency SLO.
+layer_apply_seconds = REGISTRY.histogram(
+    "layer_apply_seconds",
+    "mesh.process_layer wall seconds (tortoise tally + apply)",
+    buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0, float("inf")))
+
 # span tracer (utils/tracing.py): capture state for operators reading
 # /metrics while a /debug/trace capture runs (verifyd/server.py).
 trace_enabled_gauge = REGISTRY.gauge(
