@@ -191,15 +191,16 @@ package. Phases, each printed as it runs:
    identity over an ``ActiveSetGenerator``, ``ProposalHandler`` and a
    TOPIC_TX handler; node 0 over ``VerificationFarm(device="cuda")``, the
    rest inline. Every node validates the ATXs; the epoch's proposal VRF
-   proofs are made once, in 8 worker processes. 36 layers: every builder
+   proofs are made once, in 8 worker processes. 16 layers: every builder
    builds and publishes, every node validates; hare (real sessions for
    the first 4, staggered 4 rounds; then the proposals every node holds);
    the block generated and applied, certified by every eligible identity
    and its certificate validated on every node; ``Mesh.process_layer``;
    64 seeded wallet spends a layer (an overdraft and a stale nonce
-   refused); one identity double-publishes a ballot. From layer 20 on
-   ``[verifyd]``'s 10240 POST items flood node 0's farm (GOSSIP lane) in
-   waves, 2 layers of it under the profiler. Fails unless every node holds
+   refused); one identity double-publishes a ballot. Layers 5-8 are
+   timed with node 0's farm idle; through layers 9-12 ``[verifyd]``'s
+   10240 POST items flood node 0's farm (GOSSIP lane) in waves, the last
+   2 of them under the profiler. Fails unless every node holds
    the same non-empty block, state root and aggregated hash in every
    layer, verifies the same layer (at least the last - 11), holds equal
    balances whose total is the rewards minted less the fees, marks the
@@ -216,6 +217,40 @@ package. Phases, each printed as it runs:
    layers, window 600 for mainnet's 4032, 50 ballots and 3 blocks a layer,
    10k ATXs an epoch): its invariants, tally mean and p99, ingest a layer
    in the second and last quarters, peak RSS, the ``updates()`` digest;
+10d. [node] the node seam, ``node/app.py`` through its entry points on the
+   card, at mainnet's POST width (N=8192, k1=26, k2=37, k3=1, mainnet's
+   k2pow difficulty, 4 units) with labels per unit cut to 2^18 (2^20
+   labels an identity) and the standalone preset's consensus timing (4
+   layers an epoch) on the port's ``VirtualClockLoop``: (a) node A smeshes
+   with 4 identities (POST init on the card before the clock starts),
+   observer B runs from genesis, observer C joins after one epoch and
+   catches up through ``Syncer``/``Fetch`` over a ``LoopbackNet``; each
+   ``App(device="cuda")`` has its own farm; 3 epochs. Fails unless every
+   identity publishes one ATX per epoch, B and C accept each at A's
+   weight through their farms, A, B and C hold the same applied block,
+   state root and aggregated hash in every applied layer, B and C reach
+   A's applied frontier less 1, A's four coinbases hold the rewards
+   minted, A's bus carried ``PostEvent`` init_start/init_complete per
+   identity, ``AtxPublished`` per identity and epoch and a
+   ``LayerUpdate`` per layer, both guards hold and
+   ``runtime_fallbacks_total`` does not move. (b) A closed and a new
+   ``App`` opened on its data directory: the ATX cache and the tortoise
+   recovered, ``prepare()`` launches no ROMix, one more epoch publishes
+   every identity's next ATX and no node records malfeasance. (c) ``python
+   -m spacemesh_tpu_torch.node`` on the real clock (mainnet's POST width, 1
+   identity, 2^16 labels per unit, 3 s layers), beside (a): exit 0, an
+   ``AtxPublished`` and a layer of epoch 1 applied; ``--device cpu`` exits
+   0 and no ``--device`` exits non-zero with no card visible. (d) A
+   reopened on the real clock: a prove over one identity's store held on a
+   gate stalls ``post.prove``; ``ComponentHealth`` reaches A's bus, A's
+   ``RemediationEngine`` answers with a ``RemediationAction``, and a flight
+   bundle of A's ``HealthEngine`` validates with both in ``events.json``.
+   Reports A's init rate beside ``[init]``'s, seconds per proof and per
+   epoch, B's and C's ATX validation p50/p99, wall seconds per layer and
+   layers applied per wall second, C's sync, the proposal builder's slot
+   proofs, peak memory beside the ROMix batches' ``lanes_that_fit``, the
+   card's idle share over epoch 1 of (a) under the profiler, and the
+   kernels' launches;
 11. [trace] instrumentation and self-healing: (a) init of 2^19 labels at
    the main path's width with tracing off, on, and on with the
    ``torch.profiler`` bridge inside a profiler capture, twice each in the
@@ -254,7 +289,7 @@ package. Phases, each printed as it runs:
    main path's (``tenants_launches``, ``verifyd_launches``,
    ``fleet_launches``, ``atx_launches``: the inits, proves and validation
    of ``[atx]``; ``mesh_launches``: ``[mesh]``'s ATX proves and
-   validation and its flood). ``path`` names the path whose count ``launches``
+   validation and its flood; ``node_launches``: ``[node]`` (a) and (b)). ``path`` names the path whose count ``launches``
    is: the main path's, but for k2pow verify, which only the verification
    paths run (``[verifyd]``'s warm run; ``main_launches`` 0), and
    ``none`` for the standalone proving hash and the k2pow mask search,
@@ -1271,6 +1306,7 @@ def phase_main_path(ctx: dict) -> None:
             labels_per_unit=UNIT_LABELS, scrypt_n=N_MAIN,
             batch_size=INIT_BATCH, device="cuda")
         init_s = time.perf_counter() - t0
+        ctx["init_rate"] = res.labels_per_s
         pv = prover.Prover(d, params, batch_labels=PROVE_BATCH,
                            device="cuda")
         t0 = time.perf_counter()
@@ -4029,11 +4065,11 @@ def phase_consensus(ctx: dict) -> None:
 # --- [mesh]: the mesh and its state on the card's node ---------------------
 
 MESH_NODES = 8            # nodes on one LoopbackHub, 8 identities each
-MESH_LAYERS = 32          # layers run: the frontier passes hdist + zdist
+MESH_LAYERS = 16          # layers run: the frontier passes hdist + zdist
 MESH_HARE = 4             # leading layers whose hare runs real sessions
-MESH_IDLE = range(6, 16)  # layer indices timed with node 0's farm idle
-MESH_FLOOD = range(16, 26)  # ... and timed under the POST flood
-MESH_PROFILED = range(26, 28)  # flood layers under the profiler (idle share)
+MESH_IDLE = range(5, 9)   # layer indices timed with node 0's farm idle
+MESH_FLOOD = range(9, 11)  # ... and under the POST flood, unprofiled
+MESH_PROFILED = range(11, 13)  # flood layers under the profiler (idle share)
 MESH_EQUIVOCATE = 4       # layer index where one identity double-publishes
 MESH_BAD_TXS = 3          # layer index after which an overdraft and a stale
                           # nonce are offered
@@ -4984,7 +5020,7 @@ def phase_mesh(ctx: dict, device: str = "cuda") -> None:
                        res["cert_lat"]),
                       ("ballot and proposal signature", res["sig_lat"])):
         idle = [x for i, x in lat if i in MESH_IDLE]
-        fl = [x for i, x in lat if i in MESH_FLOOD]
+        fl = [x for i, x in lat if i in MESH_FLOOD or i in MESH_PROFILED]
         log(f"[mesh] node 0 {name}: farm idle {mesh_quant(idle)}; under the "
             f"flood {mesh_quant(fl)}")
     prof, prof_s = env["prof"]
@@ -5024,6 +5060,731 @@ def phase_mesh(ctx: dict, device: str = "cuda") -> None:
         f"{s['updates']} updates, sha256 {s['digest']}")
     ctx["mesh"] = dict(launches=launches, stress=s)
     log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s; {ctx['smi']}")
+
+
+# --- [node]: the node seam on the card ---------------------------------
+
+NODE_IDS = 4              # node A's identities (smeshing.num_identities)
+NODE_LPU = 1 << 18        # labels per unit, mainnet's 2^32 cut: 4 units,
+                          # 2^20 labels an identity (the main path's cut)
+NODE_UNITS = 4            # mainnet's min_num_units and PostConfig default
+NODE_EPOCHS = 3           # (a) runs epochs 0-2, (b) one more
+NODE_STALL_S = 2.0        # (d): the prove watchdog's deadline
+NODE_CLI_LPU = 1 << 16    # (c): the CLI node's labels per unit
+NODE_CLI_LAYER_S = 3.0    # (c): the CLI node's real-clock layers
+NODE_CLI_BATCH = 1 << 12  # (c): its init batch (4 GiB of V at N=8192)
+NODE_SEED = b"chip-smoke-node"
+
+
+def node_post(device: str) -> dict:
+    """The POST section of every [node] config: mainnet's (the PostConfig
+    defaults: N=8192, k1=26, k2=37, k3=1, mainnet's k2pow difficulty,
+    min_num_units 4) with labels_per_unit cut; on the CPU rehearsal the
+    JAX node tests' tiny width."""
+    from spacemesh_tpu_torch.node.config import PostConfig
+
+    if device == "cpu":
+        return {"labels_per_unit": 256, "scrypt_n": 2, "k1": 64, "k2": 8,
+                "k3": 4, "min_num_units": 1,
+                "pow_difficulty": "20" + "ff" * 31}
+    return dict(dataclasses.asdict(PostConfig()), labels_per_unit=NODE_LPU)
+
+
+def node_config(d: str, name: str, smesh: bool, genesis: float,
+                device: str):
+    """The standalone preset's consensus timing (fastnet's: 4 layers an
+    epoch, 15 s layers, a committee of 50), all on the virtual clock."""
+    from spacemesh_tpu_torch.node.config import load
+
+    units = NODE_UNITS if device == "cuda" else 1
+    return load("standalone", overrides={
+        "data_dir": os.path.join(d, name), "genesis": {"time": genesis},
+        "post": node_post(device),
+        "smeshing": {"start": smesh, "num_units": units,
+                     "num_identities": NODE_IDS if smesh else 1}})
+
+
+def node_signer(name: str, cfg):
+    from spacemesh_tpu_torch.core import signing
+
+    return signing.EdSigner(seed=hashlib.sha256(NODE_SEED + name.encode())
+                            .digest(), prefix=cfg.genesis.genesis_id)
+
+
+class NodeWatch:
+    """What [node] times and counts around the apps, by patching classes
+    of the port for the phase: each init's rate, each proof's seconds,
+    each identity's epoch from ``register_challenge`` to its ATX, the
+    proposal builder's slot proofs (ROADMAP B7), and each ROMix call's
+    lanes beside ``lanes_that_fit`` (init batches against the farms')."""
+
+    def __init__(self):
+        from spacemesh_tpu_torch.consensus import activation, eligibility
+        from spacemesh_tpu_torch.ops import romix_cuda
+        from spacemesh_tpu_torch.post import initializer, service
+
+        self.inits, self.proofs, self.epochs = [], [], {}
+        self.slots = [0, 0.0]
+        self.romix = []
+        self._undo = []
+        watch = self
+
+        def patch(owner, name, make):
+            real = getattr(owner, name)
+            self._undo.append((owner, name, real))
+            setattr(owner, name, make(real))
+
+        def init(real):
+            def initialize(*a, **kw):
+                meta, res = real(*a, **kw)
+                watch.inits.append((res.labels_per_s, res.elapsed_s,
+                                    meta.labels_written))
+                return meta, res
+            return initialize
+
+        def proof(real):
+            def timed(client, challenge):
+                t0 = time.perf_counter()
+                out = real(client, challenge)
+                watch.proofs.append(time.perf_counter() - t0)
+                return out
+            return timed
+
+        def register(real):
+            async def timed(b, publish_epoch):
+                watch.epochs[(b.signer.node_id, publish_epoch)] = [
+                    time.perf_counter(), None]
+                return await real(b, publish_epoch)
+            return timed
+
+        def finish(real):
+            async def timed(b, publish_epoch, *a, **kw):
+                atx = await real(b, publish_epoch, *a, **kw)
+                key = (b.signer.node_id, publish_epoch)
+                if key in watch.epochs:
+                    watch.epochs[key][1] = time.perf_counter()
+                return atx
+            return timed
+
+        def slots(real):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                watch.slots[0] += 1
+                watch.slots[1] += time.perf_counter() - t0
+                return out
+            return timed
+
+        def romix(real):
+            def recorded(x, n, **kw):
+                if x.is_cuda:
+                    watch.romix.append((int(x.shape[1]), romix_cuda
+                                        .lanes_that_fit(n, x.device)))
+                return real(x, n, **kw)
+            return recorded
+
+        patch(initializer, "initialize", init)
+        patch(service.PostClient, "proof", proof)
+        patch(activation.Builder, "register_challenge", register)
+        patch(activation.Builder, "finish", finish)
+        patch(eligibility.Oracle, "eligible_slots_for_layer", slots)
+        patch(romix_cuda, "romix", romix)
+
+    def close(self) -> None:
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+
+def node_timed(app, lat: list) -> None:
+    """Time every ``process_async`` of ``app``'s v1 ATX handler (gossip
+    and sync alike) into ``lat``."""
+    real = app.atx_handler.process_async
+
+    async def timed(*a, **kw):
+        t0 = time.perf_counter()
+        ok = await real(*a, **kw)
+        lat.append(time.perf_counter() - t0)
+        return ok
+
+    app.atx_handler.process_async = timed
+
+
+def node_layers(apps: dict, upto: int) -> dict:
+    """Per node, (applied block, state root, aggregated hash) of every
+    layer up to ``upto``."""
+    from spacemesh_tpu_torch.storage import layers as layerstore
+
+    return {name: [(layerstore.applied_block(a.state, lyr),
+                    layerstore.state_hash(a.state, lyr),
+                    layerstore.aggregated_hash(a.state, lyr))
+                   for lyr in range(upto + 1)] for name, a in apps.items()}
+
+
+async def node_profile(clock, lpe: int, res: dict) -> None:
+    """The card's busy time over epoch 1 of (a): a ``torch.profiler``
+    capture from the start of layer ``lpe`` to the start of ``2 * lpe``
+    (this process's device work; the CLI node's process is not seen)."""
+    import torch
+
+    await clock.await_layer(lpe)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    prof.__enter__()
+    t0 = time.perf_counter()
+    try:
+        await clock.await_layer(2 * lpe)
+        torch.cuda.synchronize()
+    finally:
+        prof.__exit__(None, None, None)
+    res["prof"] = (prof, time.perf_counter() - t0)
+
+
+def node_network(d: str, device: str, res: dict) -> None:
+    """(a) A smeshes with ``NODE_IDS`` identities, B observes from genesis,
+    C joins after one epoch and syncs; (b) A restarts on its data directory
+    and runs one more epoch. One ``VirtualClockLoop``; every App on
+    ``device`` with its own farm."""
+    import asyncio
+
+    from spacemesh_tpu_torch.node import clock as clock_mod
+    from spacemesh_tpu_torch.node import events as events_mod
+    from spacemesh_tpu_torch.node.app import App
+    from spacemesh_tpu_torch.p2p.pubsub import LoopbackHub, PubSub
+    from spacemesh_tpu_torch.p2p.server import LoopbackNet
+    from spacemesh_tpu_torch.storage import atxs as atxstore
+    from spacemesh_tpu_torch.storage import layers as layerstore
+    from spacemesh_tpu_torch.storage import misc as miscstore
+    from spacemesh_tpu_torch.utils.vclock import (VirtualClockLoop,
+                                                  cancel_all_tasks)
+
+    loop = VirtualClockLoop()
+    hub, net = LoopbackHub(), LoopbackNet()
+    genesis_id_time = 1_700_000_600.0   # one genesis for the network
+    cfgs = {n: node_config(d, n, n == "a", genesis_id_time, device)
+            for n in "abc"}
+    lpe = cfgs["a"].layers_per_epoch
+    until = (NODE_EPOCHS - 1) * lpe + 1
+    layer_s = cfgs["a"].layer_duration
+    lat = {"b": [], "c": []}
+
+    def make(name):
+        cfg = cfgs[name]
+        signer = node_signer(name, cfg)
+        ps = PubSub(node_name=signer.node_id)
+        hub.join(ps)
+        app = App(cfg, signer=signer, pubsub=ps, time_source=loop.time,
+                  device=device)
+        app.connect_network(net)
+        if name in lat:
+            node_timed(app, lat[name])
+        return app
+
+    async def go():
+        a, b = make("a"), make("b")
+        res["apps"] = {"a": a, "b": b}
+        sub = a.events.subscribe(events_mod.PostEvent,
+                                 events_mod.AtxPublished,
+                                 events_mod.LayerUpdate, size=1 << 14)
+        t0 = time.perf_counter()
+        await a.prepare()
+        res["prepare_s"] = time.perf_counter() - t0
+        genesis = loop.time() + 1.0
+        for app in (a, b):
+            app.clock = clock_mod.LayerClock(genesis, layer_s,
+                                             time_source=loop.time)
+        t_run = time.perf_counter()
+        task_a = asyncio.ensure_future(a.run(until_layer=until))
+        task_b = asyncio.ensure_future(b.run(until_layer=until))
+        profiled = (asyncio.ensure_future(node_profile(a.clock, lpe, res))
+                    if device == "cuda" else None)
+        await asyncio.sleep(layer_s * (lpe + 1))   # C joins after an epoch
+        c = make("c")
+        res["apps"]["c"] = c
+        c.clock = clock_mod.LayerClock(genesis, layer_s,
+                                       time_source=loop.time)
+        t0 = time.perf_counter()
+        await c.syncer.synchronize()
+        res["sync_first"] = (time.perf_counter() - t0,
+                             layerstore.last_applied(c.state))
+        await asyncio.gather(task_a, task_b)
+        res["run_s"] = time.perf_counter() - t_run
+        if profiled is not None:
+            await profiled
+        res["ticked"] = until + 1
+        # catch-up: both observers' syncers driven until each reaches A's
+        # applied frontier (bounded in virtual time), as
+        # tests/test_multinode.py does
+        t0 = time.perf_counter()
+        target = layerstore.last_applied(a.state) - 1
+        deadline = loop.time() + 300
+        rounds = 0
+        while loop.time() < deadline:
+            rounds += 1
+            await b.syncer.synchronize()
+            await c.syncer.synchronize()
+            if min(layerstore.last_applied(x.state) for x in (b, c)) \
+                    >= target:
+                break
+            await asyncio.sleep(0.2)
+        res["sync_s"] = time.perf_counter() - t0
+        res["sync_rounds"] = rounds
+        res["events"] = []
+        while not sub.queue.empty():
+            res["events"].append(sub.queue.get_nowait())
+        sub.close()
+        res["frontier"] = {n: layerstore.last_applied(x.state)
+                           for n, x in res["apps"].items()}
+        res["layers"] = node_layers(res["apps"], res["frontier"]["a"])
+        res["atx_ids"] = {e: atxstore.ids_in_epoch(a.state, e)
+                          for e in range(NODE_EPOCHS)}
+        res["weights"] = {
+            n: {(e, i): (x.cache.get(e + 1, i).weight
+                         if x.cache.get(e + 1, i) is not None else None)
+                for e, ids in res["atx_ids"].items() for i in ids}
+            for n, x in res["apps"].items()}
+        res["ledger"] = mesh_ledger(a)
+        res["coinbases"] = [b.coinbase for b in a.atx_builders]
+        res["farms"] = {n: dict(x.verify_farm.stats)
+                        for n, x in res["apps"].items()}
+        # (b) the restart: A closed, a new App on its data directory
+        before = {"cache": {e: {i: a.cache.get(e, i).weight
+                                for i in atxstore.ids_in_epoch(a.state,
+                                                               e - 1)}
+                            for e in range(1, NODE_EPOCHS + 1)},
+                  "processed": layerstore.processed(a.state)}
+        hub.leave(a.pubsub)
+        a.close()
+        romix0 = launch_counts()["romix"]
+        a2 = make("a")
+        res["apps"]["a"] = a2
+        rec = {e: {i: (a2.cache.get(e, i).weight
+                       if a2.cache.get(e, i) is not None else None)
+                   for i in ids} for e, ids in before["cache"].items()}
+        res["recovered"] = dict(
+            cache=rec == before["cache"],
+            processed=(a2.tortoise.processed, before["processed"],
+                       layerstore.processed(a2.state)),
+            hare=all(lyr in a2.tortoise._hare for lyr in range(1, until)
+                     if layerstore.applied_block(a2.state, lyr)))
+        t0 = time.perf_counter()
+        await a2.prepare()
+        res["restart_prepare_s"] = time.perf_counter() - t0
+        res["restart_romix"] = launch_counts()["romix"] - romix0
+        a2.clock = clock_mod.LayerClock(genesis, layer_s,
+                                        time_source=loop.time)
+        until2 = NODE_EPOCHS * lpe + 1
+        t0 = time.perf_counter()
+        await a2.run(until_layer=until2)
+        res["restart_run_s"] = time.perf_counter() - t0
+        await hub.drain()
+        res["restart_atxs"] = {
+            s.node_id: atxstore.by_node_in_epoch(a2.state, s.node_id,
+                                                 NODE_EPOCHS)
+            for s in a2.signers}
+        res["b_has_restart_atxs"] = all(
+            v is not None and atxstore.get(b.state, v.id) is not None
+            for v in res["restart_atxs"].values())
+        res["malicious"] = {n: miscstore.all_malicious(x.state)
+                            for n, x in res["apps"].items()}
+        res["processed2"] = layerstore.processed(a2.state)
+
+    try:
+        loop.run_until_complete(asyncio.wait_for(go(), 100_000))
+    finally:
+        loop.run_until_complete(cancel_all_tasks())
+        loop.close()
+    res["lpe"], res["until"] = lpe, until
+    res["init_batch"] = cfgs["a"].smeshing.init_batch
+    res["lat"] = lat
+
+
+def node_health(d: str, device: str, cfg) -> dict:
+    """(d) node A reopened on the real clock: a prove over identity 0's
+    store with its window held on a gate stalls the ``post.prove``
+    watchdog; A's ``HealthEngine`` emits ``ComponentHealth`` on A's bus,
+    A's ``RemediationEngine`` answers with a ``RemediationAction``, and a
+    flight bundle of A's engine holds both."""
+    import asyncio
+    import threading
+
+    from spacemesh_tpu_torch.node import events as events_mod
+    from spacemesh_tpu_torch.node.app import App
+    from spacemesh_tpu_torch.obs import flight as flight_mod
+    from spacemesh_tpu_torch.post import prover
+
+    app = App(cfg, signer=node_signer("a", cfg), device=device)
+    gate = threading.Event()
+    out = {}
+
+    async def go():
+        sub = app.events.subscribe(events_mod.ComponentHealth,
+                                   events_mod.RemediationAction, size=64)
+        app.health_engine.interval_s = 0.25
+        app.health_engine.ensure_running()
+        app.remediation.start()
+        store = os.path.join(cfg.data_dir, "post",
+                             app.signer.node_id.hex()[:16])
+        pv = prover.Prover(store, app.post_params, device=device)
+        pv.stall_deadline_s = NODE_STALL_S
+        real_read = pv.store.read_labels
+
+        def gated(start, count):
+            gate.wait(120)
+            return real_read(start, count)
+
+        pv.store.read_labels = gated
+        t0 = time.perf_counter()
+        prove = asyncio.ensure_future(
+            asyncio.to_thread(pv.prove, bytes(32)))
+        got = []
+        try:
+            while not any(isinstance(e, events_mod.RemediationAction)
+                          and e.component == "post.prove" for e in got):
+                got.append(await asyncio.wait_for(sub.next(), 60))
+            out["seen_s"] = time.perf_counter() - t0
+        finally:
+            gate.set()
+            await prove
+        out["events"] = got
+        out["bundle"] = app.health_engine.dump_flight("node-stall")
+        sub.close()
+
+    try:
+        asyncio.run(go())
+    finally:
+        gate.set()
+        spool = app.health_engine.recorder.bundles()
+        app.close()
+    bundle = flight_mod.read_bundle(out["bundle"])   # validates trace.json
+    with open(os.path.join(out["bundle"], "events.json")) as f:
+        out["bundle_events"] = json.load(f)
+    out["manifest"] = bundle["manifest"]
+    out["spool"] = [os.path.basename(str(p)) for p in spool]
+    return out
+
+
+def node_cli_start(d: str, device: str, lpe: int) -> list:
+    """(c) ``python -m spacemesh_tpu_torch.node`` in three subprocesses,
+    started together: the standalone node on the card at mainnet's POST
+    width (1 identity, labels per unit cut further) through two epochs on
+    the real clock (its applied frontier trails its clock by 2-3 layers,
+    so ``LPE + 2`` layers end before a block of epoch 1 applies), and the
+    device
+    check: ``--device cpu`` runs and ``--device`` absent fails with no
+    card visible."""
+    post = node_post(device)
+    if device == "cuda":
+        post["labels_per_unit"] = NODE_CLI_LPU
+    conf = os.path.join(d, "cli.json")
+    with open(conf, "w") as f:
+        json.dump({"layer_duration": NODE_CLI_LAYER_S, "post": post,
+                   "smeshing": {"start": True, "num_units": NODE_UNITS
+                                if device == "cuda" else 1,
+                                "init_batch": NODE_CLI_BATCH},
+                   "hare": {"round_duration": 0.2, "preround_delay": 0.5},
+                   "beacon": {"proposal_duration": 0.2}}, f)
+    tiny = os.path.join(d, "cli-cpu.json")
+    with open(tiny, "w") as f:
+        json.dump({"layer_duration": 1.0, "post": node_post("cpu"),
+                   "smeshing": {"start": True, "num_units": 1,
+                                "init_batch": 128}}, f)
+    node = [sys.executable, "-m", "spacemesh_tpu_torch.node", "--preset",
+            "standalone", "--genesis-now"]
+    no_card = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    runs = [("card", node + ["--config", conf, "--data-dir",
+                             os.path.join(d, "cli"), "--until-layer",
+                             str(2 * lpe), "--device", device], None),
+            ("cpu", node + ["--config", tiny, "--data-dir",
+                            os.path.join(d, "cli-cpu"), "--until-layer",
+                            "1", "--device", "cpu"], no_card),
+            ("absent", node + ["--config", tiny, "--data-dir",
+                               os.path.join(d, "cli-absent"),
+                               "--until-layer", "1"], no_card)]
+    import threading
+
+    procs = []
+    for name, cmd, env in runs:
+        run = dict(name=name, t0=time.perf_counter(), proc=subprocess.Popen(
+            cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+
+        def reap(run=run):
+            run["out"] = run["proc"].communicate()
+            run["s"] = time.perf_counter() - run["t0"]
+
+        run["reaper"] = threading.Thread(target=reap, daemon=True)
+        run["reaper"].start()
+        procs.append(run)
+    return procs
+
+
+def node_cli_finish(procs: list, lpe: int) -> dict:
+    out = {}
+    try:
+        for run in procs:
+            run["reaper"].join(240)
+            require("out" in run, f"[node] (c) the {run['name']} CLI run "
+                    f"ended within 240 s")
+            stdout, stderr = run["out"]
+            events = [json.loads(line) for line in stdout.splitlines()
+                      if line.startswith("{")]
+            out[run["name"]] = dict(rc=run["proc"].returncode, s=run["s"],
+                                    events=events, err=stderr[-1500:])
+    finally:
+        for run in procs:
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+    card = out["card"]
+    require(card["rc"] == 0, f"[node] (c) the CLI node exited 0 "
+            f"({card['rc']}: {card['err']})")
+    kinds = [e["event"] for e in card["events"]]
+    applied = [e["layer"] for e in card["events"]
+               if e["event"] == "LayerUpdate" and e["status"] == "applied"]
+    require("AtxPublished" in kinds and applied and max(applied) >= lpe,
+            f"[node] (c) the CLI node published an ATX and applied a layer "
+            f"after epoch 0 ({kinds.count('AtxPublished')} ATXs, applied "
+            f"{sorted(set(applied))})")
+    require(out["cpu"]["rc"] == 0, f"[node] (c) --device cpu ran with no "
+            f"card visible ({out['cpu']['rc']}: {out['cpu']['err']})")
+    require(out["absent"]["rc"] != 0 and "cuda" in out["absent"]["err"],
+            f"[node] (c) no --device and no card visible exits non-zero "
+            f"with the device error ({out['absent']['rc']}: "
+            f"{out['absent']['err']})")
+    out["applied"] = max(applied)
+    return out
+
+
+def node_drive(d: str, device: str, procs: list) -> tuple:
+    """(a), (b) and (d) under both guards, the kernels' counts zeroed just
+    before and read just after (a) and (b); then (c)'s results."""
+    import torch
+    from spacemesh_tpu_torch import native
+
+    watch = NodeWatch()
+    native.zero_counts()
+    zero_launches()
+    GUARD.start()
+    res: dict = {}
+    try:
+        try:
+            node_network(d, device, res)
+        finally:
+            for app in res.get("apps", {}).values():
+                app.close()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        guard = GUARD.stop()
+        counts = native.counts()
+        launches = launch_counts()
+        peak = ((torch.cuda.max_memory_allocated(),
+                 torch.cuda.max_memory_reserved())
+                if device == "cuda" else (0, 0))
+        health = node_health(d, device, node_config(
+            d, "a", True, 1_700_000_600.0, device))
+    finally:
+        watch.close()
+        GUARD.stop()
+    cli = node_cli_finish(procs, res["lpe"])
+    return cli, guard, counts, launches, peak, health, res, watch
+
+
+def phase_node(ctx: dict, device: str = "cuda") -> None:
+    """[node]: the port's node seam, ``node/app.py`` over every component,
+    on the card: (a) a smeshing node of 4 identities and two peers on the
+    port's virtual clock, (b) the smeshing node restarted, (c) the CLI, (d)
+    the event bus through health and remediation."""
+    import torch
+    from spacemesh_tpu_torch.consensus.mesh import EMPTY
+    from spacemesh_tpu_torch.tools.measure import busy_us, device_intervals
+    from spacemesh_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fallbacks0 = runtime_fallbacks()
+    gossip0 = metrics.gossip_handler_seconds.sample()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-node-") as d:
+        procs = node_cli_start(d, device, node_config(
+            d, "a", True, 0.0, device).layers_per_epoch)
+        try:
+            cli, guard, counts, launches, peak, health, res, watch = \
+                node_drive(d, device, procs)
+        finally:
+            for run in procs:   # stops every process the phase started
+                if run["proc"].poll() is None:
+                    run["proc"].kill()
+                    run["proc"].wait()
+    require_no_twins(guard, "node")
+    require_native(counts, "node (init, ATXs, validation, hare, beacon, "
+                   "the mesh, sync)")
+    lpe, until = res["lpe"], res["until"]
+    # (a) the gates
+    ids = res["atx_ids"]
+    require(all(len(ids[e]) == NODE_IDS for e in range(NODE_EPOCHS)),
+            f"[node] every identity published one ATX per epoch "
+            f"({ {e: len(v) for e, v in ids.items()} })")
+    wa = res["weights"]["a"]
+    for n in "bc":
+        require(res["weights"][n] == wa and all(
+            w is not None and w > 0 for w in wa.values()),
+            f"[node] {n} accepted every ATX at A's weight")
+    for n in "bc":
+        require(res["farms"][n]["items"] > 0 and len(res["lat"][n])
+                >= NODE_IDS * (NODE_EPOCHS - 1 if n == "b" else 1),
+                f"[node] {n} validated A's ATXs through its farm "
+                f"({len(res['lat'][n])} ATXs, farm "
+                f"{json.dumps(res['farms'][n])})")
+    fa = res["frontier"]["a"]
+    require(fa >= 2 * lpe - 1, f"[node] A applied past epoch 1 ({fa})")
+    require(res["frontier"]["c"] >= fa - 1 and res["frontier"]["b"]
+            >= fa - 1, f"[node] B and C reached A's frontier less 1 "
+            f"({json.dumps(res['frontier'])})")
+    top = min(res["frontier"].values())
+    agree = [lyr for lyr in range(top + 1)
+             if len({res["layers"][n][lyr] for n in "abc"}) == 1]
+    require(len(agree) == top + 1, f"[node] A, B and C agree on the applied "
+            f"block, state root and aggregated hash of every layer to {top} "
+            f"(disagree at {sorted(set(range(top + 1)) - set(agree))})")
+    blocks = [lyr for lyr in range(lpe, top + 1)
+              if res["layers"]["a"][lyr][0] not in (None, EMPTY)]
+    require(blocks, f"[node] non-empty blocks applied from epoch 1 on")
+    accounts, minted, fees = res["ledger"]
+    held = sum(accounts.get(cb, (0, 0))[0] for cb in res["coinbases"])
+    require(minted > 0 and held == minted - fees, f"[node] A's "
+            f"{NODE_IDS} coinbases hold the rewards minted ({held} of "
+            f"{minted}, fees {fees})")
+    evs = res["events"]
+    posts = collections.Counter((e.node_id, e.kind) for e in evs
+                                if type(e).__name__ == "PostEvent")
+    published = collections.Counter(
+        (e.node_id, e.epoch) for e in evs
+        if type(e).__name__ == "AtxPublished")
+    layers_seen = {e.layer for e in evs
+                   if type(e).__name__ == "LayerUpdate"
+                   and e.status in ("hare_done", "hare_failed")}
+    require(len(posts) == 2 * NODE_IDS and set(posts.values()) == {1},
+            f"[node] A's bus carried init_start and init_complete once per "
+            f"identity ({len(posts)})")
+    require(len(published) == NODE_IDS * NODE_EPOCHS
+            and set(published.values()) == {1},
+            f"[node] A's bus carried one AtxPublished per identity and "
+            f"epoch ({len(published)})")
+    require(set(range(until)) <= layers_seen, f"[node] A's bus carried a "
+            f"LayerUpdate for every layer to {until - 1} "
+            f"({sorted(layers_seen)})")
+    # (b) the restart
+    rec = res["recovered"]
+    require(rec["cache"] and rec["hare"] and rec["processed"][0]
+            == rec["processed"][2], f"[node] (b) the ATX cache and the "
+            f"tortoise recovered ({json.dumps(rec)})")
+    require(res["restart_romix"] == 0, f"[node] (b) the restarted node's "
+            f"prepare() launched no ROMix ({res['restart_romix']})")
+    require(all(v is not None for v in res["restart_atxs"].values())
+            and res["b_has_restart_atxs"], f"[node] (b) every identity "
+            f"published its epoch-{NODE_EPOCHS} ATX after the restart and B "
+            f"accepted it")
+    require(not any(res["malicious"].values()), f"[node] (b) no "
+            f"self-equivocation: no malfeasance on any node "
+            f"({ {n: len(v) for n, v in res['malicious'].items()} })")
+    require(runtime_fallbacks() == fallbacks0, "[node] "
+            "runtime_fallbacks_total did not move")
+    if device == "cuda":
+        for k in ("romix", "pbkdf2_expand", "pbkdf2_finish", "scan",
+                  "k2pow_search", "pbkdf2_finish_hash"):
+            require(launches[k] > 0, f"[node] launched {k} "
+                    f"({json.dumps(launches)})")
+    # (d) the bus through health
+    kinds = [type(e).__name__ for e in health["events"]]
+    comp = [e for e in health["events"]
+            if type(e).__name__ == "ComponentHealth"]
+    acts = [e for e in health["events"]
+            if type(e).__name__ == "RemediationAction"]
+    require(any(e.component == "post.prove" and not e.healthy
+                for e in comp)
+            and any(e.component == "post.prove" for e in acts), f"[node] "
+            f"(d) ComponentHealth then RemediationAction for post.prove on "
+            f"A's bus ({kinds})")
+    btypes = [e["type"] for e in health["bundle_events"]]
+    require({"ComponentHealth", "RemediationAction"} <= set(btypes),
+            f"[node] (d) the flight bundle's events.json holds both "
+            f"({btypes})")
+    # the report
+    first = watch.inits[:NODE_IDS]
+    rate = sum(r[2] for r in first) / sum(r[1] for r in first)
+    log(f"[node] (a) A: {NODE_IDS} identities x {NODE_UNITS} units x "
+        f"{NODE_LPU if device == 'cuda' else 256} labels initialized on "
+        f"{device} in {res['prepare_s']:.2f} s with the first ATXs: "
+        f"{rate:.0f} labels/s (each init: "
+        f"{', '.join(f'{r[0]:.0f}' for r in watch.inits[:NODE_IDS])}; "
+        f"[init] {ctx.get('init_rate', 0):.0f} labels/s in this call)")
+    proofs = sorted(watch.proofs)
+    spans = sorted(t1 - t0 for t0, t1 in watch.epochs.values()
+                   if t1 is not None)
+    log(f"[node] proofs: {len(proofs)}, {quantiles(proofs)} per proof per "
+        f"identity; register_challenge -> ATX per identity and epoch "
+        f"{quantiles(spans)} ({len(spans)})")
+    for n in "bc":
+        xs = res["lat"][n]
+        log(f"[node] {n.upper()}'s ATX validation ({'gossip' if n == 'b' else 'sync'}): "
+            f"{len(xs)} ATXs, {mesh_quant(xs)}")
+    gossip = metrics.gossip_handler_seconds.sample()
+    gdelta = {k: (v[2] - gossip0.get(k, (0, 0, 0))[2])
+              for k, v in gossip.items()}
+    log(f"[node] gossip_handler_seconds observations by topic (A, B and C "
+        f"together): {json.dumps({dict(k).get('topic', ''): c for k, c in gdelta.items()})}")
+    applied = res["frontier"]["a"] + 1
+    log(f"[node] {res['ticked']} layers ({lpe} a epoch, "
+        f"{res['apps']['a'].cfg.layer_duration:.0f} s virtual) in "
+        f"{res['run_s']:.2f} s of wall: {res['run_s'] / res['ticked']:.3f} s "
+        f"a layer, {applied / res['run_s']:.3f} layers applied per wall "
+        f"second; frontiers {json.dumps(res['frontier'])}")
+    if "prof" in res:
+        prof, prof_s = res["prof"]
+        busy = busy_us(device_intervals(prof)) / 1e6
+        idle = (f"idle share {1 - busy / prof_s:.1%} (busy {busy:.3f} s of "
+                f"{prof_s:.3f} s)")
+    else:
+        idle = "not measured"
+    log(f"[node] the card over epoch 1 of (a), under the profiler: {idle}")
+    log(f"[node] C: first sync {res['sync_first'][0]:.2f} s to layer "
+        f"{res['sync_first'][1]}; catch-up {res['sync_s']:.2f} s in "
+        f"{res['sync_rounds']} rounds; {len(res['lat']['c'])} ATXs fetched")
+    log(f"[node] proposal slots (ROADMAP B7): {watch.slots[0]} "
+        f"eligible_slots_for_layer calls, {watch.slots[1]:.2f} s")
+    batch = res["init_batch"]
+    init_fit = [f for b, f in watch.romix if b == batch]
+    farm_fit = [(b, f) for b, f in watch.romix if b != batch]
+    log(f"[node] memory: peak allocated {peak[0] / 2**30:.2f} GiB, reserved "
+        f"{peak[1] / 2**30:.2f} GiB; ROMix calls: {len(init_fit)} init "
+        f"batches of {batch} lanes ({batch * 8192 * 128 / 2**30:.0f} GiB "
+        f"of V at N=8192), "
+        f"lanes_that_fit min {min(init_fit, default=0)}; {len(farm_fit)} farm "
+        f"batches, lanes max {max((b for b, _ in farm_fit), default=0)}, "
+        f"lanes_that_fit min {min((f for _, f in farm_fit), default=0)}, "
+        f"split {sum(1 for b, f in farm_fit if b > f)}; farms "
+        f"{json.dumps(res['farms'])}")
+    log(f"[node] launches {json.dumps(launches)}")
+    log(f"[node] (b) restart: cache and tortoise recovered "
+        f"({json.dumps(rec)}); prepare {res['restart_prepare_s']:.2f} s with "
+        f"{res['restart_romix']} ROMix launches; one more epoch in "
+        f"{res['restart_run_s']:.2f} s; {NODE_IDS} epoch-{NODE_EPOCHS} ATXs; "
+        f"malfeasance on no node")
+    card = cli["card"]
+    log(f"[node] (c) CLI: {card['s']:.1f} s, rc 0, "
+        f"{[e['event'] for e in card['events']].count('AtxPublished')} "
+        f"AtxPublished, applied to layer {cli['applied']}; --device cpu rc "
+        f"{cli['cpu']['rc']} in {cli['cpu']['s']:.1f} s; --device absent rc "
+        f"{cli['absent']['rc']} ({cli['absent']['err'].strip().splitlines()[-1]})")
+    log(f"[node] (d) post.prove stalled behind a gate ({NODE_STALL_S:.0f} s "
+        f"deadline): {kinds} on A's bus after {health['seen_s']:.2f} s; "
+        f"bundle {os.path.basename(health['bundle'])} validates, events "
+        f"{btypes}; stall bundles {health['spool']}")
+    ctx["node"] = dict(launches=launches)
+    log(f"[node] phase {time.perf_counter() - t_phase:.1f} s; {ctx['smi']}")
 
 
 # --- [trace]: instrumentation and self-healing on the card -----------------
@@ -6197,6 +6958,7 @@ def main() -> int:
     phase_consensus(ctx)
     phase_mesh(ctx)
     ctx["atx"]["tmp"].cleanup()
+    phase_node(ctx)
     phase_trace(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
@@ -6230,6 +6992,7 @@ def main() -> int:
         extra[key]["fleet_launches"] = ctx["fleet"]["launches"][key]
         extra[key]["atx_launches"] = ctx["atx"]["launches"][key]
         extra[key]["mesh_launches"] = ctx["mesh"]["launches"][key]
+        extra[key]["node_launches"] = ctx["node"]["launches"][key]
         twins = ctx["verifyd"]["twins"]
         if all(key in errs for errs in twins.values()):
             extra[key]["verifyd_max_abs_err"] = {

@@ -4,16 +4,15 @@
 An SLO breach or a stalled component is exactly the moment an operator
 wishes they had started a trace capture five minutes ago. The flight
 recorder makes that retroactively true: the span tracer's ring, the
-full metrics exposition and the health report are all already in
-memory; a dump just serializes them into a timestamped bundle directory
-under the spool dir:
+full metrics exposition, the event bus's recent ring and the health
+report are all already in memory; a dump just serializes them into a
+timestamped bundle directory under the spool dir:
 
     flight-<unix_ts>-<pid>-<seq>/
         manifest.json   {reason, unix_ts, pid, health, remediation, ...}
         trace.json      tracing.export() (validates via tracing.validate)
         metrics.prom    Registry.expose() text exposition
-        events.json     recent event-bus emissions: always [] in the port
-                        until the event bus comes (ROADMAP [13])
+        events.json     recent EventBus emissions (bounded ring)
         health.json     the engine's readiness report at dump time
         procs/<proc>/   per-federated-process trace.json + metrics.prom
                         (obs/federate.py; only when children federated)
@@ -53,7 +52,7 @@ PROCS = "procs"
 
 
 def _jsonable(obj):
-    """Best-effort JSON projection for manifest payloads (bytes -> hex)."""
+    """Best-effort JSON projection for event payloads (bytes -> hex)."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {k: _jsonable(v)
                 for k, v in dataclasses.asdict(obj).items()}
@@ -83,7 +82,7 @@ class FlightRecorder:
         self._seq = itertools.count()
 
     def dump(self, reason: str, *, now: float | None = None,
-             health: dict | None = None,
+             health: dict | None = None, events=None,
              remediation: dict | None = None,
              force: bool = False) -> Path | None:
         """Write one bundle; returns its path, or None when rate-limited.
@@ -132,7 +131,9 @@ class FlightRecorder:
                 json.dumps(_jsonable(manifest), indent=1))
             (tmp / TRACE).write_text(json.dumps(tracing.export()))
             (tmp / METRICS).write_text(self.registry.expose())
-            (tmp / EVENTS).write_text("[]")
+            (tmp / EVENTS).write_text(json.dumps(
+                [{"t": et, "type": etype, "event": _jsonable(ev)}
+                 for et, etype, ev in (events or [])]))
             (tmp / HEALTH).write_text(
                 json.dumps(_jsonable(health or {}), indent=1))
             # fleet federation: every child process's last trace +

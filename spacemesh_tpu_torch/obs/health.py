@@ -20,15 +20,13 @@ never evict its successor under the same name.
 The :class:`HealthEngine` ties it together: each ``tick(now)`` samples
 the SLI window (obs/sli.py), evaluates every :class:`Slo` with
 burn-rate accounting, runs every probe, publishes the verdicts as
-metrics, logs breaches with the current trace span id (utils/logging.py
-JSON mode), and hands transitions to the flight recorder (obs/flight.py).
-``tick`` is pure with respect to time (``now`` is injectable), so the
-whole engine is testable without one wall-clock sleep.
-
-Left out against the JAX package until the event bus is ported
-(``node/events.py``, ROADMAP [13]): the engine's ``bus=`` (the
-``SloBreach``/``ComponentHealth`` events); flight bundles' events are
-then always empty.
+metrics, emits ``SloBreach``/``ComponentHealth`` events on the node's
+event bus (``node/events.py``) on transitions, logs breaches with the
+current trace span id (utils/logging.py JSON mode), and hands transitions
+to the flight recorder (obs/flight.py), whose bundles carry the bus's
+recent ring. ``tick`` is pure with respect to time (``now`` is
+injectable), so the whole engine is testable without one wall-clock
+sleep.
 """
 
 from __future__ import annotations
@@ -281,7 +279,7 @@ class _SloState:
 
 
 class HealthEngine:
-    """One tick loop: SLIs -> SLOs -> probes -> metrics/flight.
+    """One tick loop: SLIs -> SLOs -> probes -> metrics/events/flight.
 
     Everything time-dependent takes an explicit ``now`` so tests and
     ``chip_smoke.py`` drive the engine deterministically; the async
@@ -297,10 +295,12 @@ class HealthEngine:
                  interval_s: float = DEFAULT_INTERVAL_S,
                  window_s: float = sli_mod.DEFAULT_WINDOW_S,
                  spool_dir=None,
+                 bus=None,
                  time_source: Callable[[], float] = time.monotonic):
         from . import flight as flight_mod
 
         self.health = health
+        self.bus = bus
         self.interval_s = float(interval_s)
         self.time_source = time_source
         self.slis = list(slis) if slis is not None \
@@ -359,8 +359,8 @@ class HealthEngine:
             pending, self._pending_dump = self._pending_dump, None
         if pending is None or self.recorder is None:
             return
-        reason, t, report = pending
-        self.recorder.dump(reason, now=t, health=report,
+        reason, t, report, events = pending
+        self.recorder.dump(reason, now=t, health=report, events=events,
                            remediation=self._remediation_doc())
 
     # guarded by: self._lock — tick() is the only caller and enters with the engine lock held
@@ -393,6 +393,13 @@ class HealthEngine:
                         "SLO breach: %s (%s=%s, target %s %s, burn "
                         "%.3f > budget %.3f)", slo.name, slo.sli, value,
                         slo.op, slo.target, state.burn, slo.budget)
+                    if self.bus is not None:
+                        from ..node import events as events_mod
+
+                        self.bus.emit(events_mod.SloBreach(
+                            slo=slo.name, sli=slo.sli,
+                            value=value if value is not None else -1.0,
+                            target=slo.target, burn=state.burn))
                 elif not breached and state.breached:
                     _log.info("SLO recovered: %s (burn %.3f)", slo.name,
                               state.burn)
@@ -419,6 +426,12 @@ class HealthEngine:
                                  ent["reason"])
                 elif ent["healthy"] and not was:
                     _log.info("component recovered: %s", name)
+                if ent["healthy"] != was and self.bus is not None:
+                    from ..node import events as events_mod
+
+                    self.bus.emit(events_mod.ComponentHealth(
+                        component=name, healthy=ent["healthy"],
+                        reason=ent["reason"]))
                 self._component_state[name] = ent["healthy"]
             # probes that unregistered since the last tick must not pin
             # a stale verdict — in the report OR the /metrics series
@@ -438,8 +451,15 @@ class HealthEngine:
                 reason = ";".join([f"slo:{n}" for n in new_breaches]
                                   + [f"stall:{n}" for n in new_stalls])
                 self._shared_dump.touch()
-                self._pending_dump = (reason, t, report)
+                self._pending_dump = (reason, t, report,
+                                      self._recent_events())
             return report
+
+    def _recent_events(self):
+        bus = self.bus
+        if bus is None or not hasattr(bus, "recent"):
+            return []
+        return list(bus.recent)
 
     @staticmethod
     def _burn(marks, window_s: float, now: float) -> float:
@@ -503,6 +523,7 @@ class HealthEngine:
             return None
         path = self.recorder.dump(reason, now=self.time_source(),
                                   health=self._last_report or None,
+                                  events=self._recent_events(),
                                   remediation=self._remediation_doc(),
                                   force=True)
         return str(path) if path is not None else None

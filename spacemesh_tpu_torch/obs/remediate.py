@@ -27,16 +27,12 @@ bundles); this module is the layer that ACTS:
   ``quarantine_tenant``, ``failover_remote``, ``shed_and_alert``) with a
   per-component action budget: a flapping component exhausts its budget
   and ESCALATES to quarantine instead of restart-looping.
-* :class:`RemediationEngine`: executes policy on health verdicts.  Every
-  decision is recorded three ways: a ``remediate.action`` span, the
-  ``remediation_actions_total{component,action,outcome}`` counter, and
-  the bounded action history embedded in flight-bundle manifests.
-
-Left out against the JAX package until the event bus is ported
-(``node/events.py``, ROADMAP [13]): the engine's ``bus=`` subscription
-(``start``/``close``, consuming ``ComponentHealth``/``SloBreach`` events)
-and its ``RemediationAction`` events.  Callers drive the deterministic
-core, :meth:`RemediationEngine.handle_component` / ``handle_slo``.
+* :class:`RemediationEngine`: subscribes to the health engine's
+  event-bus verdicts (``node/events.py``) and executes policy.  Every
+  decision is recorded four ways: a ``remediate.action`` span, the
+  ``remediation_actions_total{component,action,outcome}`` counter, a
+  ``RemediationAction`` bus event, and the bounded action history
+  embedded in flight-bundle manifests.
 """
 
 from __future__ import annotations
@@ -486,17 +482,25 @@ def default_policy() -> list[RecoveryRule]:
 class RemediationEngine:
     """Consume health verdicts, execute policy, record everything.
 
-    The deterministic core is :meth:`handle_component` /
-    :meth:`handle_slo` (and :meth:`note_recovered`), driven with an
-    injected ``now``.
+    Lifecycle: construct -> :meth:`start` (subscribes to the event bus
+    on the running loop) -> :meth:`close`.  The deterministic core is
+    :meth:`handle_component` / :meth:`handle_slo` (and
+    :meth:`note_recovered`), driven with an injected ``now``; the bus
+    subscription is a thin production scheduler around them, like
+    HealthEngine.tick against run.
     """
 
-    def __init__(self, *,
+    def __init__(self, *, bus=None,
                  policy: list[RecoveryRule] | None = None,
+                 hooks: HookRegistry = ACTIONS,
+                 breakers: BreakerRegistry = BREAKERS,
                  history: int = 256,
                  time_source: Callable[[], float] = time.monotonic):
+        self.bus = bus
         self.policy = list(policy) if policy is not None \
             else default_policy()
+        self.hooks = hooks
+        self.breakers = breakers
         self._now = time_source
         self.history: deque[dict] = deque(maxlen=max(int(history), 1))
         # per-component execution record: [(t, action), ...] pruned to
@@ -505,6 +509,55 @@ class RemediationEngine:
         self._last_action: dict[str, float] = {}
         self._quarantined: set[str] = set()
         self._lock = sanitize.lock("remediate.engine")
+        self._sub = None
+        self._task = None
+        self._closed = False
+
+    # -- production scheduling ------------------------------------------
+
+    def start(self) -> None:
+        """Subscribe to ``ComponentHealth``/``SloBreach`` on the running
+        loop (idempotent)."""
+        if self._closed or self.bus is None or self._sub is not None:
+            return
+        import asyncio
+
+        from ..node import events as events_mod
+
+        self._sub = self.bus.subscribe(events_mod.ComponentHealth,
+                                       events_mod.SloBreach, size=256)
+        self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def _run(self) -> None:
+        import asyncio
+
+        from ..node import events as events_mod
+
+        try:
+            while not self._closed:
+                ev = await self._sub.next()
+                if isinstance(ev, events_mod.ComponentHealth):
+                    if ev.healthy:
+                        self.note_recovered(ev.component)
+                    else:
+                        self.handle_component(ev.component, ev.reason)
+                elif isinstance(ev, events_mod.SloBreach):
+                    self.handle_slo(ev.slo, f"{ev.sli}={ev.value} "
+                                            f"burn={ev.burn:.3f}")
+        except asyncio.CancelledError:
+            pass
+
+    def close(self) -> None:
+        self._closed = True
+        if self._task is not None:
+            try:
+                self._task.cancel()
+            except RuntimeError:  # loop already torn down
+                pass
+            self._task = None
+        if self._sub is not None:
+            self._sub.close()
+            self._sub = None
 
     # -- the deterministic core -----------------------------------------
 
@@ -564,7 +617,7 @@ class RemediationEngine:
                 self._last_action[component] = t
                 escalate = None
         if escalate == QUARANTINE_COMPONENT:
-            br = BREAKERS.get(component)
+            br = self.breakers.get(component)
             if br is not None:
                 br.quarantine()
             _log.warning(
@@ -581,7 +634,7 @@ class RemediationEngine:
     def _run_hook(self, component: str, action: str,
                   forced_outcome: str | None, reason: str,
                   t: float) -> dict:
-        hook = ACTIONS.get(component, action)
+        hook = self.hooks.get(component, action)
         with tracing.span("remediate.action",
                           {"component": component, "action": action}
                           if tracing.is_enabled() else None):
@@ -603,8 +656,8 @@ class RemediationEngine:
 
     def _record(self, component: str, action: str, outcome: str,
                 reason: str, t: float, *, ran: bool) -> dict:
-        # lock-free: deque.append is atomic, the instruments carry
-        # their own synchronization
+        # lock-free: deque.append is atomic, the instruments and the
+        # bus carry their own synchronization
         rec = {"t": round(t, 6), "component": component, "action": action,
                "outcome": outcome, "reason": reason, "ran": ran}
         self.history.append(rec)
@@ -613,6 +666,12 @@ class RemediationEngine:
         if outcome not in ("rate_limited",):
             _log.info("remediation: %s %s -> %s (%s)", component, action,
                       outcome, reason)
+        if self.bus is not None:
+            from ..node import events as events_mod
+
+            self.bus.emit(events_mod.RemediationAction(
+                component=component, action=action, outcome=outcome,
+                detail=reason))
         return rec
 
     # -- introspection (flight manifests) --------------------------------
@@ -639,8 +698,8 @@ class RemediationEngine:
         with self._lock:
             quarantined = sorted(self._quarantined)
         return {
-            "breakers": BREAKERS.snapshot(),
-            "hooks": [list(k) for k in ACTIONS.names()],
+            "breakers": self.breakers.snapshot(),
+            "hooks": [list(k) for k in self.hooks.names()],
             "quarantined": quarantined,
             "budgets": self.budgets(now),
             "actions": list(self.history),

@@ -18,7 +18,9 @@ substrate (``post_pipeline_labels_total``,
 ``post_prove_window_seconds``), and gossip's and the state database's
 (``pubsub_handler_drops_total``, ``gossip_handler_seconds``; the
 per-role ``sql_<role>_query_seconds`` and ``sql_<role>_queries``, made by
-``storage/db.py``). ``Registry.sample()`` and
+``storage/db.py``), and the node's event bus
+(``events_subscription_overflows_total``, ``events_queue_depth``).
+``Registry.sample()`` and
 scrape-time collectors feed the windowed SLIs (``obs/sli.py``).
 
 Every instrument's series map is declared shared to the lockset
@@ -453,6 +455,16 @@ gossip_handler_seconds = REGISTRY.histogram(
     "gossip_handler_seconds",
     "per-handler gossip validation seconds (label: topic)",
     buckets=(0.0005, 0.002, 0.01, 0.05, 0.25, 1.0, 5.0, float("inf")))
+
+# event bus (node/events.py): the counter fires per dropped event
+# (label=type); the gauge tracks the deepest subscription queue, so a
+# consumer falling behind shows up before it overflows.
+events_overflows = REGISTRY.counter(
+    "events_subscription_overflows_total",
+    "events dropped on full subscription queues (label: type)")
+events_queue_depth = REGISTRY.gauge(
+    "events_queue_depth",
+    "deepest subscription queue, recomputed at scrape time")
 
 # mesh (consensus/mesh.py): one observation per process_layer, read by
 # obs/sli.py's layer_apply SLIs and obs/health.py's layer_apply_latency SLO.

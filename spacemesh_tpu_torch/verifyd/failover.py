@@ -29,9 +29,8 @@ outage — the verifyd-outage drill asserts it), the breaker's
 its replay-stable event digest.
 
 Each remote attempt is a ``failover.remote`` span and each local answer a
-``failover.local`` span. Left out against the JAX package: the event bus
-(``node/events.py``, not ported): ``bus=`` stays in the signature and is
-ignored.
+``failover.local`` span. With ``bus=`` (the node's ``EventBus``,
+``node/events.py``) a breaker that opens emits a ``RemediationAction``.
 """
 
 from __future__ import annotations
@@ -219,6 +218,12 @@ class FailoverVerifier:
             metrics.remediation_actions.inc(
                 component=self.component, action="failover_remote",
                 outcome="ok")
+            if self.bus is not None:
+                from ..node import events as events_mod
+
+                self.bus.emit(events_mod.RemediationAction(
+                    component=self.component, action="failover_remote",
+                    outcome="ok", detail=why))
 
     def _done(self, path: str, lname: str, t0: float, n: int,
               verdicts: list[bool]) -> list[bool]:

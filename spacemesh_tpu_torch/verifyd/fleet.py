@@ -42,8 +42,8 @@ capture into one timeline (``merged_capture``). Each remote attempt is a
 ``trace_parent``, so the replica's ``verifyd.request`` parents to it in
 the merged timeline; the local fallback is ``fleet.local``.
 
-Left out against the JAX package: the event bus (``node/events.py``, not
-ported): ``bus=`` stays in the signatures and is ignored.
+With ``bus=`` (the node's ``EventBus``, ``node/events.py``) a replica
+whose breaker opens emits a ``RemediationAction``.
 """
 
 from __future__ import annotations
@@ -711,6 +711,12 @@ class FleetVerifier:
             metrics.remediation_actions.inc(
                 component=rep.breaker.component,
                 action="failover_replica", outcome="ok")
+            if self.bus is not None:
+                from ..node import events as events_mod
+
+                self.bus.emit(events_mod.RemediationAction(
+                    component=rep.breaker.component,
+                    action="failover_replica", outcome="ok", detail=why))
 
     def _done(self, served_by: str, path: str, lname: str, t0: float,
               n: int, verdicts: list[bool]) -> list[bool]:
@@ -830,19 +836,23 @@ class HttpReplicaEndpoint:
 
 def fleet_from_urls(urls, *, farm, client_id: str = "node",
                     deadline_s: float | None = None,
-                    bus=None) -> FleetVerifier:
+                    seed: int = 0, max_clients: int = 64,
+                    bus=None,
+                    time_source: Callable[[], float] = time.monotonic
+                    ) -> FleetVerifier:
     """Build a FleetVerifier over HTTP replicas (a node wires this
     behind ``SPACEMESH_VERIFYD_URLS``; replica names are r0..rN in URL
     order, so a restarted node reproduces the same ring).  The replicas
     may be either package's verifyd: the wire docs are one format."""
-    router = FleetRouter()
+    router = FleetRouter(seed=seed, time_source=time_source)
     for i, url in enumerate(u.strip() for u in urls):
         if not url:
             continue
         # the router escapes into the FleetVerifier (own_router=True),
         # whose aclose tears every replica down
         router.register_replica(
-            f"r{i}", HttpReplicaEndpoint(url), own_endpoint=True)
+            f"r{i}", HttpReplicaEndpoint(url), own_endpoint=True,
+            max_clients=max_clients)
     return FleetVerifier(router=router, farm=farm, client_id=client_id,
                          deadline_s=deadline_s, own_router=True,
-                         bus=bus)
+                         bus=bus, time_source=time_source)

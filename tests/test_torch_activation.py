@@ -3,9 +3,7 @@
 ``p2p/pubsub.py`` and ``storage/``) against the JAX package's.
 
 At the sizes of ``tests/test_atx_v2.py`` (scrypt N=2, 256 labels per
-unit, k1=64, k2=8, k3=4) on ``device="cpu"``: the JAX test file's cases
-(all but the checkpoint round trip, which waits for ``node/checkpoint.py``)
-on the port; wire ATXs built by each package's ``Builder`` cross a
+unit, k1=64, k2=8, k3=4) on ``device="cpu"``: the JAX test file's cases on the port; wire ATXs built by each package's ``Builder`` cross a
 ``LoopbackHub`` to validating nodes of both packages with equal verdicts,
 stored rows and cache entries; inline ``process`` against the farm's
 ``process_async``; an InvalidPostIndex proof over an index shown against
@@ -207,6 +205,29 @@ def test_process_async_parity_with_inline(world):
     h2, _ = _handler(db)
     expected = [h2.process(e) for e in envelopes]
     assert got == expected == [True, False, False]
+
+
+def test_checkpoint_roundtrips_v2_atxs(world):
+    """Checkpoint snapshot + recover must carry merged ATXs intact
+    (one envelope blob, per-identity rows + ticks restored)."""
+    from spacemesh_tpu_torch.node import checkpoint
+
+    primary, partner, db, atx2 = world
+    handler, _ = _handler(db)
+    handler.process(atx2)
+    snap = checkpoint.generate(db)
+    # the envelope appears ONCE even though two identity rows exist
+    assert sum(1 for b in snap["atxs"]
+               if bytes.fromhex(b) == atx2.to_bytes()) == 1
+
+    fresh = dbmod.open_state(":memory:")
+    checkpoint.recover(fresh, snap)
+    for s in (primary, partner):
+        view = atxstore.by_node_in_epoch(fresh, s.node_id, 1)
+        assert view is not None and view.version == 2
+        assert atxstore.tick_height(fresh, view.id) == \
+            atxstore.tick_height(db, view.id)
+    fresh.close()
 
 
 def test_marriage_condemns_whole_set(world):

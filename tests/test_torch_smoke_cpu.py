@@ -63,6 +63,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_port_import_walk_covers_the_node_seam():
+    rel = {str(p.relative_to(REPO)) for p in _port_files()}
+    for name in ("node/__init__", "node/__main__", "node/app",
+                 "node/events", "node/clock", "node/config",
+                 "node/checkpoint", "node/bootstrap", "node/peersync",
+                 "p2p/server", "p2p/fetch", "p2p/sync", "p2p/rangesync",
+                 "utils/vclock"):
+        assert f"spacemesh_tpu_torch/{name}.py" in rel, name
+
+
 @pytest.mark.parametrize("where", ["checkout", "alone"])
 def test_chip_smoke_fails_without_a_card_or_the_checkout(tmp_path, where):
     script = REPO / "chip_smoke.py"
