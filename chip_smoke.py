@@ -237,10 +237,9 @@ package. Phases, each printed as it runs:
    ``App`` opened on its data directory: the ATX cache and the tortoise
    recovered, ``prepare()`` launches no ROMix, one more epoch publishes
    every identity's next ATX and no node records malfeasance. (c) ``python
-   -m spacemesh_tpu_torch.node`` on the real clock (mainnet's POST width, 1
-   identity, 2^16 labels per unit, 3 s layers), beside (a): exit 0, an
-   ``AtxPublished`` and a layer of epoch 1 applied; ``--device cpu`` exits
-   0 and no ``--device`` exits non-zero with no card visible. (d) A
+   -m spacemesh_tpu_torch.node`` beside (a): ``--device cpu`` exits 0 and
+   no ``--device`` exits non-zero with no card visible (the CLI node on the
+   card is ``[api]``'s node B). (d) A
    reopened on the real clock: a prove over one identity's store held on a
    gate stalls ``post.prove``; ``ComponentHealth`` reaches A's bus, A's
    ``RemediationEngine`` answers with a ``RemediationAction``, and a flight
@@ -251,6 +250,32 @@ package. Phases, each printed as it runs:
    proofs, peak memory beside the ROMix batches' ``lanes_that_fit``, the
    card's idle share over epoch 1 of (a) under the profiler, and the
    kernels' launches;
+10e. [api] the node as operators run it, two nodes over real sockets on
+   the real clock with one genesis, at [node] (c)'s cuts (mainnet's POST
+   width with 2^16 labels a unit, 3 s layers, 0.2 s hare rounds): A, in
+   this process (``App(device="cuda")``, 2 identities, the external gRPC
+   worker), serves the JSON API, the private and public gRPC listeners and
+   the TCP transport; its ``PostSupervisor`` spawns the port's worker on
+   the card, which dials A's ``PostService`` and registers both
+   identities; A's inits run here, its proofs in the worker. B is ``python
+   -m spacemesh_tpu_torch.node --listen --bootnode <A> --api --grpc
+   --device cuda`` smeshing 1 identity in its own process. Fails unless
+   both identities register, every identity of A and B publishes an ATX
+   in epochs 0, 1 and 2, B holds A's ATXs at A's units and tick height
+   (over B's HTTP) and A's farm accepts B's, B's block and state root
+   equal A's in every layer both applied (over B's HTTP and its public
+   gRPC), A's ``/metrics`` counts the labels A initialized and its
+   batches, ``/healthz`` and ``/readyz`` answer 200, ``/v1/events`` and
+   ``AdminService.EventsStream`` carry A's ``AtxPublished``, A's public
+   listener refuses ``AdminService``, every polled request answers, B
+   exits 0 after a layer of epoch 1 applied, both guards hold and
+   ``runtime_fallbacks_total`` does not move. Reports the HTTP and gRPC
+   request latency on A (a client at 20 requests/s) during A's init, the
+   rest of its prepare and the layers, the seam's register -> first
+   proof per identity beside [node]'s in-process proof, the gossip
+   latency from A's ``AtxPublished`` to B's ``AtxEvent`` beside [node]'s
+   validation over the ``LoopbackNet``, A's peak reserved memory and the
+   card's peak in use, and A's process's launches;
 11. [trace] instrumentation and self-healing: (a) init of 2^19 labels at
    the main path's width with tracing off, on, and on with the
    ``torch.profiler`` bridge inside a profiler capture, twice each in the
@@ -289,7 +314,9 @@ package. Phases, each printed as it runs:
    main path's (``tenants_launches``, ``verifyd_launches``,
    ``fleet_launches``, ``atx_launches``: the inits, proves and validation
    of ``[atx]``; ``mesh_launches``: ``[mesh]``'s ATX proves and
-   validation and its flood; ``node_launches``: ``[node]`` (a) and (b)). ``path`` names the path whose count ``launches``
+   validation and its flood; ``node_launches``: ``[node]`` (a) and (b);
+   ``api_launches``: ``[api]``'s A, in this process). ``path`` names the
+   path whose count ``launches``
    is: the main path's, but for k2pow verify, which only the verification
    paths run (``[verifyd]``'s warm run; ``main_launches`` 0), and
    ``none`` for the standalone proving hash and the k2pow mask search,
@@ -5070,9 +5097,9 @@ NODE_LPU = 1 << 18        # labels per unit, mainnet's 2^32 cut: 4 units,
 NODE_UNITS = 4            # mainnet's min_num_units and PostConfig default
 NODE_EPOCHS = 3           # (a) runs epochs 0-2, (b) one more
 NODE_STALL_S = 2.0        # (d): the prove watchdog's deadline
-NODE_CLI_LPU = 1 << 16    # (c): the CLI node's labels per unit
-NODE_CLI_LAYER_S = 3.0    # (c): the CLI node's real-clock layers
-NODE_CLI_BATCH = 1 << 12  # (c): its init batch (4 GiB of V at N=8192)
+NODE_CLI_LPU = 1 << 16    # [api]: the real-clock nodes' labels per unit
+NODE_CLI_LAYER_S = 3.0    # [api]: their layers
+NODE_CLI_BATCH = 1 << 12  # [api]: their init batch (4 GiB of V at N=8192)
 NODE_SEED = b"chip-smoke-node"
 
 
@@ -5464,26 +5491,11 @@ def node_health(d: str, device: str, cfg) -> dict:
     return out
 
 
-def node_cli_start(d: str, device: str, lpe: int) -> list:
-    """(c) ``python -m spacemesh_tpu_torch.node`` in three subprocesses,
-    started together: the standalone node on the card at mainnet's POST
-    width (1 identity, labels per unit cut further) through two epochs on
-    the real clock (its applied frontier trails its clock by 2-3 layers,
-    so ``LPE + 2`` layers end before a block of epoch 1 applies), and the
-    device
-    check: ``--device cpu`` runs and ``--device`` absent fails with no
-    card visible."""
-    post = node_post(device)
-    if device == "cuda":
-        post["labels_per_unit"] = NODE_CLI_LPU
-    conf = os.path.join(d, "cli.json")
-    with open(conf, "w") as f:
-        json.dump({"layer_duration": NODE_CLI_LAYER_S, "post": post,
-                   "smeshing": {"start": True, "num_units": NODE_UNITS
-                                if device == "cuda" else 1,
-                                "init_batch": NODE_CLI_BATCH},
-                   "hare": {"round_duration": 0.2, "preround_delay": 0.5},
-                   "beacon": {"proposal_duration": 0.2}}, f)
+def node_cli_start(d: str) -> list:
+    """(c) ``python -m spacemesh_tpu_torch.node`` in two subprocesses,
+    started together, the device check: ``--device cpu`` runs and
+    ``--device`` absent fails with no card visible. (The CLI node on the
+    card is ``[api]``'s node B.)"""
     tiny = os.path.join(d, "cli-cpu.json")
     with open(tiny, "w") as f:
         json.dump({"layer_duration": 1.0, "post": node_post("cpu"),
@@ -5492,10 +5504,7 @@ def node_cli_start(d: str, device: str, lpe: int) -> list:
     node = [sys.executable, "-m", "spacemesh_tpu_torch.node", "--preset",
             "standalone", "--genesis-now"]
     no_card = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    runs = [("card", node + ["--config", conf, "--data-dir",
-                             os.path.join(d, "cli"), "--until-layer",
-                             str(2 * lpe), "--device", device], None),
-            ("cpu", node + ["--config", tiny, "--data-dir",
+    runs = [("cpu", node + ["--config", tiny, "--data-dir",
                             os.path.join(d, "cli-cpu"), "--until-layer",
                             "1", "--device", "cpu"], no_card),
             ("absent", node + ["--config", tiny, "--data-dir",
@@ -5519,7 +5528,7 @@ def node_cli_start(d: str, device: str, lpe: int) -> list:
     return procs
 
 
-def node_cli_finish(procs: list, lpe: int) -> dict:
+def node_cli_finish(procs: list) -> dict:
     out = {}
     try:
         for run in procs:
@@ -5536,23 +5545,12 @@ def node_cli_finish(procs: list, lpe: int) -> dict:
             if run["proc"].poll() is None:
                 run["proc"].kill()
                 run["proc"].wait()
-    card = out["card"]
-    require(card["rc"] == 0, f"[node] (c) the CLI node exited 0 "
-            f"({card['rc']}: {card['err']})")
-    kinds = [e["event"] for e in card["events"]]
-    applied = [e["layer"] for e in card["events"]
-               if e["event"] == "LayerUpdate" and e["status"] == "applied"]
-    require("AtxPublished" in kinds and applied and max(applied) >= lpe,
-            f"[node] (c) the CLI node published an ATX and applied a layer "
-            f"after epoch 0 ({kinds.count('AtxPublished')} ATXs, applied "
-            f"{sorted(set(applied))})")
     require(out["cpu"]["rc"] == 0, f"[node] (c) --device cpu ran with no "
             f"card visible ({out['cpu']['rc']}: {out['cpu']['err']})")
     require(out["absent"]["rc"] != 0 and "cuda" in out["absent"]["err"],
             f"[node] (c) no --device and no card visible exits non-zero "
             f"with the device error ({out['absent']['rc']}: "
             f"{out['absent']['err']})")
-    out["applied"] = max(applied)
     return out
 
 
@@ -5586,7 +5584,7 @@ def node_drive(d: str, device: str, procs: list) -> tuple:
     finally:
         watch.close()
         GUARD.stop()
-    cli = node_cli_finish(procs, res["lpe"])
+    cli = node_cli_finish(procs)
     return cli, guard, counts, launches, peak, health, res, watch
 
 
@@ -5608,8 +5606,7 @@ def phase_node(ctx: dict, device: str = "cuda") -> None:
     fallbacks0 = runtime_fallbacks()
     gossip0 = metrics.gossip_handler_seconds.sample()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-node-") as d:
-        procs = node_cli_start(d, device, node_config(
-            d, "a", True, 0.0, device).layers_per_epoch)
+        procs = node_cli_start(d)
         try:
             cli, guard, counts, launches, peak, health, res, watch = \
                 node_drive(d, device, procs)
@@ -5773,18 +5770,648 @@ def phase_node(ctx: dict, device: str = "cuda") -> None:
         f"{res['restart_romix']} ROMix launches; one more epoch in "
         f"{res['restart_run_s']:.2f} s; {NODE_IDS} epoch-{NODE_EPOCHS} ATXs; "
         f"malfeasance on no node")
-    card = cli["card"]
-    log(f"[node] (c) CLI: {card['s']:.1f} s, rc 0, "
-        f"{[e['event'] for e in card['events']].count('AtxPublished')} "
-        f"AtxPublished, applied to layer {cli['applied']}; --device cpu rc "
+    log(f"[node] (c) CLI (the card's run is [api]'s node B): --device cpu rc "
         f"{cli['cpu']['rc']} in {cli['cpu']['s']:.1f} s; --device absent rc "
         f"{cli['absent']['rc']} ({cli['absent']['err'].strip().splitlines()[-1]})")
     log(f"[node] (d) post.prove stalled behind a gate ({NODE_STALL_S:.0f} s "
         f"deadline): {kinds} on A's bus after {health['seen_s']:.2f} s; "
         f"bundle {os.path.basename(health['bundle'])} validates, events "
         f"{btypes}; stall bundles {health['spool']}")
-    ctx["node"] = dict(launches=launches)
+    ctx["node"] = dict(launches=launches,
+                       proof_p50=statistics.median(watch.proofs),
+                       b_lat=mesh_quant(res["lat"]["b"]))
     log(f"[node] phase {time.perf_counter() - t_phase:.1f} s; {ctx['smi']}")
+
+
+# --- [api]: the node as operators run it: APIs, the gRPC worker, sockets ---
+
+API_IDS = 2               # node A's identities
+API_PREPARE_S = 35.0      # genesis this far ahead: A's inits, its worker's
+                          # boot and registration, B's boot and init
+API_POLL_S = 0.05         # the latency client's tick: 20 requests/s
+API_EPOCHS = (0, 1, 2)    # publish epochs every identity must cover
+
+
+def api_config(d: str, name: str, genesis: float, device: str,
+               worker: bool) -> dict:
+    """A node's config for [api]: [node] (c)'s cuts (mainnet's POST width
+    with 2^16 labels a unit, 3 s layers, 0.2 s hare rounds), one shared
+    genesis (so one genesis id), every listener on an ephemeral port."""
+    post = node_post(device)
+    if device == "cuda":
+        post["labels_per_unit"] = NODE_CLI_LPU
+    smeshing = {"start": True, "num_units": NODE_UNITS
+                if device == "cuda" else 1,
+                "init_batch": NODE_CLI_BATCH if device == "cuda" else 128,
+                "num_identities": API_IDS if worker else 1}
+    if worker:
+        smeshing.update(external_worker=True, worker_grpc=True)
+    return {"data_dir": os.path.join(d, name),
+            "layer_duration": NODE_CLI_LAYER_S, "genesis": {"time": genesis},
+            "post": post, "smeshing": smeshing,
+            "hare": {"round_duration": 0.2, "preround_delay": 0.5},
+            "beacon": {"proposal_duration": 0.2},
+            "api": {"private_listener": "127.0.0.1:0",
+                    "public_listener": "127.0.0.1:0",
+                    "post_listener": "127.0.0.1:0"},
+            "p2p": {"listen": "127.0.0.1:0"}}
+
+
+def api_metric(text: str, name: str) -> float:
+    """The sum of ``name``'s series in a ``/metrics`` body."""
+    from spacemesh_tpu_torch.obs.federate import parse_exposition
+
+    return sum(v for n, _, v in parse_exposition(text) if n == name)
+
+
+def http_get(url: str, timeout: float = 10.0) -> tuple:
+    """(status, body) of one GET, as an operator's tool makes it."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def grpc_unary(port: int, method: str, req, resp_cls):
+    """One unary gRPC call on 127.0.0.1:``port``: the answer, or the
+    status code's name when the server refuses."""
+    import grpc
+
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+        call = ch.unary_unary(f"/{method}",
+                              request_serializer=type(req).SerializeToString,
+                              response_deserializer=resp_cls.FromString)
+        try:
+            return call(req, timeout=30)
+        except grpc.RpcError as e:
+            return e.code().name
+
+
+class ApiClient:
+    """What an operator's tools do to node A while it runs, from threads
+    of their own: a poller at ``API_POLL_S`` cycling ``/v1/node/status``,
+    ``/metrics`` and ``NodeService.Status`` (each request timed and tagged
+    with A's stage), the ``/v1/events`` long-poll and the private
+    listener's ``AdminService.EventsStream`` from before A prepares, B's
+    ``/v1/events`` long-poll once B serves, and the card's memory in use
+    (``torch.cuda.mem_get_info``, every process on it) at each tick."""
+
+    def __init__(self, http_port: int, grpc_port: int, device: str):
+        import threading
+
+        self.base = f"http://127.0.0.1:{http_port}"
+        self.grpc_port = grpc_port
+        self.device = device
+        self.stage = "boot"
+        self.lat: dict = collections.defaultdict(list)
+        self.errors: list = []
+        self.http_events: list = []
+        self.grpc_events: list = []
+        self.b_events: list = []
+        self.used_peak = 0
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=f, daemon=True) for f in (
+            self._poll, self._http_events, self._grpc_events)]
+        self._grpc_call = None
+        for t in self._threads:
+            t.start()
+
+    def _poll(self) -> None:
+        import grpc
+        import torch
+
+        from spacemesh_tpu_torch.api.gen import core_pb2 as cpb
+
+        ch = grpc.insecure_channel(f"127.0.0.1:{self.grpc_port}")
+        status = ch.unary_unary(
+            "/spacemesh.v1.NodeService/Status",
+            request_serializer=cpb.StatusRequest.SerializeToString,
+            response_deserializer=cpb.StatusResponse.FromString)
+        kinds = ("status", "metrics", "grpc_status")
+        i = 0
+        try:
+            while not self._stop.is_set():
+                t_next = time.perf_counter() + API_POLL_S
+                kind = kinds[i % 3]
+                i += 1
+                stage = self.stage
+                t0 = time.perf_counter()
+                try:
+                    if kind == "grpc_status":
+                        status(cpb.StatusRequest(), timeout=10)
+                        code = 200
+                    else:
+                        code, _ = http_get(self.base + (
+                            "/v1/node/status" if kind == "status"
+                            else "/metrics"))
+                    if code != 200:
+                        self.errors.append((kind, code))
+                except Exception as e:  # noqa: BLE001 — reported, gated
+                    self.errors.append((kind, repr(e)))
+                self.lat[(stage, kind)].append(time.perf_counter() - t0)
+                if self.device == "cuda":
+                    free, total = torch.cuda.mem_get_info()
+                    self.used_peak = max(self.used_peak, total - free)
+                time.sleep(max(t_next - time.perf_counter(), 0.0))
+        finally:
+            ch.close()
+
+    def _long_poll(self, base: str, out: list) -> None:
+        since = 0
+        while not self._stop.is_set():
+            try:
+                code, body = http_get(
+                    f"{base}/v1/events?timeout=1&since={since}", 15)
+            except Exception:  # noqa: BLE001 — the node may be closing
+                time.sleep(0.1)
+                continue
+            if code != 200:
+                time.sleep(0.1)
+                continue
+            doc = json.loads(body)
+            now = time.time()
+            out.extend((now, e) for e in doc["events"])
+            since = doc["next_since"]
+
+    def _http_events(self) -> None:
+        self._long_poll(self.base, self.http_events)
+
+    def _grpc_events(self) -> None:
+        import grpc
+
+        from spacemesh_tpu_torch.api.gen import core_pb2 as cpb
+
+        ch = grpc.insecure_channel(f"127.0.0.1:{self.grpc_port}")
+        stream = ch.unary_stream(
+            "/spacemesh.v1.AdminService/EventsStream",
+            request_serializer=cpb.EventStreamRequest.SerializeToString,
+            response_deserializer=cpb.Event.FromString)
+        self._grpc_call = stream(cpb.EventStreamRequest())
+        try:
+            for ev in self._grpc_call:
+                self.grpc_events.append((time.time(), ev.kind,
+                                         json.loads(ev.detail)))
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.CANCELLED:
+                self.errors.append(("events_stream", repr(e)))
+        finally:
+            ch.close()
+
+    def watch_b(self, http_port: int) -> None:
+        import threading
+
+        t = threading.Thread(target=self._long_poll, args=(
+            f"http://127.0.0.1:{http_port}", self.b_events), daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._grpc_call is not None:
+            self._grpc_call.cancel()
+        for t in self._threads:
+            t.join(30)
+
+
+class ApiSeam:
+    """The PostService seam's times, by patching the port's
+    ``GrpcPostClient`` for the phase: each identity's registration (its
+    client is made when its Register stream opens) and each proof through
+    the stream."""
+
+    def __init__(self):
+        from spacemesh_tpu_torch.api import rpc
+
+        self.registered: dict = {}
+        self.proofs: list = []   # (node_id, t_end, seconds)
+        cls = rpc.GrpcPostClient
+        self._undo = [(cls, "__init__", cls.__init__),
+                      (cls, "proof", cls.proof)]
+        real_init, real_proof = cls.__init__, cls.proof
+        seam = self
+
+        def init(client, service, node_id, *a, **kw):
+            seam.registered.setdefault(node_id, time.perf_counter())
+            real_init(client, service, node_id, *a, **kw)
+
+        def proof(client, challenge):
+            t0 = time.perf_counter()
+            out = real_proof(client, challenge)
+            t1 = time.perf_counter()
+            seam.proofs.append((client.node_id, t1, t1 - t0))
+            return out
+
+        cls.__init__, cls.proof = init, proof
+
+    def close(self) -> None:
+        for owner, name, real in self._undo:
+            setattr(owner, name, real)
+
+
+def api_b_start(d: str, conf: dict, a_addr: tuple, until: int,
+                device: str) -> dict:
+    """Node B: ``python -m spacemesh_tpu_torch.node`` with ``--listen``,
+    ``--bootnode`` (A), ``--api`` and ``--grpc``, smeshing one identity
+    on ``device`` in its own process; a reader thread keeps its stdout
+    lines with their arrival times."""
+    import threading
+
+    path = os.path.join(d, "b.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    err = open(os.path.join(d, "b.err"), "w")
+    cmd = [sys.executable, "-u", "-m", "spacemesh_tpu_torch.node",
+           "--preset", "standalone", "--config", path,
+           "--listen", "127.0.0.1:0",
+           "--bootnode", f"{a_addr[0]}:{a_addr[1]}", "--api", "--grpc",
+           "--until-layer", str(until), "--device", device]
+    b = dict(t0=time.perf_counter(), lines=[], err=err,
+             err_path=os.path.join(d, "b.err"))
+    b["proc"] = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=err, text=True)
+
+    def read():
+        for line in b["proc"].stdout:
+            if line.startswith("{"):
+                b["lines"].append((time.time(), json.loads(line)))
+
+    b["reader"] = threading.Thread(target=read, daemon=True)
+    b["reader"].start()
+    return b
+
+
+def api_b_event(b: dict, name: str, timeout: float) -> dict:
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        for _, ev in b["lines"]:
+            if ev["event"] == name:
+                return ev
+        require(b["proc"].poll() is None, f"[api] B is up while waiting "
+                f"for {name} (rc {b['proc'].returncode})")
+        time.sleep(0.05)
+    raise RuntimeError(f"check failed: [api] B printed {name} within "
+                       f"{timeout:.0f} s")
+
+
+def api_read_b(b_http: int, b_grpc: int, top_hint: int) -> dict:
+    """B through its own APIs: every layer's applied block and state root
+    over HTTP (``/v1/mesh/layer``) and over the public gRPC listener
+    (``MeshService.LayersQuery``, ``GlobalStateService.GlobalStateHash``),
+    its debug state and its ATXs' rows."""
+    from spacemesh_tpu_torch.api.gen import core_pb2 as cpb
+
+    base = f"http://127.0.0.1:{b_http}"
+
+    def get(path):
+        code, body = http_get(base + path)
+        return code, (json.loads(body) if code == 200 else None)
+
+    out = {"http": {}, "atxs": {}}
+    out["debug"] = get("/v1/debug/state")[1]
+    top = out["top"] = min(out["debug"]["last_applied"], top_hint)
+    for lyr in range(top + 1):
+        doc = get(f"/v1/mesh/layer/{lyr}")[1]
+        out["http"][lyr] = (doc["applied_block"], doc["state_hash"])
+    for e in API_EPOCHS:
+        for atx in get(f"/v1/mesh/epoch/{e}/atxs")[1]["atxs"]:
+            out["atxs"][atx] = get(f"/v1/atx/{atx}")
+    got = grpc_unary(b_grpc, "spacemesh.v1.MeshService/LayersQuery",
+                     cpb.LayersQueryRequest(start_layer=0, end_layer=top),
+                     cpb.LayersQueryResponse)
+    out["grpc"] = {lay.number: (bytes(lay.hash).hex() or None, lay.status)
+                   for lay in got.layer}
+    r = grpc_unary(b_grpc, "spacemesh.v1.GlobalStateService/GlobalStateHash",
+                   cpb.GlobalStateHashRequest(), cpb.GlobalStateHashResponse)
+    out["root"] = (r.response.layer, bytes(r.response.root_hash).hex())
+    return out
+
+
+def api_drive(d: str, device: str) -> dict:
+    """A in this process on the real clock, B in its own: A serves its
+    APIs and the transport, smeshes through the gRPC worker, runs to
+    ``until_a``; then B is read through its APIs while it runs on, A is
+    torn down, and B must exit 0."""
+    import asyncio
+
+    from spacemesh_tpu_torch.api.gen import core_pb2 as cpb
+    from spacemesh_tpu_torch.node import events as events_mod
+    from spacemesh_tpu_torch.node.app import App
+    from spacemesh_tpu_torch.node.config import load
+    from spacemesh_tpu_torch.storage import atxs as atxstore
+    from spacemesh_tpu_torch.storage import layers as layerstore
+
+    genesis = float(int(time.time() + API_PREPARE_S))
+    cfg = load("standalone", overrides=api_config(d, "a", genesis, device,
+                                                  worker=True))
+    lpe = cfg.layers_per_epoch
+    until_a = 2 * lpe + 2       # epoch 2's ATXs are out by then
+    until_b = until_a + 2       # B runs on while A's run is read
+    res: dict = {"lpe": lpe, "until_a": until_a, "genesis": genesis}
+    app = App(cfg, device=device)
+    seam = ApiSeam()
+    client = None
+    b = None
+
+    async def drive():
+        nonlocal client, b
+        sub = app.events.subscribe(events_mod.PostEvent,
+                                   events_mod.AtxPublished, size=256)
+        published = res["published"] = []
+
+        async def watch():
+            while True:
+                ev = await sub.next()
+                if isinstance(ev, events_mod.AtxPublished):
+                    published.append((time.time(), ev))
+                elif ev.kind == "init_start" and client.stage == "boot":
+                    client.stage = "init"
+                elif ev.kind == "init_complete":
+                    res["inits_done"] = res.get("inits_done", 0) + 1
+                    if res["inits_done"] == API_IDS:
+                        client.stage = "prepare"
+
+        watcher = asyncio.ensure_future(watch())
+        res["http"] = await app.start_api()
+        res["grpc"] = await app.start_grpc_api()
+        res["public"] = await app.start_public_grpc_api()
+        res["p2p"] = await app.start_network()
+        base = f"http://127.0.0.1:{res['http']}"
+        res["metrics0"] = (await asyncio.to_thread(
+            http_get, base + "/metrics"))[1].decode()
+        client = ApiClient(res["http"], res["grpc"], device)
+        b = api_b_start(d, api_config(d, "b", genesis, device, worker=False),
+                        res["p2p"], until_b, device)
+        app.start_ops()
+        t0 = time.perf_counter()
+        await app.prepare()
+        res["prepare_s"] = time.perf_counter() - t0
+        res["late_s"] = max(time.time() - genesis, 0.0)
+        b_api = await asyncio.to_thread(api_b_event, b, "ApiStarted", 60)
+        b_grpc = await asyncio.to_thread(api_b_event, b, "GrpcStarted", 5)
+        client.watch_b(b_api["port"])
+        await asyncio.sleep(max(genesis - time.time(), 0))
+        client.stage = "layers"
+        t1 = time.perf_counter()
+        await app.run(until_layer=until_a)
+        res["run_s"] = time.perf_counter() - t1
+        client.stage = "end"
+        res["b_read"] = await asyncio.to_thread(
+            api_read_b, b_api["port"], b_grpc["port"],
+            layerstore.last_applied(app.state))
+        for path in ("/metrics", "/healthz", "/readyz"):
+            code, body = await asyncio.to_thread(http_get, base + path)
+            res[path] = (code, body.decode())
+        res["public_admin"] = await asyncio.to_thread(
+            grpc_unary, res["public"], "spacemesh.v1.AdminService/Recover",
+            cpb.RecoverRequest(uri="/nonexistent"), cpb.RecoverResponse)
+        # A's side of the comparison, in-process
+        res["a_applied"] = layerstore.last_applied(app.state)
+        res["a_layers"] = {
+            lyr: (layerstore.applied_block(app.state, lyr),
+                  layerstore.state_hash(app.state, lyr))
+            for lyr in range(res["a_applied"] + 1)}
+        res["a_atxs"] = {
+            e: {i.hex(): (atxstore.get(app.state, i),
+                          atxstore.tick_height(app.state, i))
+                for i in atxstore.ids_in_epoch(app.state, e)}
+            for e in API_EPOCHS}
+        res["a_weights"] = {
+            atx_id.hex(): info.weight
+            for e in API_EPOCHS for atx_id, info in app.cache.iter_epoch(
+                e + 1)}
+        res["a_nodes"] = {s.node_id.hex() for s in app.signers}
+        res["registered"] = [n.hex() for n in
+                             app.grpc_api.post_service.registered()]
+        watcher.cancel()
+        sub.close()
+
+    async def go():
+        try:
+            await drive()
+        finally:
+            # the clients first (their threads wait on A's loop), then
+            # A's listeners, its worker and its transport
+            if client is not None:
+                await asyncio.to_thread(client.close)
+            await app.stop_network()
+            if getattr(app, "api", None) is not None:
+                await app.api.stop()
+            if app.post_supervisor is not None:
+                await asyncio.to_thread(app.post_supervisor.stop)
+            await app.stop_grpc_api()
+
+    try:
+        asyncio.run(go())
+    finally:
+        seam.close()
+        app.close()
+    try:
+        b["rc"] = b["proc"].wait(timeout=NODE_CLI_LAYER_S * 2 + 60)
+    finally:
+        if b["proc"].poll() is None:
+            b["proc"].kill()
+            b["proc"].wait()
+        b["reader"].join(10)
+        b["err"].close()
+    b["s"] = time.perf_counter() - b["t0"]
+    with open(b["err_path"]) as f:
+        b["stderr"] = f.read()[-1500:]
+    res["b"] = b
+    res["client"] = client
+    res["seam"] = seam
+    return res
+
+
+def lat_quant(xs: list) -> str:
+    if not xs:
+        return "no samples"
+    return mesh_quant(xs)
+
+
+def phase_api(ctx: dict, device: str = "cuda") -> None:
+    """[api]: two nodes over real sockets, as operators run them. A, in
+    this process, serves the JSON API, the private and public gRPC
+    listeners and the TCP transport, and smeshes 2 identities through the
+    port's gRPC worker (the ``PostSupervisor`` spawns it; it dials A's
+    ``PostService`` and registers both); B is the node CLI with
+    ``--listen --bootnode --api --grpc`` smeshing 1 identity in its own
+    process. Fails unless both identities register, every identity of A
+    and B publishes an ATX in epochs 0, 1 and 2, B holds A's ATXs at A's
+    tick height and units (read over B's HTTP) and A holds B's at a
+    positive weight, B's block and state root equal A's in every layer
+    both applied (over B's HTTP and B's public gRPC), A's ``/metrics``
+    counts the labels A initialized, ``/healthz`` and ``/readyz`` answer
+    200, both of A's event streams carry A's ``AtxPublished``, A's public
+    listener refuses ``AdminService``, B exits 0, both guards hold and
+    ``runtime_fallbacks_total`` does not move."""
+    import torch
+
+    from spacemesh_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fallbacks0 = runtime_fallbacks()
+    native.zero_counts()
+    zero_launches()
+    GUARD.start()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-api-") as d:
+            res = api_drive(d, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        guard = GUARD.stop()
+        counts = native.counts()
+        launches = launch_counts()
+        peak = (torch.cuda.max_memory_reserved()
+                if device == "cuda" else 0)
+    finally:
+        GUARD.stop()
+    require_no_twins(guard, "api")
+    require_native(counts, "api (A's init, ATXs, validation, hare, "
+                   "beacon, the mesh, sync)")
+    b, client, seam = res["b"], res["client"], res["seam"]
+    lpe = res["lpe"]
+    # B ran as [node] (c)'s card CLI did, and exited 0
+    require(b["rc"] == 0, f"[api] B exited 0 ({b['rc']}: {b['stderr']})")
+    b_events = [ev for _, ev in b["lines"]]
+    b_pub = [ev for ev in b_events if ev["event"] == "AtxPublished"]
+    b_applied = [ev["layer"] for ev in b_events
+                 if ev["event"] == "LayerUpdate"
+                 and ev["status"] == "applied"]
+    require(b_applied and max(b_applied) >= lpe, f"[api] B applied a layer "
+            f"after epoch 0 ({sorted(set(b_applied))})")
+    # the seam
+    require(sorted(res["registered"]) == sorted(res["a_nodes"])
+            and len(seam.registered) == API_IDS, f"[api] both of A's "
+            f"identities registered over gRPC ({res['registered']})")
+    # ATXs: every identity of A and B, each publish epoch
+    a_pub = {(ev.node_id.hex(), ev.epoch) for _, ev in res["published"]}
+    want = {(n, e) for n in res["a_nodes"] for e in API_EPOCHS}
+    require(want <= a_pub, f"[api] every identity of A published an ATX "
+            f"in epochs {API_EPOCHS} ({sorted(a_pub)})")
+    b_node = {ev["node_id"] for ev in b_pub}
+    require(len(b_node) == 1 and {ev["epoch"] for ev in b_pub}
+            >= set(API_EPOCHS), f"[api] B's identity published an ATX in "
+            f"epochs {API_EPOCHS} ({[(e['node_id'][:8], e['epoch']) for e in b_pub]})")
+    # B holds A's ATXs at A's height and units, over B's HTTP
+    a_ids = {aid: row for e in API_EPOCHS
+             for aid, row in res["a_atxs"][e].items()
+             if row[0].node_id.hex() in res["a_nodes"]}
+    b_atxs = res["b_read"]["atxs"]
+    bad = [aid[:12] for aid, (atx, height) in a_ids.items()
+           if b_atxs.get(aid, (404, None))[0] != 200
+           or b_atxs[aid][1]["num_units"] != atx.num_units
+           or b_atxs[aid][1]["tick_height"] != height]
+    require(a_ids and not bad, f"[api] B holds A's {len(a_ids)} ATXs at "
+            f"A's units and tick height over HTTP (not: {bad})")
+    # A holds B's at a positive weight (through A's farm)
+    b_ids = {ev["atx_id"] for ev in b_pub}
+    bad = [i[:12] for i in b_ids
+           if not any(i in res["a_atxs"][e] for e in API_EPOCHS)
+           or not res["a_weights"].get(i)]
+    require(not bad, f"[api] A's farm accepted B's {len(b_ids)} ATXs "
+            f"(not: {bad})")
+    # every layer both applied: B over HTTP and gRPC == A in-process
+    rb = res["b_read"]
+    top = rb["top"]
+    require(top >= lpe, f"[api] both nodes applied past epoch 0 "
+            f"(A {res['a_applied']}, B {rb['debug']['last_applied']})")
+    diff = []
+    for lyr in range(top + 1):
+        blk, root = res["a_layers"][lyr]
+        a_pair = (blk.hex() if blk else None, root.hex() if root else None)
+        if rb["http"][lyr] != a_pair or rb["grpc"].get(lyr, (None,))[0] \
+                != a_pair[1]:
+            diff.append(lyr)
+    require(not diff, f"[api] B's block and state root over HTTP and gRPC "
+            f"equal A's in every layer to {top} (differ at {diff})")
+    root_layer, root = rb["root"]
+    a_root = res["a_layers"].get(root_layer, (None, None))[1]
+    require(root_layer not in res["a_layers"]
+            or (a_root is not None and a_root.hex() == root),
+            f"[api] B's GlobalStateHash at layer {root_layer} is A's")
+    # A's metrics and health
+    metrics1 = res["/metrics"][1]
+    labels = (api_metric(metrics1, "post_pipeline_labels_total")
+              - api_metric(res["metrics0"], "post_pipeline_labels_total"))
+    a_labels = API_IDS * (NODE_UNITS if device == "cuda" else 1) * (
+        NODE_CLI_LPU if device == "cuda" else 256)
+    batches = (api_metric(metrics1, "post_pipeline_batches_dispatched_total")
+               - api_metric(res["metrics0"],
+                            "post_pipeline_batches_dispatched_total"))
+    require(labels == a_labels and batches > 0, f"[api] A's /metrics "
+            f"counted the {a_labels} labels A initialized ({labels}) in "
+            f"{batches} batches")
+    require(res["/healthz"][0] == 200 and res["/readyz"][0] == 200,
+            f"[api] /healthz and /readyz answered 200 "
+            f"({res['/healthz'][0]}, {res['/readyz']})")
+    # the event streams
+    ours = {(n, e) for n, e in want}
+    http_pub = {(e["node_id"], e["epoch"]) for _, e in client.http_events
+                if e["type"] == "AtxPublished"}
+    grpc_pub = {(e["node_id"], e["epoch"]) for _, k, e in client.grpc_events
+                if k == "AtxPublished"}
+    require(ours <= http_pub and ours <= grpc_pub, f"[api] /v1/events and "
+            f"AdminService.EventsStream carried A's AtxPublished "
+            f"({len(http_pub & ours)}, {len(grpc_pub & ours)} of "
+            f"{len(ours)})")
+    require(res["public_admin"] == "UNIMPLEMENTED", f"[api] A's public "
+            f"listener refused AdminService ({res['public_admin']})")
+    require(not client.errors, f"[api] every polled request answered "
+            f"({client.errors[:5]})")
+    require(runtime_fallbacks() == fallbacks0, "[api] "
+            "runtime_fallbacks_total did not move")
+    if device == "cuda":
+        for k in ("romix", "pbkdf2_expand", "pbkdf2_finish",
+                  "pbkdf2_finish_hash"):
+            require(launches[k] > 0, f"[api] A's process launched {k} "
+                    f"({json.dumps(launches)})")
+    # the report
+    for stage in ("init", "prepare", "layers"):
+        log(f"[api] request latency on A while {stage}: " + "; ".join(
+            f"{kind} {lat_quant(client.lat[(stage, kind)])}"
+            for kind in ("status", "metrics", "grpc_status")))
+    first = {}
+    for node, t_end, secs in seam.proofs:
+        first.setdefault(node, t_end - seam.registered[node])
+    log(f"[api] the seam: register -> first proof "
+        f"{', '.join(f'{s:.2f} s' for s in first.values())} per identity; "
+        f"{len(seam.proofs)} proofs through the Register stream, "
+        f"{quantiles([s for _, _, s in seam.proofs])} each (GenProof polled "
+        f"every {max(NODE_CLI_LAYER_S / 20, 0.1):.2f} s); [node]'s "
+        f"in-process proof p50 {ctx.get('node', {}).get('proof_p50', 0):.3f} s")
+    pub_t = {ev.atx_id.hex(): t for t, ev in res["published"]}
+    seen: dict = {}   # B's first AtxEvent of each of A's ATXs
+    for t, e in client.b_events:
+        if e["type"] == "AtxEvent" and e["atx_id"] in pub_t:
+            seen.setdefault(e["atx_id"], t)
+    gossip = sorted(t - pub_t[i] for i, t in seen.items()
+                    if t >= pub_t[i])
+    log(f"[api] gossip over TCP, A's AtxPublished -> B's AtxEvent on B's "
+        f"/v1/events: {lat_quant(gossip)}; [node]'s B validation over the "
+        f"LoopbackNet {ctx.get('node', {}).get('b_lat', 'not measured')}")
+    used = (f"{client.used_peak / 2**30:.2f} GiB in use on the card at its "
+            f"peak (every process, torch.cuda.mem_get_info at each poll)"
+            if device == "cuda" else "not measured")
+    log(f"[api] memory: A's process peak reserved {peak / 2**30:.2f} GiB; "
+        f"{used}; B's and the worker's own peaks not measured apart")
+    log(f"[api] A: prepare {res['prepare_s']:.2f} s (init of {a_labels} "
+        f"labels, the worker's boot and registration, the epoch-0 ATXs; "
+        f"{res['late_s']:.2f} s past genesis), {res['until_a'] + 1} layers "
+        f"in {res['run_s']:.2f} s; B: "
+        f"{b['s']:.1f} s, rc {b['rc']}, {len(b_pub)} AtxPublished, applied "
+        f"to layer {max(b_applied)}; both applied to {top} and agree")
+    log(f"[api] launches (A's process) {json.dumps(launches)}")
+    ctx["api"] = dict(launches=launches)
+    log(f"[api] phase {time.perf_counter() - t_phase:.1f} s; {ctx['smi']}")
+
 
 
 # --- [trace]: instrumentation and self-healing on the card -----------------
@@ -6959,6 +7586,7 @@ def main() -> int:
     phase_mesh(ctx)
     ctx["atx"]["tmp"].cleanup()
     phase_node(ctx)
+    phase_api(ctx)
     phase_trace(ctx)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
@@ -6993,6 +7621,7 @@ def main() -> int:
         extra[key]["atx_launches"] = ctx["atx"]["launches"][key]
         extra[key]["mesh_launches"] = ctx["mesh"]["launches"][key]
         extra[key]["node_launches"] = ctx["node"]["launches"][key]
+        extra[key]["api_launches"] = ctx["api"]["launches"][key]
         twins = ctx["verifyd"]["twins"]
         if all(key in errs for errs in twins.values()):
             extra[key]["verifyd_max_abs_err"] = {

@@ -5,8 +5,11 @@ The package runs label init, proving and verification on one NVIDIA H100
 PoST worker, the multi-tenant scheduler, verifyd and its fleet, ATX
 validation (the codec, the state database, gossip, the activation
 handlers), the host-side consensus protocols (eligibility, hare,
-beacon, the external poet), and the mesh and its state (the VM and its
-mempool, the tortoise, blocks and certificates, the miner). It imports
+beacon, the external poet), the mesh and its state (the VM and its
+mempool, the tortoise, blocks and certificates, the miner), and the node
+as operators run it (``node/``: the composition root and its CLI, the
+JSON and gRPC APIs of ``api/``, the TCP and QUIC transports with Noise of
+``p2p/``). It imports
 ``torch`` and never JAX, and
 nothing of the JAX package: what it needs from there is copied here. The
 card's work runs in CUDA C++ kernels under ``csrc/`` (ROMix, PBKDF2, the

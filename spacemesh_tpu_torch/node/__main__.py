@@ -3,13 +3,17 @@ cmd/node + node.go:142 GetCommand).
 
   python -m spacemesh_tpu_torch.node --preset standalone [--data-dir D]
       [--config FILE.json] [--until-layer N] [--genesis-now]
+      [--api] [--grpc] [--listen HOST:PORT] [--bootnode HOST:PORT ...]
       [--device cuda|cpu]
 
 The JAX CLI's flags plus ``--device`` (default ``cuda``). Without a card
 and without ``--device cpu`` it exits 2 with the device error. ``--api``
-and ``--grpc`` wait for ``api/*`` (ROADMAP item 5), ``--listen`` and
-``--bootnode`` for the transport (item 6): each exits 2 with the
-``NotImplementedError``'s message.
+serves the JSON API on ``api.private_listener``, ``--grpc`` the public
+gRPC listener on ``api.public_listener``, ``--listen`` opens the TCP (or,
+with ``p2p.transport`` "quic", QUIC-lite) transport and dials each
+``--bootnode``; each prints its bound port as one JSON line
+(``ApiStarted``, ``GrpcStarted``, ``P2PStarted``) before the node
+prepares.
 """
 
 from __future__ import annotations
@@ -83,13 +87,23 @@ def main(argv=None) -> int:
                       flush=True)
 
         reporter = asyncio.ensure_future(report())
+        api_started = False
+        net_started = False
         try:
             if a.api:
-                await app.start_api()
+                port = await app.start_api()
+                api_started = True
+                print(json.dumps({"event": "ApiStarted", "port": port}),
+                      flush=True)
             if a.grpc:
-                await app.start_public_grpc_api()
+                port = await app.start_public_grpc_api()
+                print(json.dumps({"event": "GrpcStarted", "port": port}),
+                      flush=True)
             if a.listen or cfg.p2p.bootnodes:
-                await app.start_network()
+                addr = await app.start_network()
+                net_started = True
+                print(json.dumps({"event": "P2PStarted", "host": addr[0],
+                                  "port": addr[1]}), flush=True)
             app.start_ops()
             await app.prepare()
             if a.genesis_now:
@@ -102,7 +116,11 @@ def main(argv=None) -> int:
             await app.run(until_layer=a.until_layer)
         finally:
             reporter.cancel()
-            await app.stop_network()
+            if net_started:
+                await app.stop_network()
+            if api_started:
+                await app.api.stop()  # stop accepting before the DB closes
+            await app.stop_grpc_api()  # may have started via worker_grpc
             app.close()
 
     profiler = None
@@ -113,9 +131,6 @@ def main(argv=None) -> int:
         profiler.enable()
     try:
         asyncio.run(go())
-    except NotImplementedError as exc:
-        print(f"error: {exc}", file=sys.stderr)
-        return 2
     except KeyboardInterrupt:
         print("interrupted", file=sys.stderr)
         return 130

@@ -11,11 +11,14 @@ that touches the card: the verification farm, POST init, the identities'
 (called ``(atx, index_pos, device)``) and the JSON-RPC worker. Nothing on
 the node's path falls back to the host.
 
-Waiting for later work, and raising ``NotImplementedError`` until then:
-``start_network`` (the TCP/QUIC transport; ``connect_network`` over a
-``LoopbackNet`` is here), ``start_api``, ``start_grpc_api`` and
-``start_public_grpc_api``, and the gRPC-worker branch of
-``start_smeshing`` (``smeshing.worker_grpc``), which needs the gRPC API.
+The outward seams are the JAX node's: ``start_network`` opens the TCP or
+QUIC-lite transport (``p2p/transport.py``, ``p2p/quic.py``) on the node's
+injected clock (``connect_network`` joins a ``LoopbackNet`` instead),
+``start_api`` the JSON API (``api/http.py``), ``start_grpc_api`` and
+``start_public_grpc_api`` the private and public gRPC listeners
+(``api/rpc.py``, ``api/rpc_v2.py``); with ``smeshing.worker_grpc`` the
+node hosts ``spacemesh.v1.PostService`` and the worker, spawned on the
+node's device, dials in and registers each identity.
 
 Layer cadence (one asyncio task):
   layer tick
@@ -175,7 +178,7 @@ class App:
         # node-wide health & SLO engine (obs/health.py): windowed SLIs
         # over the metrics registry, stall watchdogs the pipelines and
         # the farm register on obs.health.HEALTH, flight bundles spooled
-        # under the data dir (/healthz + /readyz wait for api/http.py)
+        # under the data dir; served as /healthz + /readyz (api/http.py)
         from ..obs.health import HealthEngine
 
         # with an injected time source the engine's windows/burn math
@@ -911,14 +914,97 @@ class App:
             rangesync_sets=set_for)
 
     async def start_network(self) -> tuple[str, int]:
-        """Open the real transport (TCP, or QUIC-lite when
-        cfg.p2p.transport == "quic") on cfg.p2p.listen. Waits for the
-        port of ``p2p/{transport,quic}.py`` (ROADMAP §A item 6); until
-        then a node joins peers through :meth:`connect_network` over a
-        ``LoopbackNet``."""
-        raise NotImplementedError(
-            "start_network waits for p2p/transport.py and p2p/quic.py "
-            "(ROADMAP item 6); join a LoopbackNet with connect_network")
+        """Open the real transport (TCP by default; QUIC-lite when
+        cfg.p2p.transport == "quic" — reference p2p/host.go:166
+        EnableQUICTransport) on cfg.p2p.listen, bootstrap-dial
+        cfg.p2p.bootnodes, and run the syncer in the background.
+        Returns the bound (host, port)."""
+        if self.cfg.p2p.transport == "quic":
+            from ..p2p.quic import QuicHost as Host
+        else:
+            from ..p2p.transport import Host
+
+        cfg = self.cfg.p2p
+        self.host = Host(
+            signer=self.signer,
+            genesis_id=self.cfg.genesis.genesis_id,
+            listen=cfg.listen or "127.0.0.1:0",
+            bootstrap=cfg.bootnodes,
+            min_peers=cfg.min_peers, max_peers=cfg.max_peers,
+            # ban windows / dial pacing / gossip heartbeats follow the
+            # node clock, so sim/chaos timeskew reaches the transport
+            time_source=self.time_source)
+        addr = await self.host.start()
+        self.host.join_pubsub(self.pubsub)
+        self.connect_network(self.host)
+        self._tasks.append(asyncio.ensure_future(self.syncer.run()))
+        from .peersync import PeerSync
+        from . import events as _ev
+
+        # wall rides the node's time source: under a virtual clock the
+        # drift rounds measure SIM offsets (and a scripted timeskew
+        # really registers); in production this is wall time + chaos
+        # offset, exactly what peers observe of us
+        self.peersync = PeerSync(
+            self.server, self.fetch, wall=self.time_source,
+            on_drift=lambda off: self.events.emit(
+                _ev.ClockDrift(offset=off)))
+        self._tasks.append(asyncio.ensure_future(self.peersync.run()))
+        self._register_network_probes()
+        return addr
+
+    def _register_network_probes(self) -> None:
+        """Sync + clock-drift liveness on the global health registry
+        (obs/health.py): while catching up, the processed frontier (or
+        the sync state itself) must advance; the clock probe reports the
+        peersync median offset against its tolerance."""
+        from ..obs import health as health_mod
+        from ..storage import layers as layerstore
+
+        sync_wd = health_mod.Watchdog(
+            "sync",
+            progress=lambda: (self.syncer.state.value,
+                              layerstore.processed(self.state)),
+            deadline_s=120.0,
+            active=lambda: (self.syncer is not None
+                            and not self.syncer.is_synced()
+                            and self.clock.genesis_reached()))
+
+        def clock_probe(now: float):
+            ps = getattr(self, "peersync", None)
+            offset = ps.last_offset if ps is not None else None
+            if offset is None:
+                return True, "no quorum yet"
+            tolerance = ps.max_drift
+            if abs(offset) > tolerance:
+                return False, (f"clock drift {offset:.2f}s exceeds "
+                               f"tolerance {tolerance:.2f}s")
+            return True, f"offset={offset:.3f}s"
+
+        # keep the probe objects: unregister must be equality-checked so
+        # tearing down THIS node never evicts another in-process node's
+        # live probes from the shared registry (multi-App test clusters)
+        self._sync_probe = sync_wd.check
+        self._clock_probe = clock_probe
+        health_mod.HEALTH.register("sync", self._sync_probe)
+        health_mod.HEALTH.register("clock", self._clock_probe)
+        # recovery hook beside the sync watchdog (obs/remediate.py): a
+        # stalled-sync verdict kicks one immediate synchronize pass —
+        # the restart a stuck syncer usually needs — instead of waiting
+        # out its background cadence
+        from ..obs import remediate as remediate_mod
+
+        self._sync_restart = self._kick_sync
+        remediate_mod.ACTIONS.register("sync", "restart_component",
+                                       self._sync_restart)
+
+    def _kick_sync(self) -> None:
+        if self.syncer is None:
+            return
+        task = asyncio.ensure_future(self.syncer.synchronize())
+        self._tasks.append(task)
+        task.add_done_callback(
+            lambda t: self._tasks.remove(t) if t in self._tasks else None)
 
     async def stop_network(self) -> None:
         # the failover/fleet verifiers' owned remote clients hold
@@ -929,6 +1015,25 @@ class App:
             await self.failover_verifier.aclose()
         if self.fleet_verifier is not None:
             await self.fleet_verifier.aclose()
+        if getattr(self, "host", None) is not None:
+            from ..obs import health as health_mod
+            from ..obs import remediate as remediate_mod
+
+            if getattr(self, "_sync_probe", None) is not None:
+                health_mod.HEALTH.unregister("sync", self._sync_probe)
+            if getattr(self, "_clock_probe", None) is not None:
+                health_mod.HEALTH.unregister("clock", self._clock_probe)
+            if getattr(self, "_sync_restart", None) is not None:
+                remediate_mod.ACTIONS.unregister(
+                    "sync", "restart_component", self._sync_restart)
+                self._sync_restart = None
+            if self.syncer is not None:
+                self.syncer.stop()
+            if getattr(self, "peersync", None) is not None:
+                self.peersync.stop()
+                self.peersync = None
+            await self.host.stop()
+            self.host = None
 
     def _adopt_full_certificate(self, layer: int, block_id: bytes) -> None:
         """A threshold certificate is the committee's decision for the
@@ -1032,12 +1137,22 @@ class App:
                                                   kind="init_complete"))
         clients = {}
         if cfg.smeshing.external_worker and cfg.smeshing.worker_grpc:
-            # the worker dials the node's PostService over the private
-            # gRPC listener, which waits for api/rpc.py
-            raise NotImplementedError(
-                "smeshing.worker_grpc needs start_grpc_api, which waits "
-                "for api/rpc.py (ROADMAP item 5); use the JSON-RPC "
-                "external worker (worker_grpc false)")
+            # reference topology: node hosts PostService, worker dials in
+            # and Registers each identity (post_service.go:91, supervisor
+            # passes the node address like post_supervisor.go does); the
+            # worker proves on the node's device
+            from ..post.supervisor import PostSupervisor
+
+            port = await self.start_grpc_api()
+            self.post_supervisor = PostSupervisor(
+                post_base, params=self.post_params,
+                node_address=f"127.0.0.1:{port}", device=str(self.device))
+            await asyncio.to_thread(self.post_supervisor.start)
+            svc = self.grpc_api.post_service
+            await svc.wait_registered([s.node_id for s in self.signers],
+                                      timeout=120.0)
+            for s in self.signers:
+                clients[s.node_id] = svc.client(s.node_id)
         elif cfg.smeshing.external_worker:
             from ..post.supervisor import PostSupervisor
             from ..post.remote import RemotePostClient
@@ -1161,26 +1276,57 @@ class App:
             self._tasks.append(asyncio.ensure_future(self.pruner.run()))
 
     async def start_api(self) -> int:
-        """Start the JSON API (reference startAPIServices, node.go:1603).
-        Waits for the port of ``api/http.py`` (ROADMAP §A item 5)."""
-        raise NotImplementedError(
-            "start_api waits for api/http.py (ROADMAP item 5)")
+        """Start the JSON API (reference startAPIServices, node.go:1603)."""
+        from ..api import ApiServer
+
+        self.api = ApiServer(self, listen=self.cfg.api.private_listener)
+        self.health_engine.ensure_running()
+        self.remediation.start()
+        if self.failover_verifier is not None:
+            self.failover_verifier.start()
+        if self.fleet_verifier is not None:
+            self.fleet_verifier.start()
+        return await self.api.start()
 
     async def start_grpc_api(self) -> int:
-        """Start the PRIVATE gRPC listener. Waits for the port of
-        ``api/rpc.py`` (ROADMAP §A item 5)."""
-        raise NotImplementedError(
-            "start_grpc_api waits for api/rpc.py (ROADMAP item 5)")
+        """Start the PRIVATE gRPC listener (loopback post_listener): the
+        full spacemesh.v1 surface incl. the PostService Register seam,
+        Admin, and Smesher (reference api/grpcserver/grpc.go private +
+        post listeners, config.go:31-57)."""
+        from ..api.rpc import GrpcApiServer
+
+        if getattr(self, "grpc_api", None) is None:
+            self.grpc_api = GrpcApiServer(
+                self, listen=self.cfg.api.post_listener,
+                post_query_interval=max(self.cfg.layer_duration / 20, 0.1))
+            self.grpc_port = await self.grpc_api.start()
+        return self.grpc_port
 
     async def start_public_grpc_api(self, listen: str | None = None) -> int:
-        """Start the PUBLIC gRPC listener. Waits for the port of
-        ``api/rpc.py`` and ``api/rpc_v2.py`` (ROADMAP §A item 5)."""
-        raise NotImplementedError(
-            "start_public_grpc_api waits for api/rpc.py and api/rpc_v2.py "
-            "(ROADMAP item 5)")
+        """Start the PUBLIC gRPC listener: query surface only —
+        Node/Mesh/GlobalState/Transaction + all v2alpha1 services. No
+        Admin (Recover wipes state), no Smesher, no PostService seam
+        (reference public-services set, api/grpcserver/config.go:31-40)."""
+        from ..api.rpc import GrpcApiServer
+
+        if getattr(self, "grpc_public_api", None) is None:
+            self.grpc_public_api = GrpcApiServer(
+                self, listen=listen or self.cfg.api.public_listener,
+                public_only=True)
+            self.grpc_public_port = await self.grpc_public_api.start()
+        return self.grpc_public_port
+
+    async def stop_grpc_api(self) -> None:
+        if getattr(self, "grpc_api", None) is not None:
+            await self.grpc_api.stop()
+            self.grpc_api = None
+        if getattr(self, "grpc_public_api", None) is not None:
+            await self.grpc_public_api.stop()
+            self.grpc_public_api = None
 
     async def run(self, until_layer: int | None = None) -> None:
-        """The main layer loop."""
+        """The main layer loop (callers wanting the API call start_api()
+        first, as __main__ --api does)."""
         cfg = self.cfg
         if cfg.smeshing.start and self.atx_builder is None:
             await self.prepare()

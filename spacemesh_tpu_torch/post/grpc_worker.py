@@ -26,8 +26,8 @@ import contextlib
 
 import grpc
 
+from ..api import POST_REGISTER, pack_indices
 from ..api.gen import post_pb2 as ppb
-from ..api.rpc import POST_REGISTER, pack_indices
 from ..utils import metrics
 from .service import PostClient, PostService
 

@@ -37,8 +37,14 @@ hooks that stop the session. The spans are the JAX package's:
 pool), ``init.drain_stall`` and ``init.save_meta``.
 
 Left out against the JAX package: the device mesh, the autotuned kernel
-plan, the ``writer_queue`` option (no caller sets it: the queue depth is
-:data:`DEFAULT_WRITER_QUEUE`), and the ``post_pipeline_*`` metrics.
+plan and the ``writer_queue`` option (no caller sets it: the queue depth
+is :data:`DEFAULT_WRITER_QUEUE`).
+
+The ``post_pipeline_*`` metrics are the JAX package's, recorded at its
+sites: batches dispatched, the in-flight depth, the write-queue depth, the
+writer-backpressure stall, the stage seconds (dispatch/fetch/write/stall),
+the metadata saves and the last session's labels/s. They are host
+counters: no launch and no sync on the card's path.
 """
 
 from __future__ import annotations
@@ -231,6 +237,7 @@ class Initializer:
             words, carry_cell[0], snap = scrypt.scrypt_labels_with_min(
                 cw, u32.from_numpy(lo, dev), u32.from_numpy(hi, dev),
                 carry_cell[0], n=meta.scrypt_n)
+            metrics.post_pipeline_dispatched.inc()
             return start, count, HostCopy(words), HostCopy(snap)
 
         def retire(ticket):
@@ -241,7 +248,8 @@ class Initializer:
         pipe = engine.Pipeline(
             kind="init", tenant=self.tenant, inflight=self.inflight,
             stop=lambda: self._stop, span="init",
-            attrs=lambda item: {"start": item[0], "count": item[1]})
+            attrs=lambda item: {"start": item[0], "count": item[1]},
+            on_inflight=metrics.post_pipeline_inflight.set)
         try:
             pipe.run(batches(), dispatch, retire)
             if pipe.stats.stopped:
@@ -268,16 +276,25 @@ class Initializer:
             # clears the degraded gauge only if this session's writer set
             # it (the gauge is process-global)
             writer.clear_degraded()
+            metrics.post_pipeline_inflight.set(0)
+            metrics.post_pipeline_queue_depth.set(0)
 
         if meta.labels_written >= total:
             self.status = Status.COMPLETE
         elapsed = time.monotonic() - t0
         done = meta.labels_written - written0
+        rate = done / elapsed if elapsed > 0 else 0.0
+        metrics.post_pipeline_labels_per_sec.set(rate)
+        for stage, secs in (("dispatch", stats.dispatch_s),
+                            ("fetch", stats.fetch_s),
+                            ("write", stats.write_s),
+                            ("stall", stats.write_stall_s)):
+            metrics.post_pipeline_stage_seconds.inc(secs, stage=stage)
         return InitResult(
             labels_written=meta.labels_written,
             vrf_nonce=meta.vrf_nonce if meta.vrf_nonce is not None else -1,
             elapsed_s=elapsed,
-            labels_per_s=done / elapsed if elapsed > 0 else 0.0,
+            labels_per_s=rate,
             stats=stats,
         )
 
@@ -295,6 +312,9 @@ class Initializer:
             stall = time.perf_counter() - ts
         stats.fetch_s += ts - tf
         stats.write_stall_s += stall
+        if stall > 0:
+            metrics.post_pipeline_stall_seconds.inc(stall)
+        metrics.post_pipeline_queue_depth.set(writer.queue_depth())
         metrics.post_pipeline_labels.inc(count)
         self._fetched = start + count
         if self.progress:
@@ -353,6 +373,7 @@ class Initializer:
         writer.clear_degraded()
         stats.meta_saves += 1
         stats.save_s += time.perf_counter() - t0
+        metrics.post_pipeline_meta_saves.inc()
         self._last_save_t = time.monotonic()
         # the same frontier the trigger compares against, so a writer
         # backlog cannot re-trip the label trigger on every retire

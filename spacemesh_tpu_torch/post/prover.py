@@ -38,6 +38,12 @@ and the readers' ``prove.read_io``, all carrying the pass's ``window``
 (its base nonce); ``prove.early_exit`` marks where a pass stopped. While
 a window scans, the ``post.prove`` watchdog on ``obs.health.HEALTH``
 requires the batch counter to advance within :data:`STALL_DEADLINE_S`.
+
+The metrics are the JAX package's, at its sites: ``post_proofs_generated``,
+``post_prove_window_seconds`` and the ``post_prove_*`` family (windows,
+batches, early exits, device-to-host bytes, stage seconds
+read/dispatch/retire, the last session's labels/s). Host counters: no
+launch and no sync on the card's path.
 """
 
 from __future__ import annotations
@@ -229,6 +235,7 @@ class Prover:
                 start += count
             for k in range(ng):
                 if len(hits[k]) >= p.k2:
+                    metrics.proofs_generated.inc()
                     return Proof(nonce=group * ng + k,
                                  indices=[int(i) for i in hits[k][:p.k2]],
                                  pow_nonce=pow_nonce, k2=p.k2)
@@ -262,6 +269,7 @@ class Prover:
             ranges = [(s, min(b, total - s)) for s in range(0, total, b)]
             state = list(proving.init_hit_state(nn, cap, dev))
             host_counts = np.zeros(nn, dtype=np.int64)
+            metrics.post_prove_windows.inc()
             stats.windows += 1
             retired_end = [0]
             reader = self.store.start_reader(ranges, self.readers,
@@ -291,6 +299,7 @@ class Prover:
                     start >> 32, n_nonces=nn, max_hits=cap)
                 state[:] = [counts, carry]
                 stats.batches += 1
+                metrics.post_prove_batches.inc()
                 return start + count, HostCopy(bc)
 
             def retire(ticket):
@@ -317,6 +326,7 @@ class Prover:
                 stats.read_io_s += reader.read_seconds
             wsp.__exit__(None, None, None)
         if exited:
+            metrics.post_prove_early_exits.inc()
             stats.early_exited = True
         stats.labels_swept += scanned
         qualified = np.nonzero(host_counts >= p.k2)[0]
@@ -326,6 +336,7 @@ class Prover:
         counts, carry = state
         indices = proving.decode_hits(counts, carry, w, p.k2)
         stats.d2h_bytes += (carry.numel() + counts.numel()) * 4
+        metrics.post_prove_d2h_bytes.inc((carry.numel() + counts.numel()) * 4)
         return nonce_base + w, indices
 
     def _retire(self, item, host_counts, total, stats,
@@ -342,6 +353,7 @@ class Prover:
             vec = bc.get().numpy()
             host_counts += vec
         stats.d2h_bytes += vec.nbytes
+        metrics.post_prove_d2h_bytes.inc(vec.nbytes)
         stats.retire_s += time.perf_counter() - tr
         qualified = host_counts >= p.k2
         if not qualified.any():
@@ -427,6 +439,7 @@ class ProveSession:
         self._base += groups * NONCE_GROUP
         if winner is None:
             return None
+        metrics.proofs_generated.inc()
         self.proof = Proof(nonce=winner, indices=indices,
                            pow_nonce=self.pow_nonce, k2=p.params.k2)
         return self.proof
@@ -437,5 +450,13 @@ class ProveSession:
         self._closed = True
         health_mod.HEALTH.unregister("post.prove", self._wd.check)
         self._span.end()
-        self.stats.elapsed_s = time.monotonic() - self._t0
+        stats = self.stats
+        stats.elapsed_s = time.monotonic() - self._t0
+        if stats.elapsed_s > 0:
+            metrics.post_prove_labels_per_sec.set(
+                stats.labels_swept / stats.elapsed_s)
+        for stage, secs in (("read", stats.read_wait_s),
+                            ("dispatch", stats.dispatch_s),
+                            ("retire", stats.retire_s)):
+            metrics.post_prove_stage_seconds.inc(secs, stage=stage)
         self.prover.store.close()

@@ -99,6 +99,7 @@ class Pipeline:
                   ``f"{span}.dispatch"`` with the kind and tenant; None
                   records none.
     ``attrs``     ``item -> dict`` extra dispatch-span attributes.
+    ``on_inflight`` depth hook (pipeline-specific gauges).
     """
 
     def __init__(self, *, kind: str = "-", tenant: str = "-",
@@ -107,7 +108,8 @@ class Pipeline:
                  fallback: Optional[Callable[[Any, Exception], Any]] = None,
                  breaker=None,
                  span: str | None = None,
-                 attrs: Optional[Callable[[Any], dict]] = None):
+                 attrs: Optional[Callable[[Any], dict]] = None,
+                 on_inflight: Optional[Callable[[int], None]] = None):
         self.kind = kind
         self.tenant = tenant
         self.inflight = max(int(inflight), 1)
@@ -116,6 +118,7 @@ class Pipeline:
         self._breaker = breaker
         self._span = span
         self._attrs = attrs
+        self._on_inflight = on_inflight
         self.stats = PipelineStats()
         self._pending: deque = deque()
         self._last_depth = 0
@@ -130,6 +133,8 @@ class Pipeline:
         total = _inflight_adjust(self.kind, n - self._last_depth)
         self._last_depth = n
         metrics.runtime_inflight.set(total, kind=self.kind)
+        if self._on_inflight is not None:
+            self._on_inflight(n)
 
     def _attempt(self, dispatch, item):
         """One dispatch through the breaker and the fallback hook."""

@@ -3,22 +3,24 @@
 Port of ``spacemesh_tpu/utils/metrics.py``: the instrument types, the
 registry and the exposition format, with the same names, labels and
 buckets. Only the instruments the port records are defined here: the
-``post_store_*`` family (label-store reads, fsyncs, fault injections,
-recovery, ENOSPC parking), ``post_prove_inflight`` (the gRPC worker's
-proving sessions), the ``runtime_*`` family (the device-job engine and
-the multi-tenant scheduler, ``runtime/``), the verification farm's and
-verifyd's, the breakers' and the verifyd fleet's (``failover_*``,
-``fleet_*``, ``federated_procs``), and the instrumentation's: the span
-tracer's capture state (``trace_*``), the sanitizers'
-(``sanitize_violations_total``), the health engine's (``slo_*``,
-``component_*``, the event-loop lag), the flight recorder's
-(``flight_bundles_total``), the remediation engine's and the engine's
-host fallbacks (``runtime_fallbacks_total``), and the PoST path's SLI
-substrate (``post_pipeline_labels_total``,
-``post_prove_window_seconds``), and gossip's and the state database's
-(``pubsub_handler_drops_total``, ``gossip_handler_seconds``; the
-per-role ``sql_<role>_query_seconds`` and ``sql_<role>_queries``, made by
-``storage/db.py``), and the node's event bus
+node's public gauges (``node_current_layer``, ``tortoise_verified_layer``,
+``mesh_last_applied_layer``, ``p2p_connected_peers``, ``sync_state``,
+``tortoise_mode``; set on each scrape of ``api/http.py``'s ``/metrics``)
+and ``post_proofs_generated``; the init pipeline's ``post_pipeline_*`` and
+the prover's ``post_prove_*`` families; the ``post_store_*`` family
+(label-store reads, fsyncs, fault injections, recovery, ENOSPC parking);
+the ``runtime_*`` family (the device-job engine and the multi-tenant
+scheduler, ``runtime/``); the verification farm's and verifyd's, the
+breakers' and the verifyd fleet's (``failover_*``, ``fleet_*``,
+``federated_procs``); the instrumentation's: the span tracer's capture
+state (``trace_*``), the sanitizers' (``sanitize_violations_total``), the
+health engine's (``slo_*``, ``component_*``, the event-loop lag), the
+flight recorder's (``flight_bundles_total``), the remediation engine's and
+the engine's host fallbacks (``runtime_fallbacks_total``); gossip's and
+the state database's (``pubsub_handler_drops_total``,
+``gossip_handler_seconds``; the per-role ``sql_<role>_query_seconds`` and
+``sql_<role>_queries``, made by ``storage/db.py``); the mesh's
+``layer_apply_seconds``, and the node's event bus
 (``events_subscription_overflows_total``, ``events_queue_depth``).
 ``Registry.sample()`` and
 scrape-time collectors feed the windowed SLIs (``obs/sli.py``).
@@ -299,6 +301,41 @@ class Registry:
 
 REGISTRY = Registry()
 
+# curated "public" metrics (reference metrics/public/public.go): the node's
+# frontiers, set by api/http.py on each /metrics scrape, and the prover's
+# proof count
+layer_gauge = REGISTRY.gauge("node_current_layer", "wall-clock layer")
+verified_gauge = REGISTRY.gauge("tortoise_verified_layer", "verified frontier")
+proofs_generated = REGISTRY.counter("post_proofs_generated", "proofs made")
+peers_gauge = REGISTRY.gauge("p2p_connected_peers", "connected peers")
+sync_state_gauge = REGISTRY.gauge(
+    "sync_state", "0 notSynced, 1 gossipSync, 2 synced")
+tortoise_mode_gauge = REGISTRY.gauge(
+    "tortoise_mode", "0 verifying, 1 full (reference tortoise/metrics.go)")
+applied_gauge = REGISTRY.gauge("mesh_last_applied_layer", "applied frontier")
+
+# PoST init streaming pipeline (post/initializer.py). Stage seconds carry a
+# stage label (dispatch/fetch/write/stall) so an operator can see where a
+# slow init spends its time without a full profile. Host counters: no
+# launch and no sync on the card's path.
+post_pipeline_dispatched = REGISTRY.counter(
+    "post_pipeline_batches_dispatched_total",
+    "label batches enqueued on the accelerator")
+post_pipeline_inflight = REGISTRY.gauge(
+    "post_pipeline_inflight_batches", "device batches currently in flight")
+post_pipeline_queue_depth = REGISTRY.gauge(
+    "post_pipeline_write_queue_depth", "label writes queued for disk")
+post_pipeline_stall_seconds = REGISTRY.counter(
+    "post_pipeline_stall_seconds_total",
+    "dispatch-loop seconds blocked on writer backpressure")
+post_pipeline_stage_seconds = REGISTRY.counter(
+    "post_pipeline_stage_seconds_total",
+    "host seconds per pipeline stage (label=stage)")
+post_pipeline_meta_saves = REGISTRY.counter(
+    "post_pipeline_meta_saves_total", "interval resume-metadata rewrites")
+post_pipeline_labels_per_sec = REGISTRY.gauge(
+    "post_pipeline_labels_per_sec", "labels/s of the last init session")
+
 # PoST label-store reads (post/data.py LabelStore.read_labels: the serial
 # prover and the LabelReader pool both land here)
 post_store_read_calls = REGISTRY.counter(
@@ -332,6 +369,25 @@ post_store_degraded = REGISTRY.gauge(
 post_store_enospc_waits = REGISTRY.counter(
     "post_store_enospc_waits_total",
     "ENOSPC retry waits entered by the label writer pool")
+
+# PoST proving streaming pipeline (post/prover.py). Stage seconds carry a
+# stage label (read/dispatch/retire) mirroring the init pipeline's.
+post_prove_windows = REGISTRY.counter(
+    "post_prove_windows_total", "nonce windows swept over the label store")
+post_prove_batches = REGISTRY.counter(
+    "post_prove_batches_total", "label batches dispatched by the prover")
+post_prove_early_exits = REGISTRY.counter(
+    "post_prove_early_exits_total",
+    "prove passes cut short once the winning nonce was decided")
+post_prove_stage_seconds = REGISTRY.counter(
+    "post_prove_stage_seconds_total",
+    "host seconds per prove pipeline stage (label=stage)")
+post_prove_d2h_bytes = REGISTRY.counter(
+    "post_prove_d2h_bytes_total",
+    "bytes copied device->host by the prover (compacted hits, not masks)")
+post_prove_labels_per_sec = REGISTRY.gauge(
+    "post_prove_labels_per_sec",
+    "store labels covered per second by the last prove call")
 
 # the health engine's SLI substrate on the PoST path (obs/sli.py
 # default_slis): the init rate and the prove window's wall time

@@ -6,8 +6,12 @@ Twins of ``tests/test_health_engine.py`` without the event bus (not
 ported: ROADMAP [13]): watchdogs, SLO burn accounting and transitions,
 the flight recorder's rate limit, prune, corruption checks and failed
 dumps, the tick loop's liveness, and the acceptance capture (init +
-prove + farm with the engine on, a stalled writer flipping verifyd's
-``/readyz`` with its reason, the stall's flight bundle validating). Plus
+prove + farm with the engine on, a stalled writer flipping verifyd's and
+the node API's (``api/http.py`` ``ApiServer``) ``/readyz`` with its
+reason, the stall's flight bundle validating). The JAX file's HTTP cases
+(``test_http_health_surface``, ``test_http_health_without_engine``,
+``test_healthz_reports_wedged_tick_loop``) run on the port's
+``ApiServer`` through ``torch_twin``. Plus
 the SLO engine driven through both packages on the same observations
 (equal reports), and a flight bundle from each package with the same
 file set and manifest keys.
@@ -493,6 +497,31 @@ def test_acceptance_init_prove_farm_stall_flight(tmp_path):
         assert doc["components"]["post.writer"]["healthy"] is False
         assert "stalled" in doc["components"]["post.writer"]["reason"]
 
+        # the node's JSON API serves the same engine: /readyz over HTTP
+        # reports the stall with its reason (the JAX test's ApiServer case)
+        from types import SimpleNamespace
+
+        from spacemesh_tpu_torch.api.http import ApiServer
+
+        api = ApiServer(SimpleNamespace(health_engine=engine),
+                        listen="127.0.0.1:0")
+
+        async def api_go():
+            from aiohttp import ClientSession
+
+            port = await api.start()
+            try:
+                async with ClientSession() as s:
+                    r = await s.get(f"http://127.0.0.1:{port}/readyz")
+                    return r.status, await r.json()
+            finally:
+                await api.stop()
+
+        status, doc = asyncio.run(api_go())
+        assert status == 503
+        assert doc["components"]["post.writer"]["healthy"] is False
+        assert "stalled" in doc["components"]["post.writer"]["reason"]
+
         bundles = engine.recorder.bundles()
         assert bundles, "stall transition did not spool a bundle"
         bundle = flight_mod.read_bundle(bundles[-1])
@@ -514,3 +543,12 @@ def test_acceptance_init_prove_farm_stall_flight(tmp_path):
         if registered is not None:
             health_mod.HEALTH.unregister("post.writer", registered)
         tracing.stop()
+
+
+# --- the JAX file's ApiServer cases, on the port -------------------------
+
+from torch_twin import export  # noqa: E402
+
+export("test_health_engine", globals(),
+       only=("test_http_health_surface", "test_http_health_without_engine",
+             "test_healthz_reports_wedged_tick_loop"))

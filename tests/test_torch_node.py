@@ -17,7 +17,7 @@ export("test_malfeasance_checkpoint", globals(),
 export("test_sixteen_identities", globals())
 
 
-# --- the entry points: the card by default, the stubs, the CLI ----------
+# --- the entry points: the card by default, the seams served, the CLI ----
 
 import asyncio  # noqa: E402
 import json  # noqa: E402
@@ -45,9 +45,15 @@ TINY = {"layer_duration": 0.7, "layers_per_epoch": 3, "slots_per_layer": 2,
         "tortoise": {"hdist": 4, "window_size": 50}}
 
 
+# every listener on an ephemeral port: the preset's API ports are fixed
+# (9092/9093), and other test files bind them under xdist
+EPHEMERAL = {"api": {"private_listener": "127.0.0.1:0",
+                     "public_listener": "127.0.0.1:0"}}
+
+
 def _cfg(tmp_path, **extra):
     return load("standalone", overrides={
-        **TINY, "data_dir": str(tmp_path / "node"), **extra})
+        **TINY, **EPHEMERAL, "data_dir": str(tmp_path / "node"), **extra})
 
 
 def test_app_defaults_to_the_card_and_raises_without_one(monkeypatch,
@@ -59,35 +65,165 @@ def test_app_defaults_to_the_card_and_raises_without_one(monkeypatch,
     assert not (tmp_path / "node").exists()
 
 
-def test_waiting_entry_points_raise_not_implemented(tmp_path):
-    app = App(_cfg(tmp_path), device="cpu")
+async def _serves_api(app):
+    import aiohttp
+
+    port = await app.start_api()
     try:
-        for call, item in ((app.start_network, "item 6"),
-                           (app.start_api, "item 5"),
-                           (app.start_grpc_api, "item 5"),
-                           (app.start_public_grpc_api, "item 5")):
-            with pytest.raises(NotImplementedError, match=item):
-                asyncio.run(call())
+        async with aiohttp.ClientSession() as http:
+            async with http.get(
+                    f"http://127.0.0.1:{port}/v1/node/status") as resp:
+                assert resp.status == 200
+                body = await resp.json()
+        assert body["status"]["is_synced"] is True
+        assert body["status"]["connected_peers"] == 0
+    finally:
+        await app.api.stop()
+
+
+async def _grpc_call(port, service, method, req, resp_cls):
+    import grpc
+
+    async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+        call = ch.unary_unary(f"/spacemesh.v1.{service}/{method}",
+                              request_serializer=type(req).SerializeToString,
+                              response_deserializer=resp_cls.FromString)
+        return await call(req)
+
+
+async def _serves_grpc(app):
+    from spacemesh_tpu_torch.api.gen import core_pb2 as cpb
+
+    port = await app.start_grpc_api()
+    try:
+        st = await _grpc_call(port, "NodeService", "Status",
+                              cpb.StatusRequest(), cpb.StatusResponse)
+        assert st.status.is_synced
+        # the private listener serves the Admin and PostService seams too
+        assert app.grpc_api.post_service is not None
+    finally:
+        await app.stop_grpc_api()
+
+
+async def _serves_public_grpc(app):
+    import grpc
+
+    from spacemesh_tpu_torch.api.gen import core_pb2 as cpb
+
+    port = await app.start_public_grpc_api()
+    try:
+        echo = await _grpc_call(port, "NodeService", "Echo",
+                                cpb.EchoRequest(msg="hi"), cpb.EchoResponse)
+        assert echo.msg == "hi"
+        with pytest.raises(grpc.aio.AioRpcError) as e:
+            await _grpc_call(port, "AdminService", "Recover",
+                             cpb.RecoverRequest(uri="x"),
+                             cpb.RecoverResponse)
+        assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+        assert app.grpc_public_api.post_service is None
+    finally:
+        await app.stop_grpc_api()
+
+
+async def _serves_network(app, tmp_path):
+    host, port = await app.start_network()
+    assert port > 0
+    # one network: the genesis id hashes the genesis time
+    peer = App(_cfg(tmp_path / "peer", smeshing={"start": False},
+                    genesis={"time": app.cfg.genesis.time},
+                    p2p={"listen": "127.0.0.1:0",
+                         "bootnodes": [f"{host}:{port}"]}), device="cpu")
+    try:
+        await peer.start_network()
+        for _ in range(200):
+            if (app.signer.node_id in peer.server.peers()
+                    and peer.signer.node_id in app.server.peers()):
+                break
+            await asyncio.sleep(0.05)
+        assert peer.signer.node_id in app.server.peers()
+        assert app.signer.node_id in peer.server.peers()
+    finally:
+        await peer.stop_network()
+        peer.close()
+        await app.stop_network()
+    assert app.host is None
+
+
+async def _serves_worker_grpc(app):
+    from spacemesh_tpu_torch.api.rpc import GrpcPostClient
+
+    try:
+        await app.start_smeshing()
+        assert app.grpc_api.post_service.registered() == \
+            [s.node_id for s in app.signers]
+        assert app.post_supervisor.device == "cpu"
+        for b in app.atx_builders:
+            assert isinstance(b.post_client, GrpcPostClient)
+        info = await asyncio.to_thread(app.atx_builders[0].post_client.info)
+        assert info.node_id == app.signer.node_id
+    finally:
+        app.post_supervisor.stop()
+        await app.stop_grpc_api()
+
+
+@pytest.mark.parametrize("entry", ["start_api", "start_grpc_api",
+                                   "start_public_grpc_api", "start_network",
+                                   "worker_grpc"])
+def test_entry_points_serve(tmp_path, entry):
+    """Each outward entry point of ``App`` serves: the JSON API answers
+    ``/v1/node/status``, the private gRPC listener ``NodeService.Status``,
+    the public one refuses ``AdminService``, ``start_network`` binds and a
+    second ``App`` connects, and ``start_smeshing`` with
+    ``smeshing.worker_grpc`` registers every identity over the worker's
+    Register stream."""
+    smeshing = {"start": False}
+    if entry == "worker_grpc":
+        smeshing = {"start": True, "num_units": 1, "init_batch": 128,
+                    "external_worker": True, "worker_grpc": True}
+    # genesis a minute ahead: a syncer never walks layers since 1970
+    app = App(_cfg(tmp_path, smeshing=smeshing,
+                   genesis={"time": float(int(time.time()) + 60)},
+                   p2p={"listen": "127.0.0.1:0"}),
+              device="cpu")
+    run = {"start_api": lambda: _serves_api(app),
+           "start_grpc_api": lambda: _serves_grpc(app),
+           "start_public_grpc_api": lambda: _serves_public_grpc(app),
+           "start_network": lambda: _serves_network(app, tmp_path),
+           "worker_grpc": lambda: _serves_worker_grpc(app)}[entry]
+    try:
+        asyncio.run(run())
     finally:
         app.close()
-    grpc = App(_cfg(tmp_path / "g", smeshing={
-        "start": True, "num_units": 1, "init_batch": 128,
-        "external_worker": True, "worker_grpc": True}), device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="item 5"):
-            asyncio.run(grpc.start_smeshing())
-        assert grpc.post_supervisor is None
-    finally:
-        grpc.close()
 
 
 @pytest.mark.parametrize("flags", [["--api"], ["--grpc"],
-                                   ["--listen", "127.0.0.1:0"]])
-def test_cli_waiting_flags_exit_nonzero(tmp_path, capsys, flags):
+                                   ["--listen", "127.0.0.1:0"],
+                                   ["--api", "--grpc", "--listen",
+                                    "127.0.0.1:0"]])
+def test_cli_serving_flags(tmp_path, capsys, flags):
+    """``--api``, ``--grpc`` and ``--listen`` each print the bound port as
+    a JSON line before the node prepares, and the node exits 0 at
+    ``--until-layer``."""
+    conf = tmp_path / "node.json"
+    conf.write_text(json.dumps({**TINY, **EPHEMERAL,
+                                "smeshing": {"start": False}}))
     rc = node_cli.main(["--preset", "standalone", "--device", "cpu",
-                        "--data-dir", str(tmp_path / "n"), *flags])
-    assert rc == 2
-    assert "ROADMAP item" in capsys.readouterr().err
+                        "--config", str(conf), "--data-dir",
+                        str(tmp_path / "n"), "--genesis-now",
+                        "--until-layer", "1", *flags])
+    assert rc == 0
+    events = {}
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("{"):
+            ev = json.loads(line)
+            events.setdefault(ev["event"], ev)
+    want = {"--api": "ApiStarted", "--grpc": "GrpcStarted",
+            "--listen": "P2PStarted"}
+    for flag, name in want.items():
+        if flag in flags:
+            assert events[name]["port"] > 0, events
+        else:
+            assert name not in events
 
 
 def test_cli_without_a_card_exits_with_the_device_error(monkeypatch,

@@ -269,7 +269,8 @@ WORKER_MODULES = ("spacemesh_tpu_torch.post",
                   "spacemesh_tpu_torch.post.remote",
                   "spacemesh_tpu_torch.post.supervisor",
                   "spacemesh_tpu_torch.post.faultfs",
-                  "spacemesh_tpu_torch.api.rpc",
+                  "spacemesh_tpu_torch.api",
+                  "spacemesh_tpu_torch.api.gen",
                   "spacemesh_tpu_torch.utils.metrics",
                   "spacemesh_tpu_torch.runtime.scheduler",
                   "spacemesh_tpu_torch.runtime.workloads")
@@ -305,14 +306,23 @@ def _is_grpc(name: str) -> bool:
 
 def test_only_the_grpc_worker_imports_grpc_and_protobuf():
     """grpc and google.protobuf are imported at module level by
-    ``post/grpc_worker.py`` and ``api/gen/post_pb2.py`` alone, and by
-    verifyd only inside the functions that open its gRPC surface (the
-    server's ``_start_grpc``, the client's ``grpc_verify``); everything
-    else of the worker imports with both blocked, as on a card host that
-    has neither."""
+    ``post/grpc_worker.py``, the node's gRPC API (``api/rpc.py``,
+    ``api/rpc_v2.py``) and the generated ``api/gen/{post,core,
+    v2alpha1}_pb2.py`` alone, and by verifyd only inside the functions
+    that open its gRPC surface (the server's ``_start_grpc``, the
+    client's ``grpc_verify``), and by ``chip_smoke.py``'s ``[api]`` client
+    only inside its gRPC calls; everything else of the worker, the ``api``
+    package with its wire helpers included, imports with both blocked, as
+    on a card host that has neither."""
     assert _importers(_is_grpc) == {
         "spacemesh_tpu_torch/post/grpc_worker.py": [""],
         "spacemesh_tpu_torch/api/gen/post_pb2.py": [""],
+        "spacemesh_tpu_torch/api/gen/core_pb2.py": [""],
+        "spacemesh_tpu_torch/api/gen/v2alpha1_pb2.py": [""],
+        "spacemesh_tpu_torch/api/rpc.py": [""],
+        "spacemesh_tpu_torch/api/rpc_v2.py": [""],
+        # chip_smoke.py's [api] client: the operator's gRPC calls to a node
+        "chip_smoke.py": ["_grpc_events", "_poll", "grpc_unary"],
         "spacemesh_tpu_torch/verifyd/server.py": ["_start_grpc"],
         "spacemesh_tpu_torch/verifyd/client.py": ["grpc_verify"]}
     code = (
@@ -344,14 +354,16 @@ VERIFY_MODULES = ("spacemesh_tpu_torch.verify",
 
 
 def test_aiohttp_only_in_the_verifyd_server_and_client_session():
-    """aiohttp is imported by ``verifyd/server.py`` and, lazily, by the
-    client's and the fleet's replica endpoint's sessions; the farm, the
+    """aiohttp is imported by ``verifyd/server.py``, the node's JSON API
+    (``api/http.py``, which ``api`` exports on first use) and, lazily, by
+    the client's and the fleet's replica endpoint's sessions; the farm, the
     service, signing and the verifyd package import and verify a
     signature with aiohttp, grpc, protobuf and cryptography all blocked,
     as on a host that has none of them (signing then takes its
     pure-Python branch)."""
     assert _importers(lambda n: n.split(".")[0] == "aiohttp") == {
         "spacemesh_tpu_torch/verifyd/server.py": [""],
+        "spacemesh_tpu_torch/api/http.py": [""],
         "spacemesh_tpu_torch/verifyd/client.py": ["_sess"],
         "spacemesh_tpu_torch/verifyd/fleet.py": ["_sess"]}
     code = (

@@ -1,12 +1,15 @@
-"""Port twins of the JAX package's node tests.
+"""Port twins of the JAX package's tests.
 
 ``load(name)`` reads ``tests/<name>.py``, names ``spacemesh_tpu_torch``
 wherever it named ``spacemesh_tpu``, and builds the port components these
 tests construct that default to the card (``App``, malfeasance's
-``Handler``) with ``device="cpu"``. ``export(name, ns)`` puts the
-loaded module's tests and fixtures into a test file's namespace, with a
-module fixture that pins torch to one thread (xdist workers otherwise
-spin one OpenMP thread per core each).
+``Handler``, ``PostClient``, ``PostSupervisor``, ``initializer.initialize``
+and ``verifier.verify``) with ``device="cpu"``, and the node CLI they
+spawn (``-m spacemesh_tpu_torch.node``) with ``--device cpu``; a
+``tests.<other>`` module it imports is that module's twin.
+``export(name, ns)`` puts the loaded module's tests and fixtures into a
+test file's namespace, with a module fixture that pins torch to one thread
+(xdist workers otherwise spin one OpenMP thread per core each).
 """
 
 import functools
@@ -19,9 +22,11 @@ import torch
 
 TESTS = pathlib.Path(__file__).resolve().parent
 
-# port constructors, built by the twinned tests, whose ``device``
-# defaults to "cuda"
-_ON_CARD = ("App", "Handler")
+# port constructors and functions, called by the twinned tests, whose
+# ``device`` defaults to "cuda" (the last two qualified by their module, so
+# that no other ``initialize``/``verify`` method is touched)
+_ON_CARD = ("App", "Handler", "PostClient", "PostSupervisor",
+            r"initializer\.initialize", r"verifier\.verify")
 _CALL = re.compile(r"(?<![\w.])((?:[A-Za-z_]\w*\.)*(?:%s))\("
                    % "|".join(_ON_CARD))
 
@@ -30,15 +35,31 @@ def _on_cpu(cls):
     return functools.partial(cls, device="cpu")
 
 
+# ``import tests.<name> as <alias>``: a test file that drives another's
+# tests (``test_quic.py`` re-runs ``test_transport.py``'s over QUIC)
+_TESTS_IMPORT = re.compile(r"^(\s*)import tests\.(\w+) as (\w+)$", re.M)
+
+
+@functools.lru_cache(maxsize=None)
+def _twin(name: str):
+    return load(name)
+
+
 def load(name: str, pkg: str = "spacemesh_tpu_torch"):
-    """``tests/<name>.py`` as a module over ``pkg``."""
+    """``tests/<name>.py`` as a module over ``pkg``; a ``tests.<other>``
+    module it imports is that module's port twin too."""
     src = (TESTS / f"{name}.py").read_text()
     src = re.sub(r"\bspacemesh_tpu\b", pkg, src)
     if pkg == "spacemesh_tpu_torch":
         src = _CALL.sub(r"_on_cpu(\1)(", src)
+        src = _TESTS_IMPORT.sub(r"\1\3 = _twin('\2')", src)
+        # the port's node CLI defaults to the card too
+        src = src.replace('"-m", "spacemesh_tpu_torch.node",',
+                          '"-m", "spacemesh_tpu_torch.node", "--device", "cpu",')
     mod = pytypes.ModuleType(f"_{pkg}_{name}")
     mod.__file__ = str(TESTS / f"{name}.py")
     mod._on_cpu = _on_cpu
+    mod._twin = _twin
     exec(compile(src, f"{mod.__file__} [{pkg}]", "exec"), mod.__dict__)
     return mod
 
@@ -53,8 +74,9 @@ def _one_torch_thread():
 
 def export(name: str, ns: dict, only=None) -> pytypes.ModuleType:
     """Put ``tests/<name>.py``'s port twin's tests (or the ``only`` ones)
-    and its fixtures into ``ns``."""
-    mod = load(name)
+    and its fixtures into ``ns``; the twin is the one ``tests.<name>``
+    imports resolve to (``_twin``), so a file may patch it first."""
+    mod = _twin(name)
     for key, val in vars(mod).items():
         is_test = key.startswith("test_") and callable(val)
         if is_test and only is not None and key not in only:
