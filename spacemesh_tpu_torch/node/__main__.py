@@ -112,6 +112,7 @@ def main(argv=None) -> int:
                 from . import clock as clock_mod
 
                 app.clock = clock_mod.LayerClock(
+                    # spacecheck: ok=SC001 real node boot: genesis anchors to actual wall time
                     time.time() + cfg.layer_duration, cfg.layer_duration)
             await app.run(until_layer=a.until_layer)
         finally:

@@ -147,8 +147,8 @@ class EventBus:
         self._subs: dict[type, list[Subscription]] = defaultdict(list)
         self.recent: deque = deque(maxlen=self.RECENT)
         # the deepest_queue race class, runtime-checked: subscriber
-        # lists are loop-affine for MUTATION (owner-write); other
-        # threads may only
+        # lists are loop-affine for MUTATION (owner-write; the runtime
+        # twin of `# spacecheck: loop-only`); other threads may only
         # snapshot-read (deepest_queue, flight dumps)
         self._shared = sanitize.SharedField("events.bus.subs",
                                             mode="owner-write")
@@ -165,7 +165,7 @@ class EventBus:
         self._shared.touch()
         # display timestamp for flight-bundle event dumps, never used
         # in logic or digests
-        self.recent.append((time.time(), type(ev).__name__, ev))
+        self.recent.append((time.time(), type(ev).__name__, ev))  # spacecheck: ok=SC001 wall display timestamp only
         for sub in list(self._subs.get(type(ev), ())):
             sub._offer(ev)
 

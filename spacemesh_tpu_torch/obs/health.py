@@ -558,10 +558,10 @@ class HealthEngine:
         self._loop_started_at = self.time_source()
         try:
             while not self._closed:
-                # the LOOP's own clock: measuring its scheduling lag
+                # spacecheck: ok=SC001 measuring the LOOP's own scheduling lag is the point; the loop clock is the only honest reference
                 target = loop.time() + interval
                 await asyncio.sleep(interval)
-                lag = max(loop.time() - target, 0.0)
+                lag = max(loop.time() - target, 0.0)  # spacecheck: ok=SC001 same loop-lag measurement
                 metrics.event_loop_lag.set(lag)
                 self.tick(defer_dump=True)
                 self._last_loop_tick = self.time_source()

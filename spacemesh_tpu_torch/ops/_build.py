@@ -23,6 +23,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from ..utils import fsio
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
@@ -83,7 +85,7 @@ def _build_one(name: str) -> str:
     if out.exists():
         return ""
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
+    tmp = fsio.tmp_path(out)
     proc = subprocess.run(
         [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
         capture_output=True, text=True)
@@ -92,7 +94,9 @@ def _build_one(name: str) -> str:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(rc={proc.returncode}):\n{log[-4000:]}")
-    os.replace(tmp, out)
+    # fsync the library nvcc wrote, then rename, then fsync the folder:
+    # a crash never leaves a torn .so under the name ctypes loads
+    fsio.persist(tmp, out)
     return log
 
 

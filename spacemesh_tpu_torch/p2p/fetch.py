@@ -109,7 +109,7 @@ class Fetch:
         try:
             return asyncio.get_running_loop().time()
         except RuntimeError:
-          
+            # spacecheck: ok=SC001 loop-less fallback of this module's declared time source (_now)
             return time.monotonic()
 
     def report_failure(self, peer: bytes, weight: int = 1) -> None:

@@ -358,7 +358,7 @@ class QuicEndpoint(asyncio.DatagramProtocol):
                     continue
             if not fut.done():
                 raise asyncio.TimeoutError("quic connect timeout")
-            conn.remote_id = fut.result()  # fut.done() just above: result() cannot block
+            conn.remote_id = fut.result()  # spacecheck: ok=SC002 fut.done() is guaranteed just above — a done future's result() cannot block
         except BaseException:
             # failed/cancelled dial: the conn was registered in _by_id at
             # construction — without this, every redial to an unreachable

@@ -177,7 +177,7 @@ class RegisterSession:
                 status=ppb.GEN_PROOF_STATUS_OK))
         self._job = None  # consumed (success or failure)
         try:
-            proof, _meta = job.task.result()
+            proof, _meta = job.task.result()  # spacecheck: ok=SC002 guarded by the task.done() early-return above — never blocks
         except Exception:  # noqa: BLE001 — reported to the node as ERROR
             return ppb.ServiceResponse(gen_proof=ppb.GenProofResponse(
                 status=ppb.GEN_PROOF_STATUS_ERROR))

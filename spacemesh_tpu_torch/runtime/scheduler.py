@@ -432,6 +432,7 @@ class TenantScheduler:
 
     # -- submission ----------------------------------------------------
 
+    # guarded by: self._lock — every submit_* caller enters with the scheduler lock held
     def _admit(self, tid: str, kind: str) -> tuple[_Tenant, JobHandle]:
         """Under the lock: admission and quota checks for one job."""
         if self._closed:
@@ -633,6 +634,7 @@ class TenantScheduler:
 
     # -- worker pool (prove/verify/pow/call quanta) ---------------------
 
+    # guarded by: self._lock — _worker_loop picks with the scheduler lock held
     def _pick_job(self) -> _Job | None:
         """Under the lock: the next quantum by deadline, then fair share."""
         now = self._now()
@@ -706,9 +708,11 @@ class TenantScheduler:
                         dt, kind=job.kind, tenant=job.tenant.id)
                 job.tenant.charge(dt)
                 job.tenant.running -= 1
+                # read once under the lock: the error below names the
+                # same cause that stopped the requeue
+                closed = self._closed
                 requeue = (outcome == "continue" and error is None
-                           and not job.cancelled and not self._closed
-                           and live)
+                           and not job.cancelled and not closed and live)
                 if requeue:
                     # a multi-quantum job goes on ahead of its tenant's
                     # later jobs; fair share decides across tenants
@@ -724,11 +728,12 @@ class TenantScheduler:
                 # dropped at close or unregister mid-job: the handle must
                 # not strand, and abort() closes what the job holds
                 self._resolve(job, error=SchedulerClosed(
-                    "scheduler closed" if self._closed
+                    "scheduler closed" if closed
                     else f"tenant {job.tenant.id} unregistered"))
 
     # -- the init packer ------------------------------------------------
 
+    # guarded by: self._lock — _compose_pack, the only caller, holds it (its _pack_work waits re-acquire it)
     def _ready(self) -> tuple[list, int]:
         """Under the lock: tenants with init lanes left, and their lanes."""
         ready = [t for t in self._tenants.values() if t.init_jobs]
@@ -852,6 +857,7 @@ class TenantScheduler:
         finalize: list[_InitJob] = []
         for s in segments:
             job: _InitJob = s.job
+            stored = 0  # lanes of this segment that reached the store
             with tracing.span("runtime.segment",
                               {"tenant": job.tenant.id, "start": s.start,
                                "count": s.count}
@@ -873,15 +879,17 @@ class TenantScheduler:
                         st.write_s += tm - tw
                         st.fold_s += time.perf_counter() - tm
                         job.written = max(job.written, s.start + s.count)
-                        if self._tenants.get(job.tenant.id) is job.tenant:
-                            metrics.runtime_tenant_labels.inc(
-                                s.count, tenant=job.tenant.id)
+                        stored = s.count
                         if job.progress is not None:
                             job.progress(job.written, job.total)
                 except Exception as exc:  # noqa: BLE001 — fail this job, not the pack
                     job.error = exc
             with self._lock:
                 self._shared.touch()
+                # a tenant unregistered mid-pack no longer owns its series
+                if stored and self._tenants.get(job.tenant.id) is job.tenant:
+                    metrics.runtime_tenant_labels.inc(
+                        stored, tenant=job.tenant.id)
                 job.outstanding -= s.count
                 if job.error is not None or job.cancelled:
                     # packable is 0 now: drop the queued remainder so the
@@ -949,7 +957,7 @@ class TenantScheduler:
                                    "lanes": sum(s.count for s in p[0]),
                                    "tenants": len({s.job.tenant.id
                                                    for s in p[0]})},
-                               stop=lambda: self._closed)
+                               stop=lambda: self._closed)  # spacecheck: ok=SC007 monotonic close flag; a stale read only delays stop by one batch
 
         def packs():
             while True:

@@ -14,6 +14,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 # instruction (32 lanes) per clock. The 64 INT32 ALU lanes per SM are not
 # the limit: integer adds also run on the FMA pipe (IMAD).
 LANES_PER_SM_CLK = 128
+# profiler sessions kernel_ms tries: on an H100 one session once recorded
+# none of a short run's kernels, and a second session of the same run did
+_PROFILE_ATTEMPTS = 3
 
 
 def smi(query: str) -> str:
@@ -84,18 +87,22 @@ def kernel_ms(fn, name: str, reps: int, per_call: bool = False
     ``fn``, summing its launches) of the kernels whose name holds ``name``
     over ``reps`` calls of ``fn`` after one warm-up, from the profiler's
     kernel times, without the host's call cost between them; None when the
-    profiler recorded no such kernel."""
+    profiler recorded no such kernel in any of ``_PROFILE_ATTEMPTS``
+    sessions."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(us) / (reps if per_call else len(us)) / 1e3 if us else None
+    for _ in range(_PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if us:
+            return sum(us) / (reps if per_call else len(us)) / 1e3
+    return None

@@ -42,9 +42,21 @@ def _ids(salt: bytes, count: int) -> list:
             for i in range(count)]
 
 
+@contextlib.contextmanager
+def _registered(sched, ids: list):
+    """The tenants of ``ids`` registered for the block, unregistered
+    after it, also when it raises."""
+    try:
+        for tid, _, _ in ids:
+            sched.register_tenant(tid)
+        yield
+    finally:
+        for tid, _, _ in ids:
+            sched.unregister_tenant(tid)
+
+
 def _inits(sched, base: str, ids: list, labels: int) -> list:
-    for tid, _, _ in ids:
-        sched.register_tenant(tid)
+    """Submit one init per tenant of ``ids``, already registered."""
     return [sched.submit_init(tid, os.path.join(base, tid), node_id=node,
                               commitment=commit, num_units=1,
                               labels_per_unit=labels, scrypt_n=N)
@@ -62,23 +74,24 @@ def _turn(shared: bool, base: str, provers: list, challenge: bytes,
         sched._stream = contextlib.nullcontext  # every thread: default stream
     sched.start()
     load_dir = os.path.join(base, "load")
+    load_ids = _ids(b"load", PROVERS)
     try:
-        t0 = time.perf_counter()
-        load = _inits(sched, load_dir, _ids(b"load", PROVERS), LOAD_LABELS)
-        for tid, _, _ in provers:
-            sched.register_tenant(tid)
-        t1 = time.perf_counter()
-        done = {}
-        handles = [sched.submit_prove(tid, os.path.join(base, tid),
-                                      challenge, params)
-                   for tid, _, _ in provers]
-        for i, h in enumerate(handles):
-            h.future.add_done_callback(
-                lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
-        proofs = [h.result(timeout=600) for h in handles]
-        for h in load:
-            h.result(timeout=600)
-        init_s = time.perf_counter() - t0
+        with _registered(sched, load_ids + provers):
+            t0 = time.perf_counter()
+            load = _inits(sched, load_dir, load_ids, LOAD_LABELS)
+            t1 = time.perf_counter()
+            done = {}
+            handles = [sched.submit_prove(tid, os.path.join(base, tid),
+                                          challenge, params)
+                       for tid, _, _ in provers]
+            for i, h in enumerate(handles):
+                h.future.add_done_callback(
+                    lambda _f, i=i: done.__setitem__(i,
+                                                     time.perf_counter()))
+            proofs = [h.result(timeout=600) for h in handles]
+            for h in load:
+                h.result(timeout=600)
+            init_s = time.perf_counter() - t0
     finally:
         sched.close()
         shutil.rmtree(load_dir, ignore_errors=True)
@@ -101,7 +114,8 @@ def main() -> int:
     challenge = hashlib.sha256(b"probe-challenge").digest()
     provers = _ids(b"id", PROVERS)
     with tempfile.TemporaryDirectory(prefix="tenants-probe-") as base:
-        with TenantScheduler(device="cuda") as sched:
+        with TenantScheduler(device="cuda") as sched, \
+                _registered(sched, provers):
             for h in _inits(sched, base, provers, LABELS):
                 h.result(timeout=600)
         ref = None
@@ -123,9 +137,8 @@ def main() -> int:
                          device="cuda") for _, node, _ in pows]
     serial_s = time.perf_counter() - t0
     for workers in (1, 2):
-        with TenantScheduler(device="cuda", workers=workers) as sched:
-            for tid, _, _ in pows:
-                sched.register_tenant(tid)
+        with TenantScheduler(device="cuda", workers=workers) as sched, \
+                _registered(sched, pows):
             t0 = time.perf_counter()
             got = [h.result(timeout=600) for h in [
                 sched.submit_pow(tid, challenge, node, params.pow_difficulty)

@@ -649,13 +649,16 @@ class VerificationFarm:
                 self._streams = queue.Queue()
                 for _ in range(self.max_inflight):
                     self._streams.put(torch.cuda.Stream(self.device))
-        stream = self._streams.get()
+            # the pool is made once; the blocking get() waits outside
+            # the lock
+            streams = self._streams
+        stream = streams.get()
         try:
             with torch.cuda.stream(stream):
                 yield
             stream.synchronize()
         finally:
-            self._streams.put(stream)
+            streams.put(stream)
 
     def _run_backend(self, kind: str, reqs: list) -> list[bool]:
         if kind == KIND_SIG:

@@ -848,8 +848,7 @@ def fleet_from_urls(urls, *, farm, client_id: str = "node",
     for i, url in enumerate(u.strip() for u in urls):
         if not url:
             continue
-        # the router escapes into the FleetVerifier (own_router=True),
-        # whose aclose tears every replica down
+        # spacecheck: ok=SC004 the router escapes into the FleetVerifier (own_router=True), whose aclose tears every replica down
         router.register_replica(
             f"r{i}", HttpReplicaEndpoint(url), own_endpoint=True,
             max_clients=max_clients)

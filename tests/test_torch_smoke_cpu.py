@@ -10,6 +10,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -200,6 +201,53 @@ def test_bound_is_the_larger_of_bytes_and_operations():
     assert by_ops == {"bound_ms": 1000.0, "bound_by": "operations"}
     by_bytes = measure.bound(1, int(measure.HBM_BYTES_PER_S), 10**12)
     assert by_bytes == {"bound_ms": 1000.0, "bound_by": "bytes"}
+
+
+def test_kernel_ms_profiles_again_when_a_session_records_no_kernel(
+        monkeypatch):
+    """A profiler session that records none of the run's kernels is
+    retried; only ``_PROFILE_ATTEMPTS`` empty sessions give None."""
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    from spacemesh_tpu_torch.tools import measure
+
+    def event(name, us):
+        return types.SimpleNamespace(
+            name=name, device_type=DeviceType.CUDA,
+            time_range=types.SimpleNamespace(elapsed_us=lambda: us))
+
+    sessions = []
+
+    class Session:
+        def __init__(self, activities):
+            self.recorded = sessions.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self.recorded
+
+    monkeypatch.setattr(torch.profiler, "profile", Session)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    sessions[:] = [[], [event("window_kernel", 4000.0),
+                        event("window_kernel", 2000.0),
+                        event("other_kernel", 9.0)]]
+    assert measure.kernel_ms(lambda: calls.append(1), "window_kernel",
+                             reps=2) == 3.0
+    assert len(calls) == 1 + 2 + 2 and not sessions
+    sessions[:] = [[], [event("window_kernel", 4000.0)]]
+    assert measure.kernel_ms(lambda: None, "window_kernel", reps=2,
+                             per_call=True) == 2.0
+    sessions[:] = [[event("other_kernel", 1.0)]] + [
+        [] for _ in range(measure._PROFILE_ATTEMPTS - 1)]
+    assert measure.kernel_ms(lambda: None, "window_kernel", reps=2) is None
+    assert not sessions
 
 
 def test_kernel_build_keys_on_source_and_raises_on_failed_nvcc(

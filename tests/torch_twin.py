@@ -6,7 +6,8 @@ tests construct that default to the card (``App``, malfeasance's
 ``Handler``, ``PostClient``, ``PostSupervisor``, ``initializer.initialize``
 and ``verifier.verify``) with ``device="cpu"``, and the node CLI they
 spawn (``-m spacemesh_tpu_torch.node``) with ``--device cpu``; a
-``tests.<other>`` module it imports is that module's twin.
+``tests.<other>`` module it imports (``import tests.<other> as x`` or
+``from tests.<other> import a, b``) is that module's twin.
 ``export(name, ns)`` puts the loaded module's tests and fixtures into a
 test file's namespace, with a module fixture that pins torch to one thread
 (xdist workers otherwise spin one OpenMP thread per core each).
@@ -38,6 +39,22 @@ def _on_cpu(cls):
 # ``import tests.<name> as <alias>``: a test file that drives another's
 # tests (``test_quic.py`` re-runs ``test_transport.py``'s over QUIC)
 _TESTS_IMPORT = re.compile(r"^(\s*)import tests\.(\w+) as (\w+)$", re.M)
+# ``from tests.<name> import a, b as c`` on one line: a test file that
+# borrows another's helpers (``test_fuzz_surfaces.py`` takes
+# ``test_transport.py``'s hosts); each name is read off that file's twin
+# when the statement runs, so one inside a function loads the twin only
+# if the function is called
+_TESTS_FROM = re.compile(
+    r"^(\s*)from tests\.(\w+) import \(?([\w, ]+?)\)?[ \t]*$", re.M)
+
+
+def _from_twin(m: re.Match) -> str:
+    indent, name, names = m.group(1), m.group(2), m.group(3)
+    pairs = [part.split(" as ") for part in
+             (n.strip() for n in names.split(",")) if part]
+    targets = ", ".join(p[-1].strip() for p in pairs)
+    values = ", ".join(f"_twin({name!r}).{p[0].strip()}" for p in pairs)
+    return f"{indent}{targets} = {values}"
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,6 +70,7 @@ def load(name: str, pkg: str = "spacemesh_tpu_torch"):
     if pkg == "spacemesh_tpu_torch":
         src = _CALL.sub(r"_on_cpu(\1)(", src)
         src = _TESTS_IMPORT.sub(r"\1\3 = _twin('\2')", src)
+        src = _TESTS_FROM.sub(_from_twin, src)
         # the port's node CLI defaults to the card too
         src = src.replace('"-m", "spacemesh_tpu_torch.node",',
                           '"-m", "spacemesh_tpu_torch.node", "--device", "cpu",')
