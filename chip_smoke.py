@@ -94,8 +94,9 @@ package. Phases, each printed as it runs:
    per request, one in 8 with an index swapped for a non-qualifying one)
    and 152 sig/vrf/membership/pow items, from 4 clients through
    ``VerifydService.verify`` on the card with the service's defaults;
-   every verdict held to ``post.verifier.verify`` one item per call on
-   the card, honest True and tampered False, 32 sampled labels of the
+   every verdict held to honest True and tampered False, which
+   ``post.verifier.verify`` one item per call on the card shows for every
+   tampered request and 1 in 8 honest ones, 32 sampled labels of the
    farm's recomputes against hashlib; proofs verified/s beside the serial
    rate of a 256-proof sample, request latency p50/p99, batches and
    occupancy, each POST dispatch's split (host stages, the three kernels'
@@ -193,16 +194,16 @@ package. Phases, each printed as it runs:
    identity over an ``ActiveSetGenerator``, ``ProposalHandler`` and a
    TOPIC_TX handler; node 0 over ``VerificationFarm(device="cuda")``, the
    rest inline. Every node validates the ATXs; the epoch's proposal VRF
-   proofs are made once, in 8 worker processes. 16 layers: every builder
+   proofs are made once, in 8 worker processes. 14 layers: every builder
    builds and publishes, every node validates; hare (real sessions for
    the first 4, staggered 4 rounds; then the proposals every node holds);
    the block generated and applied, certified by every eligible identity
    and its certificate validated on every node; ``Mesh.process_layer``;
    64 seeded wallet spends a layer (an overdraft and a stale nonce
    refused); one identity double-publishes a ballot. Layers 5-8 are
-   timed with node 0's farm idle; through layers 9-12 ``[verifyd]``'s
-   10240 POST items flood node 0's farm (GOSSIP lane) in waves, the last
-   2 of them under the profiler. Fails unless every node holds
+   timed with node 0's farm idle; through layers 9-10 ``[verifyd]``'s
+   10240 POST items flood node 0's farm (GOSSIP lane) in waves, layer 10
+   under the profiler. Fails unless every node holds
    the same non-empty block, state root and aggregated hash in every
    layer, verifies the same layer (at least the last - 11), holds equal
    balances whose total is the rewards minted less the fees, marks the
@@ -309,7 +310,25 @@ package. Phases, each printed as it runs:
    race, registry-thread and slow-callback sanitizers armed: no race,
    lock-order or registry-thread violation, the slow callbacks counted;
    ``runtime_fallbacks_total`` 0 over the whole run;
-12. a JSON line of per-kernel launches, times and bounds, each time taken
+12. [sim] the scenario engine (``spacemesh_tpu_torch/sim/``) with its full
+   nodes' POST on the card (256 labels a unit, N=2, k1 64, k2 8, k3 4),
+   on the port's ``VirtualClockLoop``: (a) smoke (2 full nodes, 8 light
+   relays), (c) crash-store (3 full, 24 light; node 2 partitioned, killed
+   and restarted over its stores) and (d) crash-recovery (the faultfs
+   sweep over a tiny init), each also run by the port's CLI on the host
+   CPU in a subprocess (``--device cpu``, no card visible, nice 19),
+   started after the builds so that it runs on the cores the earlier
+   phases leave idle: every run ok, the card's digests and ``record full=``
+   lines equal the CPU's; the restarted node's ``prepare()`` launches no
+   ROMix for POST init (each first boot's does); the sweep bit-identical
+   with at least 3 recoveries and ENOSPC degraded; the CLI with no card
+   and no ``--device`` exits 2; then (b) storm-1024 (4 full nodes, 1020
+   light relays over the sharded fabric, shards ``auto``) held to the JAX
+   package's test gates: ok, converged, SLOs green, more than 100000
+   delivered; its wall, shards and worker processes,
+   ``sim_shard_imbalance_ratio``, the card's peak memory, and every
+   kernel's launches over the card's runs, inside the guard;
+13. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``, the PBKDF2 pair's packed-init
    shape under ``perlane``), with each later path's launches beside the
@@ -317,7 +336,8 @@ package. Phases, each printed as it runs:
    ``fleet_launches``, ``atx_launches``: the inits, proves and validation
    of ``[atx]``; ``mesh_launches``: ``[mesh]``'s ATX proves and
    validation and its flood; ``node_launches``: ``[node]`` (a) and (b);
-   ``api_launches``: ``[api]``'s A, in this process). ``path`` names the
+   ``api_launches``: ``[api]``'s A, in this process; ``sim_launches``:
+   ``[sim]``'s runs on the card). ``path`` names the
    path whose count ``launches``
    is: the main path's, but for k2pow verify, which only the verification
    paths run (``[verifyd]``'s warm run; ``main_launches`` 0), and
@@ -388,6 +408,8 @@ VERIFYD_REQUEST = 256     # POST items per request (one full farm batch)
 VERIFYD_TAMPERED = 8      # one request in 8 carries a swapped index
 VERIFYD_SEED = hashlib.sha256(b"chip-smoke-verifyd-k3-seed").digest()
 SERIAL_SAMPLE = 256       # inline verifies timed for the serial rate
+SERIAL_HONEST_EVERY = 8   # honest requests verified serially: 1 in 8 (and
+                          # every tampered one)
 # [fleet]: three verifyd replicas over HTTP behind one FleetVerifier
 FLEET_REPLICAS = 3
 FLEET_INFLIGHT = 2        # POST batches in flight per replica's farm
@@ -2209,23 +2231,28 @@ def run_verifyd(posts: list, mix, profile: bool) -> dict:
                 farm=dict(farm.stats), prof=prof)
 
 
-def serial_verdicts(posts: list) -> tuple:
+def serial_verdicts(posts: list, flags: list) -> tuple:
     """``post.verifier.verify`` one item per call on the card with the
-    service's K3 seed, in one thread: the reference the service's verdicts
-    are held to. Returns (verdicts, seconds of the first
+    service's K3 seed, in one thread, over a sample of the requests: every
+    tampered one and every ``SERIAL_HONEST_EVERY``-th honest one (every
+    identity's honest proof, with dozens of its witnesses). Returns (the
+    sampled indices, their verdicts, seconds of the first
     ``SERIAL_SAMPLE``)."""
     import torch
     from spacemesh_tpu_torch.post import prover, verifier
 
     params = prover.ProofParams()
+    honest = [i for i, f in enumerate(flags) if not f]
+    picks = sorted({i for i, f in enumerate(flags) if f}
+                   | set(honest[::SERIAL_HONEST_EVERY]))
     out = []
     t0 = time.perf_counter()
-    for i, r in enumerate(posts):
-        if i == SERIAL_SAMPLE:
+    for k, i in enumerate(picks):
+        if k == SERIAL_SAMPLE:
             torch.cuda.synchronize()
             sample_s = time.perf_counter() - t0
-        out.append(verifier.verify(r.item, params, seed=VERIFYD_SEED))
-    return out, sample_s
+        out.append(verifier.verify(posts[i].item, params, seed=VERIFYD_SEED))
+    return picks, out, sample_s
 
 
 def phase_verifyd(ctx: dict) -> None:
@@ -2284,8 +2311,11 @@ def phase_verifyd(ctx: dict) -> None:
     profiled = run_verifyd(posts, mix, profile=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    serial, sample_s = serial_verdicts(posts)
+    picks_serial, sampled, sample_s = serial_verdicts(posts, flags)
     serial_s = time.perf_counter() - t0
+    # the reference every later run is held to: honest True, tampered
+    # False, as the serial verifies of the sample show below
+    serial = [not f for f in flags]
     guard_rest = GUARD.stop()
     t0 = time.perf_counter()
     twins = path_twins(widest)
@@ -2299,8 +2329,9 @@ def phase_verifyd(ctx: dict) -> None:
                 "== the serial inline verdict on the card")
         require(run["mixed"] == mix_inline, f"{name} run: sig/vrf/membership"
                 "/pow verdicts == inline")
-    require(serial == [not f for f in flags],
-            "honest requests True, tampered ones False")
+    require(sampled == [serial[i] for i in picks_serial],
+            f"the serial sample ({len(picks_serial)} requests, every "
+            f"tampered one): honest requests True, tampered ones False")
     require(0 < sum(mix_inline) < len(mix_inline), "the mix is mixed")
     require_no_twins(guard, "verifyd warm run")
     require_no_twins(guard_rest, "verifyd profiled run and serial verifies")
@@ -2347,8 +2378,9 @@ def phase_verifyd(ctx: dict) -> None:
         f"it {n_posts / cold['wall']:.0f}/s, the profiled run after it "
         f"{n_posts / profiled['wall']:.0f}/s); serial inline "
         f"post.verifier.verify of a {SERIAL_SAMPLE}-proof sample "
-        f"{serial_rate:.1f} proofs/s ({rate / serial_rate:.1f}x); all "
-        f"{n_posts} serial verdicts in {serial_s:.1f} s")
+        f"{serial_rate:.1f} proofs/s ({rate / serial_rate:.1f}x); "
+        f"{len(picks_serial)} serial verdicts (every tampered request, 1 in "
+        f"{SERIAL_HONEST_EVERY} honest) in {serial_s:.1f} s")
     log(f"[verifyd] request latency (admission to verdicts, "
         f"{len(lat)} requests): p50 {statistics.median(lat):.3f} s, p99 "
         f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.3f} s, max "
@@ -3237,9 +3269,12 @@ async def atx_checks(plan: dict, node: dict, signers: dict) -> dict:
         cert_s = time.perf_counter() - t0
         require(certifier.verify_cert(cert, svc.pubkey, EdVerifier()),
                 "the certificate verifies against the certifier's key")
+        # a client of its own: a client keeps one certificate per identity,
+        # and the tampered ATX's identity may be the one just certified
+        bad_client = certifier.CertifierClient(addr, timeout=300)
         try:
             await asyncio.to_thread(
-                lambda: client.certificate(proof=bad_proof, **bad_kw))
+                lambda: bad_client.certificate(proof=bad_proof, **bad_kw))
             refused = None
         except RuntimeError as exc:
             refused = str(exc)
@@ -4086,11 +4121,11 @@ def phase_consensus(ctx: dict) -> None:
 # --- [mesh]: the mesh and its state on the card's node ---------------------
 
 MESH_NODES = 8            # nodes on one LoopbackHub, 8 identities each
-MESH_LAYERS = 16          # layers run: the frontier passes hdist + zdist
+MESH_LAYERS = 14          # layers run: the frontier passes hdist + zdist
 MESH_HARE = 4             # leading layers whose hare runs real sessions
 MESH_IDLE = range(5, 9)   # layer indices timed with node 0's farm idle
-MESH_FLOOD = range(9, 11)  # ... and under the POST flood, unprofiled
-MESH_PROFILED = range(11, 13)  # flood layers under the profiler (idle share)
+MESH_FLOOD = range(9, 10)  # ... and under the POST flood, unprofiled
+MESH_PROFILED = range(10, 11)  # flood layers under the profiler (idle share)
 MESH_EQUIVOCATE = 4       # layer index where one identity double-publishes
 MESH_BAD_TXS = 3          # layer index after which an overdraft and a stale
                           # nonce are offered
@@ -7553,6 +7588,290 @@ def replacement_index(proof, commitment, challenge, thr, total) -> int:
         cand = (cand + 1) % total
 
 
+# [sim]: the scenario engine (spacemesh_tpu_torch/sim/) with its full nodes
+# on the card; the CPU runs of the same scripts, by the port's CLI in
+# subprocesses, are the reference whose digests the card's must equal
+SIM_CPU_CHECKS = ("smoke", "crash-store", "crash-recovery")
+SIM_STORM = "storm-1024"       # 4 full nodes, 1020 light relays, shards auto
+SIM_STORM_DELIVERED = 100_000  # the JAX package's storm-1024 test's floor
+SIM_RESTARTED = 2              # crash-store's killed and restarted full node
+
+
+class SimReferences:
+    """The CPU references of ``[sim]``: ``python -m spacemesh_tpu_torch.sim
+    --scenario <name> --device cpu --json <file>`` for each of
+    ``SIM_CPU_CHECKS``, and smoke with no ``--device`` (which must exit 2),
+    each in a subprocess with no card visible, one intra-op thread and the
+    lowest CPU priority (nice 19): started when the card's phases begin,
+    they run on the cores the phases before ``[sim]`` leave idle and yield
+    to the phases' own work. :meth:`close` stops any still running (also
+    at exit)."""
+
+    def __init__(self):
+        import atexit
+
+        self.tmp = tempfile.mkdtemp(prefix="chip-smoke-sim-")
+        self.t0 = time.time()
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        self.procs = {}
+        for name in SIM_CPU_CHECKS + ("default",):
+            args = [sys.executable, "-m", "spacemesh_tpu_torch.sim",
+                    "--scenario", "smoke" if name == "default" else name,
+                    "--json", self.path(name), "--quiet"]
+            if name != "default":
+                args += ["--device", "cpu"]
+            with open(self.path(name) + ".log", "w") as logf:
+                self.procs[name] = subprocess.Popen(
+                    args, cwd=REPO, env=env, stdout=logf,
+                    stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
+        atexit.register(self.close)
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.tmp, f"{name}.json")
+
+    def wait(self, name: str, timeout: float = 1200) -> tuple:
+        """(exit code, output, the result's JSON or None)."""
+        p = self.procs[name]
+        p.wait(timeout=timeout)
+        with open(self.path(name) + ".log") as f:
+            text = f.read()
+        doc = None
+        if os.path.exists(self.path(name)):
+            with open(self.path(name)) as f:
+                doc = json.load(f)
+        return p.returncode, text, doc
+
+    def ended_s(self) -> float:
+        """Seconds from the start to the last output written (the wall
+        clock's file times)."""
+        return max(os.path.getmtime(os.path.join(self.tmp, f))
+                   for f in os.listdir(self.tmp)) - self.t0
+
+    def close(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def sim_failed(result) -> list:
+    return [a for a in result.asserts if not a["ok"]]
+
+
+def sim_records(events: list) -> list:
+    """The ``record full=`` lines of a result's events, without their
+    virtual instants."""
+    return [e.split(" ", 1)[1] for e in events if " record full=" in e]
+
+
+def sim_crash_store(device: str) -> tuple:
+    """crash-store on ``device`` through the engine, with the ROMix calls
+    of POST init (those under ``scrypt_labels_words``, in its thread)
+    counted over each ``App.prepare``: the full nodes prepare one after
+    another at boot, and only the restarted node prepares later, so a
+    prepare's window holds its own init alone. Returns (the result, [init
+    ROMix calls of each first boot's prepare], the restarted App's, all
+    ROMix calls in the restarted App's window: the other nodes' ATX
+    checks)."""
+    import threading
+
+    from spacemesh_tpu_torch.node.app import App
+    from spacemesh_tpu_torch.ops import romix_cuda, scrypt
+    from spacemesh_tpu_torch.sim import scenarios
+    from spacemesh_tpu_torch.sim.scenario import ScenarioEngine
+
+    in_init = threading.local()
+    calls = collections.Counter()
+    lock = threading.Lock()
+    windows = []
+    real_prepare, real_romix = App.prepare, romix_cuda.romix
+    real_words = scrypt.scrypt_labels_words
+
+    def words(*args, **kw):
+        in_init.on = True
+        try:
+            return real_words(*args, **kw)
+        finally:
+            in_init.on = False
+
+    def romix(x, n, **kw):
+        with lock:
+            calls["all"] += 1
+            calls["init"] += getattr(in_init, "on", False)
+        return real_romix(x, n, **kw)
+
+    async def prepare(self):
+        before = dict(calls)
+        try:
+            return await real_prepare(self)
+        finally:
+            windows.append((self, {k: calls[k] - before.get(k, 0)
+                                   for k in ("init", "all")}))
+
+    App.prepare, romix_cuda.romix = prepare, romix
+    scrypt.scrypt_labels_words = words
+    try:
+        eng = ScenarioEngine(scenarios.builtin("crash-store"), device=device)
+        res = eng.run()
+    finally:
+        App.prepare, romix_cuda.romix = real_prepare, real_romix
+        scrypt.scrypt_labels_words = real_words
+    require(len(windows) == len(eng.fulls) + 1
+            and windows[-1][0] is eng.fulls[SIM_RESTARTED].app,
+            f"[sim] crash-store prepared each full node once and the "
+            f"restarted one again ({len(windows)} prepares)")
+    return (res, [w["init"] for _, w in windows[:-1]],
+            windows[-1][1]["init"], windows[-1][1]["all"])
+
+
+def phase_sim(ctx: dict, device: str = "cuda") -> None:
+    """The scenario engine with its full nodes on ``device``: (a) smoke,
+    (c) crash-store (node 2 partitioned, killed and restarted over its
+    stores) and (d) the faultfs crash sweep, each against the same script
+    run by the port's CLI on the host CPU (``ctx["sim_refs"]``, started
+    with the card's phases; here if not), digests equal; (b) storm-1024
+    (4 full nodes, 1020 light relays over the sharded fabric) to the JAX
+    package's test gates. The guard is armed over the card's runs, and
+    every kernel launch of them is counted."""
+    import torch
+    from spacemesh_tpu_torch.sim import scenarios
+    from spacemesh_tpu_torch.utils import metrics
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    refs = ctx.get("sim_refs") or SimReferences()
+    out = {}
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            GUARD.start()
+        try:
+            t0 = time.perf_counter()
+            out["smoke"] = scenarios.run(scenarios.builtin("smoke"),
+                                         device=device)
+            out["smoke_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            (out["crash-store"], first_romix, restart_romix,
+             restart_window) = sim_crash_store(device)
+            out["crash-store_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["crash-recovery"] = scenarios.run(
+                scenarios.builtin("crash-recovery"), device=device)
+            out["crash-recovery_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            out["storm"] = scenarios.run(scenarios.builtin(SIM_STORM),
+                                         device=device)
+            out["storm_s"] = time.perf_counter() - t0
+            if on_card:
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated(),
+                        torch.cuda.max_memory_reserved())
+        finally:
+            if on_card:
+                twins = GUARD.stop()
+                launches = launch_counts()
+        # the CPU's runs, outside the guard (other processes)
+        t0 = time.perf_counter()
+        cpu = {}
+        for name in SIM_CPU_CHECKS:
+            rc, text, cpu[name] = refs.wait(name)
+            require(rc == 0 and cpu[name] is not None, f"[sim] the CLI's "
+                    f"{name} on the CPU exited {rc}: {text[-2000:]}")
+        rc_default, text_default, _ = refs.wait("default", 300)
+        out["cli_wait_s"] = time.perf_counter() - t0
+        refs_s = refs.ended_s()
+    finally:
+        refs.close()
+
+    for name in SIM_CPU_CHECKS:
+        r = out[name]
+        require(r.ok, f"[sim] {name} on {device} holds every assert "
+                f"({sim_failed(r)})")
+        require(cpu[name]["ok"], f"[sim] {name} on the CPU holds every assert")
+        require(r.digest == cpu[name]["digest"], f"[sim] {name}'s digest on "
+                f"{device} == the CPU's ({r.digest} vs "
+                f"{cpu[name]['digest']})")
+    for name in ("smoke", "crash-store"):
+        require(sim_records(out[name].events)
+                == sim_records(cpu[name]["events"]),
+                f"[sim] {name}'s record lines on {device} == the CPU's")
+    kinds = {a["kind"]: a for a in out["crash-store"].asserts}
+    require(kinds["converged"]["ok"], f"[sim] crash-store converged "
+            f"({kinds['converged']})")
+    require(len(first_romix) == 3 and all(c > 0 for c in first_romix),
+            f"[sim] each of crash-store's 3 first boots ran its POST init's "
+            f"ROMix in prepare() ({first_romix})")
+    require(restart_romix == 0, f"[sim] the restarted node's prepare() "
+            f"launched no ROMix ({restart_romix})")
+    crash = {a["kind"]: a for a in out["crash-recovery"].asserts}
+    require(crash["bit_identical"]["ok"] and crash["enospc_degraded"]["ok"],
+            "[sim] crash-recovery: every store bit-identical, ENOSPC degraded")
+    recovered = sum(e["reboots"] for e in out["crash-recovery"].events
+                    if e["phase"] == "crash")
+    require(crash["recovered"]["ok"] and recovered >= 3,
+            f"[sim] crash-recovery recovered at least 3 times ({recovered})")
+    require(rc_default == 2 and "device='cuda'" in text_default,
+            f"[sim] the CLI with no card and no --device exits 2 with the "
+            f"device error (exit {rc_default}: {text_default[-300:]})")
+
+    storm = out["storm"]
+    skinds = {a["kind"]: a for a in storm.asserts}
+    delivered = storm.stats["hub"]["delivered"]
+    require(storm.ok, f"[sim] {SIM_STORM} holds every assert "
+            f"({sim_failed(storm)})")
+    require(skinds["converged"]["ok"] and skinds["slo_green"]["ok"],
+            f"[sim] {SIM_STORM} converged with green SLOs")
+    require(delivered > SIM_STORM_DELIVERED, f"[sim] {SIM_STORM}'s hub "
+            f"delivered more than {SIM_STORM_DELIVERED} ({delivered})")
+    shards = next(int(e.rsplit("=", 1)[1]) for e in storm.events
+                  if " fabric shards=" in e)
+    imbalance = next(iter(metrics.sim_shard_imbalance.sample().values()),
+                     None)
+    barrier_waits = sum(metrics.sim_shard_barrier_waits.sample().values())
+
+    res = {"s": {k[:-2]: round(v, 1) for k, v in out.items()
+                 if k.endswith("_s")},
+           "refs_s": round(refs_s, 1),
+           "digests": {n: out[n].digest for n in SIM_CPU_CHECKS},
+           "storm": dict(delivered=delivered, shards=shards,
+                         workers=shards - 1, imbalance=imbalance,
+                         barrier_waits=barrier_waits),
+           "restart_romix": restart_romix, "first_romix": first_romix,
+           "restart_window_romix": restart_window, "recovered": recovered}
+    for name in SIM_CPU_CHECKS:
+        log(f"[sim] {name}: ok on {device} in {res['s'][name]:.1f} s and "
+            f"on the CPU by the CLI; digest {out[name].digest} on both")
+    log(f"[sim] crash-store: node {SIM_RESTARTED} killed and restarted, "
+        f"converged; POST init's ROMix calls in prepare(): first boots "
+        f"{first_romix}, the restart {restart_romix} (all ROMix calls in "
+        f"its window, the peers' ATX checks: {restart_window}); "
+        f"crash-recovery: {recovered} crash/reboot cycles, every store "
+        f"bit-identical, ENOSPC degraded")
+    log(f"[sim] {SIM_STORM}: ok, converged, SLOs green, in "
+        f"{res['s']['storm']:.1f} s wall; {delivered} delivered; {shards} "
+        f"shards ({shards - 1} worker processes), sim_shard_imbalance_ratio "
+        f"{imbalance}, {barrier_waits:.0f} barrier waits")
+    log(f"[sim] the CPU's CLI runs (nice 19, from the start of the card's "
+        f"phases) ended {res['refs_s']} s after their start; "
+        f"{res['s']['cli_wait']:.1f} s waited for here; the CLI with no "
+        f"card and no --device exited 2")
+    if on_card:
+        require_no_twins(twins, "[sim]")
+        res["launches"] = launches
+        res["peak_gib"] = [round(b / 2**30, 2) for b in peak]
+        log(f"[sim] launches {json.dumps(launches)}; the card's peak over "
+            f"{SIM_STORM}: {res['peak_gib'][0]} GiB allocated, "
+            f"{res['peak_gib'][1]} GiB reserved")
+    log(f"[sim] phase {time.perf_counter() - t_phase:.1f} s; {ctx['smi']}")
+    ctx["sim"] = res
+
+
 def main() -> int:
     import torch
 
@@ -7570,6 +7889,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     run(phase_device)
+    # [sim]'s CPU references run from here on, on the cores left idle
+    ctx["sim_refs"] = SimReferences()
     run(phase_native)
     run(phase_romix)
     GUARD.install()
@@ -7579,7 +7900,7 @@ def main() -> int:
                   phase_consensus, phase_mesh):
         run(phase)
     ctx["atx"]["tmp"].cleanup()
-    for phase in (phase_node, phase_api, phase_trace):
+    for phase in (phase_node, phase_api, phase_trace, phase_sim):
         run(phase)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
@@ -7615,6 +7936,7 @@ def main() -> int:
         extra[key]["mesh_launches"] = ctx["mesh"]["launches"][key]
         extra[key]["node_launches"] = ctx["node"]["launches"][key]
         extra[key]["api_launches"] = ctx["api"]["launches"][key]
+        extra[key]["sim_launches"] = ctx["sim"]["launches"][key]
         twins = ctx["verifyd"]["twins"]
         if all(key in errs for errs in twins.values()):
             extra[key]["verifyd_max_abs_err"] = {

@@ -638,6 +638,41 @@ fleet_audit_divergence = REGISTRY.counter(
     "fleet_audit_divergence_total",
     "remote batches whose spot-checked verdicts diverged from the "
     "local farm — byzantine replica detections (label: replica)")
+# sim fabric (sim/net.py EventMeshHub): the O(edges-that-matter) claim
+# made observable.  Hot paths bump plain ints; the hub flushes deltas
+# once per heartbeat so a million-frame storm costs the registry ~one
+# inc per virtual second, not per frame.
+sim_fabric_events = REGISTRY.counter(
+    "sim_fabric_events_total",
+    "event-wheel calendar entries (labels: kind=scheduled|fired)")
+sim_fabric_dirty = REGISTRY.gauge(
+    "sim_fabric_heartbeat_dirty_nodes",
+    "mesh nodes with pending control-plane work after the last beat "
+    "(idle nodes cost zero — this staying << population is the win)")
+sim_fabric_cache = REGISTRY.counter(
+    "sim_fabric_cache_total",
+    "fault-epoch cache lookups on reachable()/neighbors() "
+    "(labels: result=hit|miss)")
+
+# sharded fabric (sim/shard.py): the multi-process event wheel's
+# conservative-window exchange plane
+sim_shard_events = REGISTRY.counter(
+    "sim_shard_events_total",
+    "per-shard event-wheel activity merged at finalize "
+    "(labels: shard, kind=fired)")
+sim_shard_barrier_waits = REGISTRY.counter(
+    "sim_shard_barrier_waits_total",
+    "cross-shard exchange rounds (settlements + window grants) — the "
+    "synchronization cost of the conservative protocol")
+sim_shard_imbalance = REGISTRY.gauge(
+    "sim_shard_imbalance_ratio",
+    "(max - min) / max of events fired across shards at finalize — "
+    "0 is a perfectly balanced partition")
+sim_shard_worker_stats = REGISTRY.gauge(
+    "sim_shard_worker_stat",
+    "WORKER-side event-wheel stats set in the worker's own registry "
+    "just before each federated snapshot ships (labels: shard, stat); "
+    "the parent re-exposes them under proc=shard-<k> via obs.federate")
 federated_procs = REGISTRY.gauge(
     "federated_procs",
     "processes with a live federated snapshot in obs.federate "

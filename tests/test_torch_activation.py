@@ -820,6 +820,40 @@ def test_certifier_daemon_and_client_cross_packages(cert_world):
     assert out["port"][0] == svc.pubkey
 
 
+def test_certifier_client_answers_an_identity_from_its_cache(cert_world):
+    """Once a client holds an identity's certificate, it answers that
+    identity's later requests from its cache without asking the daemon,
+    whatever proof they carry, in both packages: a check that a tampered
+    proof is refused needs a client that has not certified the identity
+    (``chip_smoke.py``'s ``[atx]`` certifier check)."""
+    proof, kw = cert_world
+    svc = cert.CertifierService(signer(22), PARAMS, scrypt_n=N,
+                                device="cpu")
+
+    async def go():
+        daemon = cert.CertifierDaemon(svc)
+        addr = await daemon.start()
+        try:
+            for client_cls, pr in ((cert.CertifierClient, proof),
+                                   (jcert.CertifierClient,
+                                    jprover.Proof(**proof.to_dict()))):
+                client = client_cls(addr, timeout=60)
+                good = await asyncio.to_thread(
+                    lambda: client.certificate(proof=pr, **kw))
+                bad = _tampered_proof(pr)
+                again = await asyncio.to_thread(
+                    lambda: client.certificate(proof=bad, **kw))
+                assert again is good
+                with pytest.raises(RuntimeError, match="failed verification"):
+                    await asyncio.to_thread(
+                        lambda: client_cls(addr, timeout=60).certificate(
+                            proof=bad, **kw))
+        finally:
+            await daemon.stop()
+
+    asyncio.run(go())
+
+
 def test_certifier_server_cli_serves(cert_world):
     """``python -m spacemesh_tpu_torch.tools.certifier_server`` on the CPU
     prints its address and certifies over it."""

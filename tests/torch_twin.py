@@ -3,8 +3,9 @@
 ``load(name)`` reads ``tests/<name>.py``, names ``spacemesh_tpu_torch``
 wherever it named ``spacemesh_tpu``, and builds the port components these
 tests construct that default to the card (``App``, malfeasance's
-``Handler``, ``PostClient``, ``PostSupervisor``, ``initializer.initialize``
-and ``verifier.verify``) with ``device="cpu"``, and the node CLI they
+``Handler``, ``PostClient``, ``PostSupervisor``, the sim's
+``run_scenario``, ``initializer.initialize`` and ``verifier.verify``) with
+``device="cpu"``, and the node CLI they
 spawn (``-m spacemesh_tpu_torch.node``) with ``--device cpu``; a
 ``tests.<other>`` module it imports (``import tests.<other> as x`` or
 ``from tests.<other> import a, b``) is that module's twin.
@@ -13,6 +14,7 @@ test file's namespace, with a module fixture that pins torch to one thread
 (xdist workers otherwise spin one OpenMP thread per core each).
 """
 
+import contextlib
 import functools
 import pathlib
 import re
@@ -27,7 +29,7 @@ TESTS = pathlib.Path(__file__).resolve().parent
 # ``device`` defaults to "cuda" (the last two qualified by their module, so
 # that no other ``initialize``/``verify`` method is touched)
 _ON_CARD = ("App", "Handler", "PostClient", "PostSupervisor",
-            r"initializer\.initialize", r"verifier\.verify")
+            "run_scenario", r"initializer\.initialize", r"verifier\.verify")
 _CALL = re.compile(r"(?<![\w.])((?:[A-Za-z_]\w*\.)*(?:%s))\("
                    % "|".join(_ON_CARD))
 
@@ -104,3 +106,89 @@ def export(name: str, ns: dict, only=None) -> pytypes.ModuleType:
             ns[key] = val
     ns["_one_torch_thread"] = _one_torch_thread
     return mod
+
+
+@contextlib.contextmanager
+def hashlib_post():
+    """The port's POST hashing on CPU tensors answered from ``hashlib``,
+    the ground truth: the label recomputes (``ops/scrypt.py``'s
+    ``scrypt_labels_words`` and ``scrypt_labels_hash``, with the proving
+    hash of the port's plain twin) from ``hashlib.scrypt``, and k2pow's
+    search windows (``ops/pow_cuda.py:search_window``) from
+    ``hashlib.sha256``; each is first held to the function it stands in
+    for on seeded inputs. The sim's network scenarios run a few full
+    nodes whose POST inits, ATX checks and k2pow searches on the CPU are
+    mostly the plain SHA-256 twin's thousands of tiny torch calls; the
+    plain twins are held to hashlib in their own tests."""
+    import hashlib
+
+    import numpy as np
+
+    from spacemesh_tpu_torch.ops import pow_cuda, proving_cuda, scrypt, u32
+
+    def labels(cw, lo, hi, n):
+        cw = u32.to_numpy(cw)
+        idx = (u32.to_numpy(lo).astype(np.uint64)
+               | u32.to_numpy(hi).astype(np.uint64) << np.uint64(32))
+        if cw.ndim == 1:
+            cw = np.repeat(cw[:, None], idx.size, axis=1)
+        return np.frombuffer(b"".join(
+            hashlib.scrypt(cw[:, b].astype(">u4").tobytes(),
+                           salt=int(i).to_bytes(8, "little"), n=n, r=1,
+                           p=1, dklen=16) for b, i in enumerate(idx)),
+            dtype=np.uint8).reshape(-1, 16)
+
+    def be_words(lab):
+        return u32.from_numpy(np.frombuffer(lab.tobytes(), dtype=">u4")
+                              .reshape(-1, 4).T.astype(np.uint32))
+
+    def words(cw, lo, hi, *, n):
+        return be_words(labels(cw, lo, hi, n))
+
+    def hashed(cw, lo, hi, ch, nonce, *, n, words_out=False):
+        lab = labels(cw, lo, hi, n)
+        vals = proving_cuda.proving_hash(
+            ch, nonce, lo, hi, u32.from_numpy(scrypt.labels_to_words(lab)))
+        return vals, be_words(lab) if words_out else None
+
+    real_window = pow_cuda.search_window
+
+    def window(block1_words, target, start, count, found, device, **kw):
+        if found.device.type != "cpu":
+            return real_window(block1_words, target, start, count, found,
+                               device, **kw)
+        best = pow_cuda.cell_value(found)
+        block1 = np.asarray(block1_words, dtype=np.uint32).astype(
+            ">u4").tobytes()
+        tgt = np.asarray(target, dtype=np.uint32).astype(">u4").tobytes()
+        for nonce in range(start, min(start + count, best)):
+            if hashlib.sha256(block1 + nonce.to_bytes(8, "little")
+                              ).digest() < tgt:
+                best = nonce
+                break
+        found.fill_(best - (1 << 64) if best >= 1 << 63 else best)
+
+    rng = np.random.default_rng(5)
+    cw = u32.from_numpy(rng.integers(0, 2**32, (8, 6), dtype=np.uint32))
+    lo, ch = (u32.from_numpy(rng.integers(0, 2**32, s, dtype=np.uint32))
+              for s in (6, (8, 6)))
+    hi = u32.from_numpy(rng.integers(0, 3, 6, dtype=np.uint32))
+    nonce = u32.from_numpy(rng.integers(0, 2**32, 6, dtype=np.uint32))
+    assert torch.equal(words(cw[:, 0], lo, hi, n=2),
+                       scrypt.scrypt_labels_words(cw[:, 0], lo, hi, n=2))
+    got = hashed(cw, lo, hi, ch, nonce, n=4, words_out=True)
+    want = scrypt.scrypt_labels_hash(cw, lo, hi, ch, nonce, n=4,
+                                     words_out=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    block1 = rng.integers(0, 2**32, 16, dtype=np.uint32)
+    for lead, start, count in ((0x20, 5, 600), (0x01, 0, 300)):
+        target = np.array([lead << 24] + [0xFFFFFFFF] * 7, dtype=np.uint32)
+        cells = [pow_cuda.new_cell("cpu") for _ in range(2)]
+        for fn, cell in zip((window, real_window), cells):
+            fn(block1, target, start, count, cell, "cpu")
+        assert pow_cuda.cell_value(cells[0]) == pow_cuda.cell_value(cells[1])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(scrypt, "scrypt_labels_words", words)
+        mp.setattr(scrypt, "scrypt_labels_hash", hashed)
+        mp.setattr(pow_cuda, "search_window", window)
+        yield
