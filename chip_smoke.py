@@ -346,6 +346,29 @@ package. Phases, each printed as it runs:
    delivered; its wall, shards and worker processes,
    ``sim_shard_imbalance_ratio``, the card's peak memory, and every
    kernel's launches over the card's runs, inside the guard;
+12b. [tune] the ROMix autotuner and the device mesh (``ops/autotune.py``,
+   ``tools/warmcache.py``, ``parallel/``); every earlier phase runs with
+   ``SPACEMESH_ROMIX_AUTOTUNE=off`` over the script's fresh cache root
+   (``SPACEMESH_TORCH_CACHE``). (a) ``python -m
+   spacemesh_tpu_torch.tools.warmcache --n 8192`` twice on one empty cache
+   root, racing on: the cold run builds the four libraries and races once,
+   the warm run builds and races nothing and reads the same winners; both
+   wall times. (b) the race's rows at N=8192 (the unchunked kernel and the
+   JAX grid's lane chunk, at the calibration batch of 32768 lanes): each
+   row's labels/s and the winner; each row's labels equal the unchunked
+   row's (max_abs_err 0) and 16 sampled lanes equal ``hashlib.scrypt``.
+   (c) two stripes on the one card (``data_mesh(["cuda:0", "cuda:0"])``,
+   a stream each) against the single-device path, max_abs_err 0: the
+   striped labels and labels + min-scan at 32768 lanes, ``init_step_
+   sharded``'s three statistics against the label bytes, a striped
+   ``initialize()`` of 2^18 labels (postdata and VRF nonce equal to a
+   single-device init's, ``post_mesh_devices`` 2), a prove step over its
+   stored labels (hit counts and carry) and a ``Prover`` over it, and the
+   verify recompute of the main path's proofs over two stripes (its
+   verdicts). (d) the profiler's ``--warm`` (0 races, 0 builds) and
+   ``--romix`` (its ``impls`` list (b)'s rows and one winner) on (a)'s
+   root. The launch counts are zeroed before (b) and read after (d),
+   under the plain-twin guard;
 13. a JSON line of per-kernel launches, times and bounds, each time taken
    at the shape the main path launches the kernel at (the scan's 2^24
    times beside it under ``full_width``, the PBKDF2 pair's packed-init
@@ -356,7 +379,7 @@ package. Phases, each printed as it runs:
    validation and its flood; ``node_launches``: ``[node]`` (a) and (b);
    ``api_launches``: ``[api]``'s A, in this process; ``tools_launches``:
    ``[tools]``'s profiler views; ``sim_launches``: ``[sim]``'s runs on the
-   card). ``path`` names the
+   card; ``tune_launches``: ``[tune]`` (b)-(d)). ``path`` names the
    path whose count ``launches``
    is: the main path's, but for k2pow verify, which only the verification
    paths run (``[verifyd]``'s warm run; ``main_launches`` 0), and
@@ -1443,6 +1466,9 @@ def phase_main_path(ctx: dict) -> None:
 
         require(verdicts == [True, False],
                 f"verify_many verdicts {verdicts} == [True, False]")
+        ctx["main"] = dict(node=node, commitment=commitment,
+                           items=[item, bad_item], params=params,
+                           verdicts=verdicts)
         labels = np.stack([np.frombuffer(hashlib.scrypt(
             commitment, salt=i.to_bytes(8, "little"), n=N_MAIN, r=1, p=1,
             dklen=16), dtype=np.uint8) for i in proof.indices])
@@ -2298,9 +2324,10 @@ def phase_verifyd(ctx: dict) -> None:
     taps = []
     widest: dict = {"b": 0}
 
-    def tap_hash(cw, idx_lo, idx_hi, ch, nonce, *, n, words_out=False):
+    def tap_hash(cw, idx_lo, idx_hi, ch, nonce, *, n, words_out=False,
+                 chunk=tscrypt.TUNED):
         values, words = real_hash(cw, idx_lo, idx_hi, ch, nonce, n=n,
-                                  words_out=True)
+                                  words_out=True, chunk=chunk)
         b = idx_lo.shape[0]
         ends = [torch.stack([t[..., 0], t[..., b - 1]], -1)
                 for t in (cw, idx_lo, idx_hi, words)]
@@ -8146,6 +8173,278 @@ def phase_sim(ctx: dict, device: str = "cuda") -> None:
     log(f"[sim] phase {time.perf_counter() - t_phase:.1f} s; {ctx['smi']}")
     ctx["sim"] = res
 
+# [tune]: the ROMix autotuner and the device mesh (ops/autotune.py,
+# tools/warmcache.py, parallel/) on the card, last, from a fresh cache root
+TUNE_LANES = 1 << 15          # the race's calibration batch on the card
+TUNE_INIT_LABELS = 1 << 18    # (c): the striped and single-device inits
+TUNE_STRIPES = ("cuda:0", "cuda:0")  # two stripes, two streams, one card
+TUNE_SAMPLES = 16             # (b): lanes held to hashlib per raced row
+TUNE_LIBS = ["k2pow", "pbkdf2", "proving_scan", "romix"]
+
+
+def tune_warmcache(root: str) -> tuple:
+    """(a) ``python -m spacemesh_tpu_torch.tools.warmcache --n 8192`` on an
+    empty cache root, racing on: its JSON document and wall seconds."""
+    env = dict(os.environ, SPACEMESH_TORCH_CACHE=root)
+    env.pop("SPACEMESH_ROMIX_AUTOTUNE", None)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "spacemesh_tpu_torch.tools.warmcache", "--n",
+         str(N_MAIN)], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    require(out.returncode == 0, f"[tune] (a) warmcache exits 0 "
+            f"({out.returncode}: {out.stderr[-3000:]})")
+    for line in out.stderr.splitlines():
+        if line.startswith("romix autotune:"):
+            log(f"[tune] (a) {line}")
+    return json.loads(out.stdout), wall
+
+
+def phase_tune(ctx: dict) -> None:
+    """[tune]: (a) warmcache cold then warm in a subprocess each on one
+    empty cache root; (b) the race's rows at N=8192 read back, each row's
+    labels at the calibration batch equal to the unchunked row's and to
+    hashlib; (c) two stripes on the one card, each on its own stream,
+    against the single-device path: the striped labels, the min-scan,
+    init's statistics, a prove step over 2^18 stored labels, the verify
+    recompute of the main path's proofs, a striped ``initialize()`` and a
+    ``Prover`` over it; (d) the profiler's ``--warm`` and ``--romix``
+    views on (a)'s root. The launch counts are zeroed before (b) and read
+    after (d); every launch of (b)-(d) runs under the plain-twin guard."""
+    import numpy as np
+    import torch
+    from spacemesh_tpu_torch.ops import autotune, proving, scrypt, u32
+    from spacemesh_tpu_torch.parallel import mesh as pmesh
+    from spacemesh_tpu_torch.parallel import topology
+    from spacemesh_tpu_torch.post import initializer, prover, verifier
+    from spacemesh_tpu_torch.post.data import LabelStore
+    from spacemesh_tpu_torch.utils import metrics
+
+    def races() -> float:
+        return sum(metrics.post_romix_autotune_races.sample().values())
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the race's subprocess sizes V by free memory
+    res: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip-tune-") as root:
+        cold, cold_s = tune_warmcache(root)
+        warm, warm_s = tune_warmcache(root)
+        require(cold["built"] == TUNE_LIBS and cold["races"] == 1,
+                f"[tune] (a) the cold run built the four libraries and "
+                f"raced once ({cold['built']}, {cold['races']} races)")
+        require(warm["built"] == [] and warm["races"] == 0,
+                f"[tune] (a) the warm run built nothing and raced nothing "
+                f"({warm['built']}, {warm['races']} races)")
+        require([(x["impl"], x["chunk"]) for x in warm["shapes"]]
+                == [(x["impl"], x["chunk"]) for x in cold["shapes"]],
+                "[tune] (a) the warm run reads the cold run's winners")
+        log(f"[tune] (a) warmcache --n {N_MAIN}: cold {cold_s:.1f} s wall "
+            f"(builds {json.dumps(cold['compile_s'])} s, {cold['races']} "
+            f"race, {cold['elapsed_s']} s inside), warm {warm_s:.1f} s wall "
+            f"({warm['races']} races, nothing built, {warm['elapsed_s']} s "
+            f"inside); winners {json.dumps([(x['batch'], x['chunk']) for x in cold['shapes']])}")
+        res.update(cold_s=round(cold_s, 1), warm_s=round(warm_s, 1),
+                   compile_s=cold["compile_s"])
+
+        # (b)-(d) in this process, on (a)'s winners, racing on
+        prev_root = os.environ["SPACEMESH_TORCH_CACHE"]
+        os.environ["SPACEMESH_TORCH_CACHE"] = root
+        os.environ.pop("SPACEMESH_ROMIX_AUTOTUNE", None)
+        autotune.reset_memo()
+        races0 = races()
+        zero_launches()
+        GUARD.start()
+        with open(autotune.cache_path()) as f:
+            meas = json.load(f)[autotune._meas_key("cuda", N_MAIN)]
+        rows = autotune.raced_rows("cuda", N_MAIN)
+        lanes = meas["cal_batch"]
+        win = autotune.decide(N_MAIN, lanes, platform="cuda")
+        require(races() == races0 and win.source == "race",
+                "[tune] (b) the winner comes from (a)'s measurements")
+        main = ctx["main"]
+        cw_h = scrypt.commitment_to_words(main["commitment"])
+        lo_h, hi_h = scrypt.split_indices(np.arange(lanes, dtype=np.uint64))
+        cw, lo, hi = (u32.from_numpy(a, "cuda") for a in (cw_h, lo_h, hi_h))
+        ref = None
+        picks = np.random.default_rng(5).choice(lanes, TUNE_SAMPLES,
+                                                replace=False)
+        for r in sorted(rows, key=lambda r: r["chunk"] or 0):
+            words = scrypt.scrypt_labels_words(cw, lo, hi, n=N_MAIN,
+                                               chunk=r["chunk"])
+            if ref is None:
+                ref = words
+            err = max_abs_err(words, ref)
+            require(err == 0, f"[tune] (b) the chunk={r['chunk']} row's "
+                    f"labels == the unchunked row's (max_abs_err {err})")
+            got = np.frombuffer(scrypt.labels_to_bytes(words[:, picks]),
+                                dtype=np.uint8).reshape(-1, 16)
+            with GUARD.paused():
+                for j, i in enumerate(picks.tolist()):
+                    require(bytes(got[j]) == hashlib.scrypt(
+                        main["commitment"], salt=i.to_bytes(8, "little"),
+                        n=N_MAIN, r=1, p=1, dklen=16),
+                        f"[tune] (b) lane {i} == hashlib.scrypt")
+            log(f"[tune] (b) row chunk={r['chunk']} devices={r['devices']}: "
+                f"{r['labels_per_sec']:.0f} labels/s at {lanes} lanes "
+                f"(first call {r.get('compile_s')} s)"
+                + (" <- winner" if (r["chunk"], r["devices"])
+                   == (win.chunk, win.devices) else "")
+                + f"; labels == unchunked (max_abs_err {err}), "
+                f"{TUNE_SAMPLES} lanes == hashlib")
+        res["rows"] = rows
+        res["winner"] = win.as_json()
+
+        # (c) two stripes on the one card
+        mesh = pmesh.data_mesh(list(TUNE_STRIPES))
+        lay = pmesh.lane_sharding(mesh)
+        require(mesh.size == 2 and lay.streams[0] is not lay.streams[1],
+                "[tune] (c) two stripes, each on its own stream")
+        parts = pmesh.scrypt_labels_sharded(mesh, cw_h, lo_h, hi_h, n=N_MAIN)
+        torch.cuda.synchronize()
+        errs = {"labels": max_abs_err(torch.cat(parts, 1), ref)}
+        carry0 = scrypt.vrf_carry_init()
+        w1, _, snap1 = scrypt.scrypt_labels_with_min(
+            cw, lo, hi, u32.from_numpy(carry0, "cuda"), n=N_MAIN, chunk=None)
+        w2, carry2, snap2 = pmesh.labels_with_min_sharded(
+            mesh, cw_h, lo_h, hi_h, carry0, n=N_MAIN)
+        torch.cuda.synchronize()
+        errs["labels_min"] = max_abs_err(torch.cat(w2, 1), w1)
+        errs["min_snapshot"] = max_abs_err(snap2, snap1)
+        errs["min_carry"] = max(max_abs_err(c, snap1) for c in carry2)
+        thr = proving.threshold_u32(26, TUNE_INIT_LABELS)
+        _, q, mhi, mlo = pmesh.init_step_sharded(mesh, cw_h, lo_h, hi_h, thr,
+                                                 n=N_MAIN)
+        with GUARD.paused():  # from the label bytes, as the JAX test does
+            lab = np.frombuffer(scrypt.labels_to_bytes(ref),
+                                dtype=np.uint8).reshape(-1, 16)
+            k_hi = lab[:, 12:16].copy().view("<u4").ravel()
+            k_lo = lab[:, 8:12].copy().view("<u4").ravel()
+            first = lab[:, 0:4].copy().view(">u4").ravel()
+            want = (int((first < thr).sum()), int(k_hi.min()),
+                    int(k_lo[k_hi == k_hi.min()].min()))
+        got3 = (int(q), int(mhi), int(mlo))
+        require(got3 == want, f"[tune] (c) init_step_sharded's statistics "
+                f"{got3} == the single-device words' {want}")
+        for key, err in errs.items():
+            require(err == 0, f"[tune] (c) striped {key} == single-device "
+                    f"(max_abs_err {err})")
+        log(f"[tune] (c) {lanes} lanes over {list(TUNE_STRIPES)}: labels, "
+            f"labels + min-scan (words, snapshot, both stripes' carries) == "
+            f"one device ({json.dumps(errs)}); init statistics "
+            f"(qualifying, min_hi, min_lo) {got3} == the words'")
+
+        # (c) a striped init of 2^18 labels against a single-device one,
+        # then a prove step and a Prover over the stored labels
+        stores = {}
+        for tag, m in (("one", None), ("two", mesh)):
+            d = os.path.join(root, f"init-{tag}")
+            t0 = time.perf_counter()
+            meta, ires = initializer.initialize(
+                d, node_id=main["node"], commitment=main["commitment"],
+                num_units=1, labels_per_unit=TUNE_INIT_LABELS,
+                scrypt_n=N_MAIN, batch_size=INIT_BATCH, mesh=m,
+                device="cuda")
+            stores[tag] = (d, meta, time.perf_counter() - t0, ires)
+            if tag == "two":
+                devices = metrics.post_mesh_devices.sample().get(())
+                imbalance = metrics.post_mesh_shard_imbalance.sample().get(())
+        data = {}
+        for tag, (d, meta, _, _) in stores.items():
+            st = LabelStore(d, meta)
+            try:
+                data[tag] = st.read_labels(0, TUNE_INIT_LABELS)
+            finally:
+                st.close()
+        one, two = stores["one"][1], stores["two"][1]
+        require(data["one"] == data["two"]
+                and (one.vrf_nonce, one.vrf_nonce_value)
+                == (two.vrf_nonce, two.vrf_nonce_value) and devices == 2,
+                f"[tune] (c) the striped init's postdata and VRF nonce == "
+                f"the single-device init's (post_mesh_devices {devices})")
+        labels = np.frombuffer(data["one"], dtype=np.uint8).reshape(-1, 16)
+        plo, phi = scrypt.split_indices(
+            np.arange(TUNE_INIT_LABELS, dtype=np.uint64))
+        lw = scrypt.labels_to_words(labels)
+        pthr = proving.threshold_u32(26, TUNE_INIT_LABELS)
+        ch = proving.challenge_words(hashlib.sha256(b"chip-tune").digest())
+        c1, k1_ = proving.init_hit_state(SCAN_NONCES, 37, "cuda")
+        s1 = proving.prove_scan_step(
+            ch, 0, u32.from_numpy(plo, "cuda"), u32.from_numpy(phi, "cuda"),
+            u32.from_numpy(lw, "cuda"), pthr, c1, k1_, TUNE_INIT_LABELS, 0,
+            0, n_nonces=SCAN_NONCES, max_hits=37)
+        c2, k2_ = proving.init_hit_state(SCAN_NONCES, 37, "cuda")
+        s2 = pmesh.prove_step_sharded(
+            mesh, ch, 0, plo, phi, lw, pthr, c2, k2_, TUNE_INIT_LABELS, 0, 0,
+            n_nonces=SCAN_NONCES, max_hits=37)
+        torch.cuda.synchronize()
+        perr = max(max_abs_err(a, b) for a, b in zip(s1, s2))
+        require(perr == 0, f"[tune] (c) prove_step_sharded's hit counts, "
+                f"batch counts and hit carry == one device's "
+                f"(max_abs_err {perr})")
+        challenge = hashlib.sha256(b"chip-tune-prove").digest()
+        params = prover.ProofParams()
+        proofs = [prover.Prover(stores["one"][0], params,
+                                batch_labels=1 << 16, mesh=m,
+                                device="cuda").prove(challenge)
+                  for m in (None, mesh)]
+        require(proofs[0] == proofs[1], "[tune] (c) the striped Prover's "
+                "proof == the single-device Prover's")
+        # the verifier stripes when the topology shows two stripes
+        topology.reset(list(TUNE_STRIPES))
+        try:
+            fh0 = launch_counts()["pbkdf2_finish_hash"]
+            verdicts = verifier.verify_many(main["items"], main["params"],
+                                            device="cuda")
+            fh = launch_counts()["pbkdf2_finish_hash"] - fh0
+        finally:
+            topology.reset()
+        require(verdicts == main["verdicts"] and fh == 2,
+                f"[tune] (c) the striped verify recompute's verdicts "
+                f"{verdicts} == the main path's {main['verdicts']} "
+                f"({fh} finish_hash launches, one per stripe)")
+        log(f"[tune] (c) initialize({TUNE_INIT_LABELS} labels, mesh of 2 "
+            f"stripes) {stores['two'][2]:.2f} s, "
+            f"{stores['two'][3].labels_per_s:.0f} labels/s (one device "
+            f"{stores['one'][2]:.2f} s, {stores['one'][3].labels_per_s:.0f} "
+            f"labels/s): postdata and VRF nonce {two.vrf_nonce} equal, "
+            f"post_mesh_devices {devices}, stripe imbalance "
+            f"{imbalance:.3f}; prove step over the store (hits, carry) "
+            f"equal; Prover proof nonce {proofs[1].nonce} equal; verify "
+            f"recompute verdicts {verdicts} over 2 stripes")
+        res.update(striped_init_s=round(stores["two"][2], 2),
+                   single_init_s=round(stores["one"][2], 2))
+
+        # (d) the profiler's --warm and --romix views on (a)'s root
+        wdoc, wsec = tools_view(["--warm", "--n", str(N_MAIN)])
+        require(wdoc["races"] == 0 and wdoc["built"] == []
+                and [(x["impl"], x["chunk"]) for x in wdoc["shapes"]]
+                == [(x["impl"], x["chunk"]) for x in cold["shapes"]],
+                f"[tune] (d) --warm on (a)'s root: 0 races, 0 builds, its "
+                f"winners (races {wdoc['races']}, built {wdoc['built']})")
+        rdoc, rsec = tools_view(["--romix", "--n", str(N_MAIN),
+                                 "--romix-batch", str(lanes)])
+        raced = rdoc["impls"][1:]
+        require([(x["chunk"], x["labels_per_sec"]) for x in raced]
+                == [(x["chunk"], x["labels_per_sec"]) for x in rows]
+                and sum(x["winner"] for x in raced) == 1,
+                f"[tune] (d) --romix's impls list (b)'s rows and one winner "
+                f"({json.dumps(raced)})")
+        torch.cuda.synchronize()
+        res["launches"] = launch_counts()
+        twins = GUARD.stop()
+        require(races() == races0, "[tune] (b)-(d) raced nothing")
+        log(f"[tune] (d) profiler --warm {wsec:.1f} s (0 races, 0 builds); "
+            f"--romix impls {json.dumps(raced)} ({rsec:.1f} s)")
+    require_no_twins(twins, "[tune]")
+    os.environ["SPACEMESH_TORCH_CACHE"] = prev_root
+    os.environ["SPACEMESH_ROMIX_AUTOTUNE"] = "off"
+    autotune.reset_memo()
+    log(f"[tune] launches over (b)-(d) {json.dumps(res['launches'])}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s; {ctx['smi']}")
+    ctx["tune"] = res
+
 
 def main() -> int:
     import torch
@@ -8155,6 +8454,26 @@ def main() -> int:
         return 2
     ctx: dict = {}
     phase_s: dict[str, float] = {}  # each phase's wall seconds, in order
+    # a fresh cache root (the kernel libraries and the autotuner's winners:
+    # no winner of an earlier run turns a race into a cache hit), and no
+    # autotune race before [tune]: the earlier phases run the default
+    # decision (the unchunked kernel on one card), their times stay
+    # comparable with earlier runs', and no two of their processes race on
+    # the card at once
+    cache_root = tempfile.mkdtemp(prefix="chip-smoke-cache-")
+    os.environ["SPACEMESH_TORCH_CACHE"] = cache_root
+    os.environ["SPACEMESH_ROMIX_AUTOTUNE"] = "off"
+    for var in ("SPACEMESH_ROMIX", "SPACEMESH_ROMIX_CHUNK", "SPACEMESH_MESH"):
+        os.environ.pop(var, None)
+    try:
+        return drive(ctx, phase_s)
+    finally:
+        shutil.rmtree(cache_root, ignore_errors=True)
+
+
+def drive(ctx: dict, phase_s: dict) -> int:
+    """Every phase in order, then the kernels line and the last line."""
+    import torch
 
     def run(phase) -> None:
         t = time.perf_counter()
@@ -8175,7 +8494,8 @@ def main() -> int:
                   phase_consensus, phase_mesh):
         run(phase)
     ctx["atx"]["tmp"].cleanup()
-    for phase in (phase_node, phase_api, phase_trace, phase_tools, phase_sim):
+    for phase in (phase_node, phase_api, phase_trace, phase_tools, phase_sim,
+                  phase_tune):
         run(phase)
     extra = {"romix": {k: ctx["romix"][k] for k in ("fill_ms",
                                                      "scratch_bound_ms")},
@@ -8213,6 +8533,7 @@ def main() -> int:
         extra[key]["api_launches"] = ctx["api"]["launches"][key]
         extra[key]["tools_launches"] = ctx["tools"]["launches"][key]
         extra[key]["sim_launches"] = ctx["sim"]["launches"][key]
+        extra[key]["tune_launches"] = ctx["tune"]["launches"][key]
         twins = ctx["verifyd"]["twins"]
         if all(key in errs for errs in twins.values()):
             extra[key]["verifyd_max_abs_err"] = {

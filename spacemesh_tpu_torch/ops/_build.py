@@ -7,8 +7,15 @@ includes (``#include "..."``, followed through headers), and the flags, so
 an edited source or header never loads a stale library. Nothing is built
 at import: the first call that launches a kernel builds what it needs, and
 :func:`build_all` starts one nvcc per source, all at once, for callers
-that want every kernel up front (``chip_smoke.py``). A failed build
-raises; there is no fallback.
+that want every kernel up front (``chip_smoke.py``,
+``tools/warmcache.py``). A failed build raises; there is no fallback.
+
+``SPACEMESH_TORCH_CACHE`` moves the port's cache root (the counterpart of
+the JAX package's ``SPACEMESH_JAX_CACHE``): the root holds the ROMix
+autotuner's winners file (``ops/autotune.py``) and, when the variable is
+set, the kernel build directory too (``<root>/build``). By default the
+root is ``~/.cache/spacemesh_tpu_torch`` and the libraries build into
+``spacemesh_tpu_torch/build/``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -28,6 +36,9 @@ from ..utils import fsio
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
+ENV_CACHE = "SPACEMESH_TORCH_CACHE"
+DEFAULT_CACHE_ROOT = "~/.cache/spacemesh_tpu_torch"
+_OFF = ("", "0", "off", "none", "false")
 SOURCES = ("romix", "proving_scan", "pbkdf2", "k2pow")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,6 +48,26 @@ _loaded: dict[str, ctypes.CDLL] = {}
 # guards the wrappers' launch counters: the scheduler's threads launch
 # concurrently, and `count += 1` is not atomic across threads
 count_lock = threading.Lock()
+
+
+def _cache_env() -> str | None:
+    raw = os.environ.get(ENV_CACHE)
+    if raw is None or raw.strip().lower() in _OFF:
+        return None
+    return raw
+
+
+def cache_root() -> Path:
+    """The port's cache root: ``$SPACEMESH_TORCH_CACHE`` or
+    :data:`DEFAULT_CACHE_ROOT`."""
+    return Path(os.path.expanduser(_cache_env() or DEFAULT_CACHE_ROOT))
+
+
+def build_dir() -> Path:
+    """Where the kernel libraries build: ``<cache root>/build`` when
+    ``SPACEMESH_TORCH_CACHE`` is set, else :data:`BUILD`."""
+    env = _cache_env()
+    return Path(os.path.expanduser(env)) / "build" if env else BUILD
 
 
 def nvcc() -> str:
@@ -75,7 +106,7 @@ def library_path(name: str) -> Path:
     for path in source_files(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(FLAGS).encode())
-    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _build_one(name: str) -> str:
@@ -84,7 +115,7 @@ def _build_one(name: str) -> str:
     out = library_path(name)
     if out.exists():
         return ""
-    BUILD.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = fsio.tmp_path(out)
     proc = subprocess.run(
         [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
@@ -100,11 +131,19 @@ def _build_one(name: str) -> str:
     return log
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
+def build_all(names=SOURCES, seconds: dict | None = None) -> dict[str, str]:
     """Build every named kernel, one nvcc each, all started together;
-    returns nvcc's output per name."""
+    returns nvcc's output per name (empty for a library already built).
+    ``seconds``, when given, gains each name's wall seconds."""
+    def one(name: str) -> str:
+        t0 = time.perf_counter()
+        log = _build_one(name)
+        if seconds is not None:
+            seconds[name] = time.perf_counter() - t0
+        return log
+
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        return dict(zip(names, pool.map(_build_one, names)))
+        return dict(zip(names, pool.map(one, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -115,7 +115,8 @@ def romix(x: torch.Tensor, n: int, *, max_lanes: int | None = None,
 
     On a CUDA tensor this launches ``csrc/romix.cu`` over chunks of at most
     ``max_lanes`` lanes (default: what fits the free memory); on a CPU
-    tensor it runs :func:`romix_r1`. ``mix_phase=False`` stops after the
+    tensor it runs :func:`romix_r1`, over the same chunks when
+    ``max_lanes`` is given. ``mix_phase=False`` stops after the
     fill phase."""
     global launches
     check_n(n)
@@ -126,7 +127,14 @@ def romix(x: torch.Tensor, n: int, *, max_lanes: int | None = None,
         raise ValueError(f"romix wants a (32, B) int32 tensor, got "
                          f"{tuple(shape)} {x.dtype}")
     if dev.type == "cpu":
-        return romix_r1(x, n, mix_phase=mix_phase)
+        b = shape[1]
+        if max_lanes is None or max_lanes >= b:
+            return romix_r1(x, n, mix_phase=mix_phase)
+        if max_lanes < 1:
+            raise ValueError("max_lanes must be positive")
+        return torch.cat([romix_r1(x[:, c0:c0 + max_lanes], n,
+                                   mix_phase=mix_phase)
+                          for c0 in range(0, b, max_lanes)], dim=1)
     if dev.type != "cuda":
         raise ValueError(f"romix: unsupported device {dev}")
     x = x.contiguous()

@@ -13,10 +13,14 @@ the card, each with its plain twin on the CPU: PBKDF2-HMAC-SHA256 expand
 (:func:`scrypt_labels_hash`) ends in finish with the proving hash as its
 epilogue instead.
 Block state is (32, B) int32 bit patterns, lanes trailing, as in the JAX
-package. The JAX package's autotune plan and chunked/row ROMix variants
-exist for XLA's per-shape compiles and the TPU race; this port has
-neither, and ragged batches run at their own size (so the sanitizer's
-``jit-shape`` hook has no call site here).
+package. Each label entry point takes the autotuned decision for its
+batch (``ops/autotune.py:decide``, at the batch's own size: the JAX
+package's ``shape_bucket`` is not ported, and ragged batches run at their
+own size, so the sanitizer's ``jit-shape`` hook has no call site here);
+the decision's lane chunk is ROMix's ``max_lanes``. A caller that has
+decided already (the striped entry points of ``parallel/mesh.py``) passes
+``chunk`` itself. The JAX package's row-major ROMix variant and its
+Pallas fallback exist for XLA and the TPU; the port has one kernel.
 
 Each batch's launches run inside a ``romix.dispatch`` span (the enqueue;
 the kernels' device time shows in a ``torch.profiler`` capture, which the
@@ -45,19 +49,36 @@ def _dispatch_span(n: int, idx_lo, **attrs):
                         if tracing.is_enabled() else None)
 
 
-def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *,
-                        n: int) -> torch.Tensor:
+TUNED = "tuned"  # ``chunk=TUNED``: take the autotuned decision
+
+
+def _chunk(chunk, n: int, idx_lo) -> int | None:
+    """ROMix's ``max_lanes`` for one batch: the caller's, or the autotuned
+    decision's lane chunk (None: the wrapper's memory cap)."""
+    if chunk != TUNED:
+        return chunk
+    from . import autotune
+
+    return autotune.decide(n, int(idx_lo.shape[0]),
+                           platform=idx_lo.device.type).chunk
+
+
+def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *, n: int,
+                        chunk=TUNED) -> torch.Tensor:
     """Labels for (B,) index halves -> (4, B) int32 BE words (batch minor);
     the port of ``scrypt_labels_jit``. Runs on the inputs' device: on the
-    card, as three kernel launches."""
+    card, as three kernel launches (ROMix as one launch per ``chunk``
+    lanes)."""
     with _dispatch_span(n, idx_lo):
+        max_lanes = _chunk(chunk, n, idx_lo)
         blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
-        blk = romix_cuda.romix(blk, n)
+        blk = romix_cuda.romix(blk, n, max_lanes=max_lanes)
         return pbkdf2_cuda.finish(commitment_words, blk)
 
 
 def scrypt_labels_hash(commitment_words, idx_lo, idx_hi, challenge_words,
-                       nonce, *, n: int, words_out: bool = False):
+                       nonce, *, n: int, words_out: bool = False,
+                       chunk=TUNED):
     """Labels for (B,) index halves and the proving hash of each: the
     verifier's recompute. Returns the (B,) int32 hash values and, with
     ``words_out``, the (4, B) int32 BE label words (else None). On the
@@ -66,15 +87,16 @@ def scrypt_labels_hash(commitment_words, idx_lo, idx_hi, challenge_words,
     ``challenge_words`` and ``nonce`` as ``ops/proving_cuda.py``'s
     proving hash takes them."""
     with _dispatch_span(n, idx_lo, hash=True):
+        max_lanes = _chunk(chunk, n, idx_lo)
         blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
-        blk = romix_cuda.romix(blk, n)
+        blk = romix_cuda.romix(blk, n, max_lanes=max_lanes)
         return pbkdf2_cuda.finish_hash(commitment_words, blk,
                                        challenge_words, nonce, idx_lo,
                                        idx_hi, words_out=words_out)
 
 
 def scrypt_labels_packed(commitment_words, idx_lo, idx_hi, *,
-                         n: int) -> torch.Tensor:
+                         n: int, chunk=TUNED) -> torch.Tensor:
     """Labels of a multi-tenant pack: (8, B) per-lane commitment words and
     (B,) index halves -> (4, B) int32 BE words, with no VRF min-scan (the
     scheduler folds each tenant's minimum on the host). On the card: PBKDF2
@@ -83,7 +105,8 @@ def scrypt_labels_packed(commitment_words, idx_lo, idx_hi, *,
     if tuple(commitment_words.shape) != (8, b):
         raise ValueError(f"packed labels take (8, {b}) per-lane commitment "
                          f"words, got {tuple(commitment_words.shape)}")
-    return scrypt_labels_words(commitment_words, idx_lo, idx_hi, n=n)
+    return scrypt_labels_words(commitment_words, idx_lo, idx_hi, n=n,
+                               chunk=chunk)
 
 
 # --- VRF-nonce scan ---------------------------------------------------------
@@ -166,13 +189,14 @@ def _minscan(words, idx_lo, idx_hi, carry):
 
 
 def scrypt_labels_with_min(commitment_words, idx_lo, idx_hi, carry, *,
-                           n: int):
+                           n: int, chunk=TUNED):
     """Label batch + running VRF minimum, all on the inputs' device.
 
     Returns ``(words, new_carry, snapshot)``: (4, B) BE label words, the
     next carry, and an independent copy of it that a caller may keep
     while the carry rolls on to later batches."""
-    words = scrypt_labels_words(commitment_words, idx_lo, idx_hi, n=n)
+    words = scrypt_labels_words(commitment_words, idx_lo, idx_hi, n=n,
+                                chunk=chunk)
     new_carry, snapshot = _minscan(words, idx_lo, idx_hi, carry)
     return words, new_carry, snapshot
 

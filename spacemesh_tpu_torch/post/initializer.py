@@ -36,9 +36,22 @@ hooks that stop the session. The spans are the JAX package's:
 ``init.write_stall``, ``init.write`` (writer threads, parented across the
 pool), ``init.drain_stall`` and ``init.save_meta``.
 
-Left out against the JAX package: the device mesh, the autotuned kernel
-plan and the ``writer_queue`` option (no caller sets it: the queue depth
-is :data:`DEFAULT_WRITER_QUEUE`).
+``mesh`` is the JAX ``Initializer``'s: ``None`` (one device), ``"auto"``
+(the default: ``ops/autotune.py:resolve_auto_mesh``, which on the card
+stripes over every visible card and so, with one card, keeps one device;
+``SPACEMESH_MESH`` forces either way) or a mesh of ``parallel/``
+(``data_mesh([...])``). The session's kernel decision (the ROMix lane
+chunk, and the device count) is taken once, at its batch size, and
+logged as one ``romix kernel:`` line on stderr; ``post_mesh_devices``
+reads its device count. A striped batch goes through
+``parallel/mesh.py:labels_with_min_sharded``: each stripe's labels come
+back through a ``HostCopy`` on its own stream and are written at their
+own first index, and the VRF carry stays replicated on the stripes from
+batch to batch (placed once per pass). The per-stripe fetch seconds feed
+``post_mesh_shard_labels_per_sec`` and ``post_mesh_shard_imbalance``.
+
+Left out against the JAX package: the ``writer_queue`` option (no caller
+sets it: the queue depth is :data:`DEFAULT_WRITER_QUEUE`).
 
 The ``post_pipeline_*`` metrics are the JAX package's, recorded at its
 sites: batches dispatched, the in-flight depth, the write-queue depth, the
@@ -53,6 +66,7 @@ import dataclasses
 import enum
 import errno
 import os
+import sys
 import time
 from pathlib import Path
 from typing import Callable
@@ -92,6 +106,7 @@ class PipelineStats:
     """Host-side per-stage accounting for one run."""
 
     batches: int = 0
+    shards: int = 0           # stripes fetched (one per unstriped batch)
     dispatch_s: float = 0.0   # host time enqueueing device work
     first_dispatch_s: float = 0.0  # the first batch's share of dispatch_s
     fetch_s: float = 0.0      # blocked on device->host label copies
@@ -135,8 +150,10 @@ class Initializer:
                  enospc_retry_s: float = 0.5,
                  save_barrier: bool = False,
                  tenant: str = "-",
+                 mesh="auto",
                  device="cuda"):
         self.device = resolve(device)
+        self._mesh_arg = mesh
         self.tenant = tenant
         self.store = LabelStore(data_dir, meta, fs=fs)
         self.meta = meta
@@ -167,6 +184,28 @@ class Initializer:
         of already-retired batches is persisted on the way out."""
         self._stop = True
 
+    # -- mesh routing -------------------------------------------------------
+
+    def _resolve_plan(self, batch_hint: int):
+        """-> (mesh | None, autotune.Decision) for this session: the JAX
+        ``Initializer._resolve_plan``. ``auto`` takes the shared routing
+        (``autotune.resolve_auto_mesh``); an explicit mesh of one stripe
+        is one device."""
+        from ..ops import autotune
+
+        n, plat = self.meta.scrypt_n, self.device.type
+        if self._mesh_arg is None:
+            return None, autotune.decide(n, batch_hint, platform=plat)
+        if self._mesh_arg != "auto":
+            mesh = self._mesh_arg if self._mesh_arg.size > 1 else None
+            return mesh, autotune.decide(n, batch_hint, platform=plat)
+        devs, d = autotune.resolve_auto_mesh(n, batch_hint, platform=plat)
+        if devs is None:
+            return None, d
+        from ..parallel import mesh as pmesh
+
+        return pmesh.data_mesh(devs), d
+
     def run(self) -> InitResult:
         meta = self.meta
         dev = self.device
@@ -175,8 +214,25 @@ class Initializer:
         t0 = time.monotonic()
         written0 = meta.labels_written
         stats = PipelineStats()
-        cw = u32.from_numpy(
-            scrypt.commitment_to_words(bytes.fromhex(meta.commitment)), dev)
+        cw_host = scrypt.commitment_to_words(bytes.fromhex(meta.commitment))
+        cw = u32.from_numpy(cw_host, dev)
+
+        # the kernel and mesh choice, resolved (and if needed raced and
+        # persisted) up front, so the session logs what it runs with and
+        # the first dispatch does not absorb the race
+        from ..ops import autotune
+
+        if total > written0:
+            mesh, decision = self._resolve_plan(min(self.batch,
+                                                    total - written0))
+            print(f"romix kernel: impl={decision.impl} "
+                  f"chunk={decision.chunk} devices={mesh.size if mesh else 1}"
+                  f" (source={decision.source})", file=sys.stderr, flush=True)
+            metrics.post_mesh_devices.set(mesh.size if mesh else 1)
+        else:  # nothing to do: never race for a no-op resume
+            mesh, decision = None, autotune.default_decision(
+                dev.type, meta.scrypt_n, self.batch)
+        self._decision = decision
 
         resumed = None
         if meta.vrf_nonce_value is not None and meta.vrf_nonce is not None:
@@ -184,9 +240,15 @@ class Initializer:
             resumed = (int.from_bytes(v[8:], "little"),
                        int.from_bytes(v[:8], "little"))
         carry_host = scrypt.vrf_carry_init(resumed, meta.vrf_nonce or 0)
-        # the carry rolls on the device; the snapshot of the last retired
-        # batch is what a metadata save may persist
-        carry_cell = [u32.from_numpy(carry_host, dev)]
+        # the carry rolls on the device (on every stripe, under a mesh);
+        # the snapshot of the last retired batch is what a metadata save
+        # may persist
+        if mesh is not None:
+            from ..parallel import mesh as pmesh
+
+            carry_cell = [pmesh.replicate(mesh, carry_host)]
+        else:
+            carry_cell = [u32.from_numpy(carry_host, dev)]
         self._snapshot = carry_host
 
         writer = self.store.start_writer(
@@ -218,7 +280,9 @@ class Initializer:
                                        self.stop)
         session = tracing.span("init.run",
                                {"total": total, "resume_at": written0,
-                                "batch": self.batch, "devices": 1,
+                                "batch": self.batch,
+                                "devices": mesh.size if mesh else 1,
+                                "impl": decision.impl,
                                 "tenant": self.tenant}
                                if tracing.is_enabled() else None)
         session.__enter__()
@@ -234,11 +298,20 @@ class Initializer:
             start, count = item
             lo, hi = scrypt.split_indices(
                 np.arange(start, start + count, dtype=np.uint64))
+            metrics.post_pipeline_dispatched.inc()
+            if mesh is not None:
+                words, carry_cell[0], snap = pmesh.labels_with_min_sharded(
+                    mesh, cw_host, lo, hi, carry_cell[0], n=meta.scrypt_n,
+                    chunk=decision.chunk)
+                firsts = np.cumsum([0] + [w.shape[1] for w in words])
+                parts = [(int(f), hc) for f, hc in zip(
+                    firsts, pmesh.host_copies(mesh, words)) if hc]
+                return (start, count, parts,
+                        pmesh.host_copies(mesh, [snap])[0])
             words, carry_cell[0], snap = scrypt.scrypt_labels_with_min(
                 cw, u32.from_numpy(lo, dev), u32.from_numpy(hi, dev),
-                carry_cell[0], n=meta.scrypt_n)
-            metrics.post_pipeline_dispatched.inc()
-            return start, count, HostCopy(words), HostCopy(snap)
+                carry_cell[0], n=meta.scrypt_n, chunk=decision.chunk)
+            return start, count, [(0, HostCopy(words))], HostCopy(snap)
 
         def retire(ticket):
             self._retire(ticket, writer, stats)
@@ -299,18 +372,39 @@ class Initializer:
         )
 
     def _retire(self, item, writer: LabelWriter, stats: PipelineStats) -> None:
-        """Fetch the oldest in-flight batch and hand it to the writers."""
-        start, count, words, snap = item
+        """Fetch the oldest in-flight batch and hand it to the writers: one
+        part per stripe, each written at its own first index."""
+        start, count, parts, snap = item
+        stall = 0.0
+        shard_times: list[tuple[int, float]] = []  # (lanes, fetch s)
         with tracing.span("init.fetch", {"start": start, "count": count}
-                          if tracing.is_enabled() else None):
+                          if tracing.is_enabled() else None) as rsp:
             tf = time.perf_counter()
-            data = scrypt.labels_to_bytes(words.get())  # waits for it
+            for first, hc in parts:
+                t0 = time.perf_counter()
+                arr = hc.get()  # waits for the stripe's batch
+                # the first stripe's time includes the wait for the batch;
+                # later ones are (nearly) the copy alone
+                shard_times.append((arr.shape[1], time.perf_counter() - t0))
+                data = scrypt.labels_to_bytes(arr)
+                ts = time.perf_counter()
+                with tracing.span("init.write_stall"):
+                    writer.submit(start + first, data)
+                stall += time.perf_counter() - ts
             self._snapshot = u32.to_numpy(snap.get())
-            ts = time.perf_counter()
-            with tracing.span("init.write_stall"):
-                writer.submit(start, data)
-            stall = time.perf_counter() - ts
-        stats.fetch_s += ts - tf
+            stats.shards += len(parts)
+            if len(shard_times) > 1:
+                secs = [t for _, t in shard_times]
+                top, low = max(secs), min(secs)
+                imbalance = (top - low) / top if top > 0 else 0.0
+                rates = [m / t for m, t in shard_times if t > 0]
+                metrics.post_mesh_shard_imbalance.set(imbalance)
+                if rates:
+                    metrics.post_mesh_shard_labels_per_sec.set(
+                        sum(rates) / len(rates))
+                rsp.set(shards=len(shard_times),
+                        shard_imbalance=round(imbalance, 4))
+        stats.fetch_s += time.perf_counter() - tf - stall
         stats.write_stall_s += stall
         if stall > 0:
             metrics.post_pipeline_stall_seconds.inc(stall)
@@ -421,7 +515,8 @@ def initialize(data_dir: str | Path, *, node_id: bytes, commitment: bytes,
                **pipeline_opts) -> tuple[PostMetadata, InitResult]:
     """Create-or-resume an init session. Returns final metadata + timing.
     ``pipeline_opts`` pass through to :class:`Initializer` (inflight,
-    writers, the metadata intervals, enospc_retry_s, save_barrier, tenant);
+    writers, the metadata intervals, enospc_retry_s, save_barrier, tenant,
+    mesh);
     ``fs`` is the injectable I/O layer."""
     dev = resolve(device)
     dir_ = Path(data_dir)

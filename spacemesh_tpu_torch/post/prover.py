@@ -1,7 +1,7 @@
 """PoST proving: k2pow gate + streaming nonce search over stored labels.
 
-Port of ``spacemesh_tpu/post/prover.py`` for one device. The default path
-is a streaming pipeline:
+Port of ``spacemesh_tpu/post/prover.py``. The default path is a streaming
+pipeline:
 
   read     — a bounded background reader pool (``post/data.py``
              LabelReader) prefetches label batches while the device scans;
@@ -25,7 +25,12 @@ The knobs are the JAX ``Prover``'s, each with its ``SPACEMESH_PROVE_*``
 environment override: ``pipelined`` (``_PIPELINE``, on by default),
 ``window_groups`` (``_WINDOW_GROUPS``, 1), ``inflight`` (``_INFLIGHT``, 3),
 ``readers`` (``_READERS``, 2) and ``reader_queue`` (``_QUEUE``, 4); ``fs``
-is the injectable I/O layer (``utils/fsio.py``).
+is the injectable I/O layer (``utils/fsio.py``). ``mesh`` is the JAX
+option too: ``None``, ``"auto"`` (the default; the routing init shares,
+``ops/autotune.py:resolve_auto_mesh``, one device on a one-card host) or
+a mesh of ``parallel/``. Under a mesh each batch's lanes are striped over
+it in whole 64-lane segments (``parallel/mesh.py:prove_step_sharded``),
+and the hit state lives on stripe 0's device and stream.
 
 A proof for challenge ``ch`` is: nonce (the winning proving nonce), indices
 (the first k2 label indices qualifying under it) and pow_nonce (the k2pow
@@ -48,6 +53,7 @@ launch and no sync on the card's path.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -132,8 +138,9 @@ class Prover:
                  inflight: int | None = None,
                  readers: int | None = None,
                  reader_queue: int | None = None,
-                 fs=None, device="cuda"):
+                 fs=None, mesh="auto", device="cuda"):
         self.device = resolve(device)
+        self._mesh_arg = mesh
         self.stall_deadline_s = STALL_DEADLINE_S
         self.meta = PostMetadata.load(data_dir, fs=fs)
         if self.meta.labels_written < self.meta.total_labels:
@@ -160,6 +167,29 @@ class Prover:
                                 else _env_int("SPACEMESH_PROVE_QUEUE",
                                               DEFAULT_READER_QUEUE), 1)
         self.last_stats: ProverStats | None = None
+
+    # -- mesh routing (mirrors post/initializer.py) -------------------------
+
+    def _resolve_mesh(self):
+        """The mesh a prove's scan stripes over, or None for one device."""
+        if self._mesh_arg is None:
+            return None
+        if self._mesh_arg != "auto":
+            mesh = self._mesh_arg
+        else:
+            from ..ops import autotune
+
+            # the routing init shares: the race measures the label
+            # kernel, and the scan is a lane-parallel sweep like it
+            devs, _ = autotune.resolve_auto_mesh(
+                self.meta.scrypt_n, self.batch_labels,
+                platform=self.device.type)
+            if devs is None:
+                return None
+            from ..parallel import mesh as pmesh
+
+            mesh = pmesh.data_mesh(devs)
+        return mesh if mesh.size > 1 else None
 
     # -- entry points -------------------------------------------------------
 
@@ -247,11 +277,11 @@ class Prover:
 
     def _scan_window(self, cw, thr: int, nonce_base: int, groups: int,
                      stats: ProverStats, tenant: str = "-",
-                     parent: int | None = None):
+                     parent: int | None = None, mesh=None):
         """One disk pass over the store scanning the ``groups * 16`` nonces
-        from ``nonce_base``, in one scan launch per batch. Returns
-        (winner_nonce, indices) or (None, None). ``parent`` is the
-        session's span."""
+        from ``nonce_base``, in one scan launch per batch (one per stripe
+        under ``mesh``). Returns (winner_nonce, indices) or (None, None).
+        ``parent`` is the session's span."""
         meta, p = self.meta, self.params
         dev = self.device
         total = meta.total_labels
@@ -267,7 +297,14 @@ class Prover:
         reader = None
         try:
             ranges = [(s, min(b, total - s)) for s in range(0, total, b)]
-            state = list(proving.init_hit_state(nn, cap, dev))
+            if mesh is not None:
+                from ..parallel import mesh as pmesh
+
+                home = pmesh.lane_sharding(mesh)
+                state = list(proving.init_hit_state(nn, cap,
+                                                    mesh.devices[0]))
+            else:
+                state = list(proving.init_hit_state(nn, cap, dev))
             host_counts = np.zeros(nn, dtype=np.int64)
             metrics.post_prove_windows.inc()
             stats.windows += 1
@@ -291,16 +328,25 @@ class Prover:
                                          np.uint8)])
                 lo, hi = scrypt.split_indices(
                     np.arange(start, start + b, dtype=np.uint64))
-                counts, bc, carry = proving.prove_scan_step(
-                    cw, nonce_base, u32.from_numpy(lo, dev),
-                    u32.from_numpy(hi, dev),
-                    u32.from_numpy(scrypt.labels_to_words(labels), dev),
-                    thr, state[0], state[1], count, start & 0xFFFFFFFF,
-                    start >> 32, n_nonces=nn, max_hits=cap)
+                if mesh is not None:
+                    counts, bc, carry = pmesh.prove_step_sharded(
+                        mesh, cw, nonce_base, lo, hi,
+                        scrypt.labels_to_words(labels), thr, state[0],
+                        state[1], count, start & 0xFFFFFFFF, start >> 32,
+                        n_nonces=nn, max_hits=cap)
+                    fetch = pmesh.host_copies(mesh, [bc])[0]
+                else:
+                    counts, bc, carry = proving.prove_scan_step(
+                        cw, nonce_base, u32.from_numpy(lo, dev),
+                        u32.from_numpy(hi, dev),
+                        u32.from_numpy(scrypt.labels_to_words(labels), dev),
+                        thr, state[0], state[1], count, start & 0xFFFFFFFF,
+                        start >> 32, n_nonces=nn, max_hits=cap)
+                    fetch = HostCopy(bc)
                 state[:] = [counts, carry]
                 stats.batches += 1
                 metrics.post_prove_batches.inc()
-                return start + count, HostCopy(bc)
+                return start + count, fetch
 
             def retire(ticket):
                 retired_end[0] = ticket[0]
@@ -334,7 +380,10 @@ class Prover:
             return None, None
         w = int(qualified[0])
         counts, carry = state
-        indices = proving.decode_hits(counts, carry, w, p.k2)
+        # under a mesh the hit state is stripe 0's, read on its stream
+        with (home.stream(0) if mesh is not None
+              else contextlib.nullcontext()):
+            indices = proving.decode_hits(counts, carry, w, p.k2)
         stats.d2h_bytes += (carry.numel() + counts.numel()) * 4
         metrics.post_prove_d2h_bytes.inc((carry.numel() + counts.numel()) * 4)
         return nonce_base + w, indices
@@ -392,6 +441,8 @@ class ProveSession:
         self._max_nonce = MAX_GROUPS * NONCE_GROUP
         self._closed = False
         self._scanning = False
+        self._mesh = None
+        self._mesh_resolved = False
         self._span = tracing.span(
             "prove.run",
             {"challenge": challenge.hex()[:16],
@@ -421,6 +472,9 @@ class ProveSession:
             return None
         if self._base >= self._max_nonce:
             raise RuntimeError("no winning nonce found (k1/k2 mismatch?)")
+        if not self._mesh_resolved:
+            self._mesh = p._resolve_mesh()
+            self._mesh_resolved = True
         thr = proving.threshold_u32(p.params.k1, p.meta.total_labels)
         cw = proving.challenge_words(self.challenge)
         # clamp the last window to the serial prover's give-up bound, so
@@ -432,7 +486,8 @@ class ProveSession:
         try:
             winner, indices = p._scan_window(cw, thr, self._base, groups,
                                              self.stats, tenant=self.tenant,
-                                             parent=self._span.id)
+                                             parent=self._span.id,
+                                             mesh=self._mesh)
         finally:
             self._scanning = False
         metrics.post_prove_window_seconds.observe(time.perf_counter() - tw)

@@ -1,13 +1,20 @@
 """PoST verification: recompute-and-check, batched across proofs.
 
-Port of the single-device branch of ``spacemesh_tpu/post/verifier.py``. All
-spot-checked (proof, index) pairs are flattened into one label recompute
-with the proving hash (per-lane commitments, challenges and nonces,
+Port of ``spacemesh_tpu/post/verifier.py``. All spot-checked (proof,
+index) pairs are flattened into one label recompute with the proving hash
+(per-lane commitments, challenges and nonces,
 ``ops/scrypt.py:scrypt_labels_hash``: on the card PBKDF2 expand, ROMix,
 and PBKDF2 finish, which hashes each label in the registers that hold it),
 so only the (B,) hash values come back to the host; then each proof's
 values are held against its threshold. The K3 spot-check subset is drawn
 from the verifier's seed; the k2pow witness is checked with hashlib.
+
+When the shared mesh routing stripes the recompute
+(``ops/autotune.py:resolve_auto_mesh``; with one card it never does),
+each stripe recomputes its lanes' labels and hashes them on its own
+device and stream (``parallel/mesh.py:scrypt_labels_hash_sharded``): the
+JAX package's sharded labels, ``words_to_le`` and proving hash, with the
+byte swap and the hash in the finish kernel's epilogue as on one device.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import time
 import numpy as np
 
 from ..device import resolve
+from ..ops import autotune
 from ..ops import pow as k2pow
 from ..ops import proving, scrypt, u32
 from .prover import Proof, ProofParams
@@ -100,12 +108,27 @@ def verify_many(items: list[VerifyItem], params: ProofParams | None = None,
     t0 = _lap(timing, "prep", t0)
     for n in sorted({items[o].scrypt_n for o in flat_owner}):
         sel = np.array([items[o].scrypt_n == n for o in flat_owner])
-        lo, hi = (u32.from_numpy(h, dev)
-                  for h in scrypt.split_indices(idx[sel]))
+        lo_h, hi_h = scrypt.split_indices(idx[sel])
+        # the shared mesh routing: the recompute is a label batch like any
+        # other, so it stripes like one
+        devs, d = autotune.resolve_auto_mesh(n, int(sel.sum()),
+                                             platform=dev.type)
+        if devs is not None and len(devs) > 1:
+            from ..parallel import mesh as pmesh
+
+            mesh = pmesh.data_mesh(devs)
+            parts = pmesh.host_copies(mesh, pmesh.scrypt_labels_hash_sharded(
+                mesh, commits[:, sel], lo_h, hi_h, chals[:, sel],
+                nonces[sel], n=n, chunk=d.chunk))
+            t0 = _lap(timing, "labels", t0)
+            values[sel] = np.concatenate(
+                [u32.to_numpy(hc.get()) for hc in parts if hc is not None])
+            t0 = _lap(timing, "hash", t0)
+            continue
         vals, _ = scrypt.scrypt_labels_hash(
-            u32.from_numpy(commits[:, sel], dev), lo, hi,
-            u32.from_numpy(chals[:, sel], dev),
-            u32.from_numpy(nonces[sel], dev), n=n)
+            u32.from_numpy(commits[:, sel], dev), u32.from_numpy(lo_h, dev),
+            u32.from_numpy(hi_h, dev), u32.from_numpy(chals[:, sel], dev),
+            u32.from_numpy(nonces[sel], dev), n=n, chunk=d.chunk)
         t0 = _lap(timing, "labels", t0)
         values[sel] = u32.to_numpy(vals)
         t0 = _lap(timing, "hash", t0)

@@ -43,8 +43,13 @@ and the tenant tables are declared shared to it; each quantum is a
 ``runtime.quantum`` span, each pack's launches a ``runtime.pack.dispatch``
 span and each tenant's share of a retired pack a ``runtime.segment`` span.
 
-Left out against the JAX package: the autotuned mesh routing of packs
-(the port dispatches every pack on its one device).
+Packs take the shared mesh routing (``ops/autotune.py:
+resolve_auto_mesh``, as ``spacemesh_tpu/runtime/scheduler.py`` does): on
+the card it stripes over every visible card, so with one card each pack
+runs on the scheduler's device; when it stripes, each stripe's labels run
+on its own device and stream (``parallel/mesh.py``) and come back through
+a ``HostCopy`` on that stream. The packs' lanes split raggedly over the
+stripes; the JAX package pads them to a shape bucket the mesh divides.
 
 The scheduler is thread-based and needs no event loop.
 """
@@ -813,7 +818,7 @@ class TenantScheduler:
         import numpy as np
 
         from ..device import HostCopy
-        from ..ops import scrypt, u32
+        from ..ops import autotune, scrypt, u32
 
         segments, n = pack
         lanes = sum(s.count for s in segments)
@@ -828,18 +833,29 @@ class TenantScheduler:
             len({s.job.tenant.id for s in segments}))
         dev = self.device
         lo, hi = scrypt.split_indices(idx)
+        # the tuned mesh routing every mesh-aware entry point shares
+        devs, d = autotune.resolve_auto_mesh(n, lanes, platform=dev.type)
+        if devs is not None and len(devs) > 1:
+            from ..parallel import mesh as pmesh
+
+            mesh = pmesh.data_mesh(devs)
+            parts = pmesh.host_copies(mesh, pmesh.scrypt_labels_sharded(
+                mesh, cw, lo, hi, n=n, chunk=d.chunk))
+            return ([p for p in parts if p is not None], segments,
+                    time.perf_counter())
         words = scrypt.scrypt_labels_packed(
             u32.from_numpy(cw, dev), u32.from_numpy(lo, dev),
-            u32.from_numpy(hi, dev), n=n)
-        return HostCopy(words), segments, time.perf_counter()
+            u32.from_numpy(hi, dev), n=n, chunk=d.chunk)
+        return [HostCopy(words)], segments, time.perf_counter()
 
     def _retire_pack(self, ticket) -> None:
         from ..ops import scrypt
 
-        words, segments, t_dispatch = ticket
+        parts, segments, t_dispatch = ticket
         st = self.pack_stats
         tf = time.perf_counter()
-        arr = words.get()  # the pack's only wait on the device
+        # the pack's only wait on the device (one copy per stripe)
+        arrs = [p.get() for p in parts]
         st.fetch_s += time.perf_counter() - tf
         lanes = sum(s.count for s in segments)
         dt = time.perf_counter() - t_dispatch
@@ -853,7 +869,7 @@ class TenantScheduler:
         st.lanes += lanes
         st.segments += len(segments)
         # one byte conversion for the whole pack, sliced per segment
-        pack_bytes = scrypt.labels_to_bytes(arr)
+        pack_bytes = b"".join(scrypt.labels_to_bytes(a) for a in arrs)
         finalize: list[_InitJob] = []
         for s in segments:
             job: _InitJob = s.job

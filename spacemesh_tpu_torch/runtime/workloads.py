@@ -119,9 +119,24 @@ def _warm_init(n: int, batch: int, device="cuda") -> dict:
     return doc
 
 
+def _pack_mesh(n: int, batch: int, dev):
+    """The mesh the scheduler's packs of ``batch`` lanes stripe over (the
+    shared routing), or None."""
+    from ..ops import autotune
+
+    devs, d = autotune.resolve_auto_mesh(n, batch, platform=dev.type)
+    if devs is None or len(devs) < 2:
+        return None, d
+    from ..parallel import mesh as pmesh
+
+    return pmesh.data_mesh(devs), d
+
+
 def _warm_init_pack(n: int, batch: int, device="cuda") -> dict:
+    import numpy as np
+
     from ..device import resolve
-    from ..ops import scrypt
+    from ..ops import scrypt, u32
 
     dev = resolve(device)
     cw = _perlane_commitments(batch, dev)
@@ -129,7 +144,28 @@ def _warm_init_pack(n: int, batch: int, device="cuda") -> dict:
     doc: dict = {}
     _timed(doc, "labels_perlane", dev,
            lambda: scrypt.scrypt_labels_packed(cw, lo, hi, n=n))
+    # when the routing stripes packs of this width, the striped batch runs
+    # on the mesh's streams: warm it too
+    mesh, d = _pack_mesh(n, batch, dev)
+    if mesh is not None:
+        from ..parallel import mesh as pmesh
+
+        host_cw = u32.to_numpy(cw)
+        lo_h, hi_h = scrypt.split_indices(np.arange(batch, dtype=np.uint64))
+        _timed(doc, f"labels_perlane_mesh{mesh.size}", dev,
+               lambda: _sync(mesh, pmesh.scrypt_labels_sharded(
+                   mesh, host_cw, lo_h, hi_h, n=n, chunk=d.chunk)))
+        doc["pack_devices"] = mesh.size
     return doc
+
+
+def _sync(mesh, parts) -> None:
+    """Wait for every stripe's part (each on its own stream)."""
+    from ..parallel import mesh as pmesh
+
+    for hc in pmesh.host_copies(mesh, parts):
+        if hc is not None:
+            hc.get()
 
 
 def _warm_prove_scan(n: int, batch: int, device="cuda") -> dict:
@@ -170,6 +206,18 @@ def _warm_verify(n: int, batch: int, device="cuda") -> dict:
     _timed(doc, "proving_hash", dev, lambda: proving.proving_hash(
         u32.from_numpy(chal, dev), u32.from_numpy(np.full(batch, 7), dev),
         lo, hi, lw))
+    if doc.get("pack_devices", 1) > 1:
+        # the verifier's striped recompute (post/verifier.py mesh branch)
+        from ..ops import scrypt
+        from ..parallel import mesh as pmesh
+
+        mesh, d = _pack_mesh(n, batch, dev)
+        cw = u32.to_numpy(_perlane_commitments(batch, dev))
+        lo_h, hi_h = scrypt.split_indices(np.arange(batch, dtype=np.uint64))
+        _timed(doc, f"labels_hash_mesh{mesh.size}", dev,
+               lambda: _sync(mesh, pmesh.scrypt_labels_hash_sharded(
+                   mesh, cw, lo_h, hi_h, np.ascontiguousarray(chal),
+                   np.full(batch, 7, np.uint32), n=n, chunk=d.chunk)))
     return doc
 
 

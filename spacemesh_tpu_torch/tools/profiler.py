@@ -25,6 +25,7 @@ Usage:
   python -m spacemesh_tpu_torch.tools.profiler --prove               # prove view
   python -m spacemesh_tpu_torch.tools.profiler --verify-farm         # farm view
   python -m spacemesh_tpu_torch.tools.profiler --romix --n 8192      # kernel view
+  python -m spacemesh_tpu_torch.tools.profiler --warm                # warmcache
   python -m spacemesh_tpu_torch.tools.profiler --timeline trace.json # flame view
 Prints ONE JSON document on stdout (the JAX package's keys); progress goes
 to stderr. Every view but ``--timeline`` and ``--flight`` runs on
@@ -36,6 +37,13 @@ the streaming pipeline and dumps per-stage host seconds
 --timeline digests a span-trace export (``/debug/trace/export`` or
 utils/tracing.export_json): top spans by self-time plus a per-stage
 queue-wait vs work split, with the text flame summary on stderr.
+--warm runs ``tools/warmcache.py`` (``--warm-batches``, ``--warm-prove``):
+the kernel builds and the persisted autotune winners. ``--romix``'s
+``impls`` starts with the stage-timed row of the kernel as the port runs
+it, followed by the autotuner's raced rows for this N (labels/s, and
+``winner`` on the row the decision took): the place the JAX package gives
+``--romix-pallas``, since the port's variants are the raced lane chunks
+and device counts of one kernel.
 """
 
 from __future__ import annotations
@@ -345,6 +353,12 @@ def romix_benchmark(n: int, batch: int, reps: int = 2,
     # compute that moves no scratch memory
     roof = romix_roofline(n, labels_per_sec=batch / romix_s)
     impl = decision["impl"]
+    # the autotuner's decision for this batch (a race when none is
+    # persisted and racing is on) and its raced rows
+    from ..ops import autotune
+
+    tuned = autotune.decide(n, batch, platform=dev.type)
+    decision["tuned"] = tuned.as_json()
     line = (f"{impl}: {roof['bytes_per_label']:,} B/label, "
             f"{roof['salsa20_8_per_label']:,} salsa20/8 calls/label")
     if "achieved_gbps" in roof:
@@ -366,8 +380,16 @@ def romix_benchmark(n: int, batch: int, reps: int = 2,
         "labels_per_sec": rate,
         "roofline": roof,
     }
+    rows = [row]
+    for r in autotune.raced_rows(dev.type, n):
+        rows.append({"impl": r["impl"], "chunk": r["chunk"],
+                     "devices": r["devices"], "raced": True,
+                     "labels_per_sec": r["labels_per_sec"],
+                     "winner": (r["chunk"], r["devices"])
+                     == (tuned.chunk, tuned.devices)
+                     and tuned.source in ("race", "cache")})
     return {"scrypt_n": n, "batch": batch, "decision": decision,
-            "impls": [row]}
+            "impls": rows}
 
 
 def verify_benchmark(counts: list[int], reps: int = 2,
@@ -582,6 +604,13 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", default="1024,2048,4096",
                     help="comma-separated label lanes per batch")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--warm", action="store_true",
+                    help="build the kernel libraries and persist the "
+                    "autotuned winners (tools/warmcache.py)")
+    ap.add_argument("--warm-batches", default="8192,4096,2048,1024,512",
+                    help="batch sizes for --warm")
+    ap.add_argument("--warm-prove", action="store_true",
+                    help="--warm also runs the prover's scan step")
     ap.add_argument("--cpu-labels", type=int, default=16,
                     help="labels for the OpenSSL reference measurement")
     ap.add_argument("--timeline", metavar="TRACE_JSON[,TRACE_JSON...]",
@@ -622,7 +651,13 @@ def main(argv=None) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 2
 
-    if a.providers:
+    if a.warm:
+        from . import warmcache
+
+        doc = warmcache.warm(
+            a.n, [int(b) for b in a.warm_batches.split(",") if b],
+            prove=a.warm_prove, device=dev)
+    elif a.providers:
         doc = {"providers": providers(dev)}
     elif a.pipeline:
         doc = pipeline_benchmark(

@@ -11,12 +11,15 @@ different cache keys, so every dispatch site that minted its own paid
 its own compile.  parallel/topology.py owns the ONE process-wide mesh
 and its persistent layout catalog; every entry point consumes it.
 
-The port's ``parallel/`` runs over ``torch.distributed``, where the same
-mistake has a torch spelling: ``init_device_mesh(...)`` or
-``DeviceMesh(...)`` inside a dispatch creates (and on first use
-rendezvouses) a fresh set of process groups per call, each a collective
-setup across every rank, and a DTensor placement keyed on a mesh that is
-new each time never hits a cached plan.
+The port's ``parallel/`` is one process striping the lane axis over a
+list of local devices, each stripe on a CUDA stream of its own; its
+``topology.Mesh`` and the streams beside it are built once per device
+list by ``parallel/topology.py``. A ``Mesh(...)`` built per dispatch would
+mint new streams each call, and code keyed on the mesh object (the
+layouts catalog) would never find its entry. The names
+``DeviceMesh``/``init_device_mesh`` stay flagged as well: a
+``torch.distributed`` mesh built per call sets up (and on first use
+rendezvouses) a fresh set of process groups each time.
 
 Flags, inside function bodies of the hot-path packages
 (``spacemesh_tpu_torch/{ops,runtime,post,verify,parallel}/``): calls
@@ -69,11 +72,12 @@ class _Visitor(ast.NodeVisitor):
             self.findings.append(self.ctx.finding(
                 RULE, node,
                 f"per-call {name.rsplit('.', 1)[-1]}(...) construction "
-                "in a hot-path module: process groups and cached "
-                "placements key on the mesh object, so a fresh one per "
-                "dispatch re-creates groups and defeats plan reuse. "
-                "Take the process-wide mesh from parallel/topology.py "
-                "or go through the parallel/ entry points instead"))
+                "in a hot-path module: a mesh's streams (or a "
+                "torch.distributed mesh's process groups) are made with "
+                "it, and the layouts catalog keys on the mesh object, so "
+                "a fresh one per dispatch defeats their reuse. Take the "
+                "process-wide mesh from parallel/topology.py or go "
+                "through the parallel/ entry points instead"))
         self.generic_visit(node)
 
 

@@ -7,7 +7,9 @@ node's public gauges (``node_current_layer``, ``tortoise_verified_layer``,
 ``mesh_last_applied_layer``, ``p2p_connected_peers``, ``sync_state``,
 ``tortoise_mode``; set on each scrape of ``api/http.py``'s ``/metrics``)
 and ``post_proofs_generated``; the init pipeline's ``post_pipeline_*`` and
-the prover's ``post_prove_*`` families; the ``post_store_*`` family
+the prover's ``post_prove_*`` families; the device mesh's ``post_mesh_*``
+and the ROMix autotuner's ``post_romix_autotune_races_total``; the
+``post_store_*`` family
 (label-store reads, fsyncs, fault injections, recovery, ENOSPC parking);
 the ``runtime_*`` family (the device-job engine and the multi-tenant
 scheduler, ``runtime/``); the verification farm's and verifyd's, the
@@ -335,6 +337,27 @@ post_pipeline_meta_saves = REGISTRY.counter(
     "post_pipeline_meta_saves_total", "interval resume-metadata rewrites")
 post_pipeline_labels_per_sec = REGISTRY.gauge(
     "post_pipeline_labels_per_sec", "labels/s of the last init session")
+
+# the device mesh (parallel/, routed by ops/autotune.py and consumed by
+# post/initializer.py + post/prover.py). A stripe's fetch seconds include
+# the first stripe's wait for the batch to retire; the imbalance gauge is
+# (max-min)/max over the last batch's per-stripe fetch seconds, so a
+# straggling device or stream is visible without a trace capture.
+post_mesh_devices = REGISTRY.gauge(
+    "post_mesh_devices",
+    "device count label batches are sharded over (1 = single device)")
+post_mesh_shard_labels_per_sec = REGISTRY.gauge(
+    "post_mesh_shard_labels_per_sec",
+    "mean per-shard label fetch throughput of the last sharded batch")
+post_mesh_shard_imbalance = REGISTRY.gauge(
+    "post_mesh_shard_imbalance",
+    "(max-min)/max per-shard fetch seconds of the last sharded batch")
+
+# the ROMix autotuner (ops/autotune.py): one race per (platform, N) whose
+# measurements are neither memoized nor persisted yet
+post_romix_autotune_races = REGISTRY.counter(
+    "post_romix_autotune_races_total",
+    "ROMix kernel autotune races run (persisted-winner cache misses)")
 
 # PoST label-store reads (post/data.py LabelStore.read_labels: the serial
 # prover and the LabelReader pool both land here)

@@ -71,7 +71,7 @@ def label_memo():
     real = tscrypt.scrypt_labels_words
     memo = {}
 
-    def labels(cw, lo, hi, *, n):
+    def labels(cw, lo, hi, *, n, chunk=None):
         key = tuple(t.numpy().tobytes() for t in (cw, lo, hi)) + (n,)
         if key not in memo:
             memo[key] = real(cw, lo, hi, n=n)

@@ -32,6 +32,19 @@ def dev():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _no_race(monkeypatch):
+    """No ROMix autotune race inside a kernel test: a race's launches would
+    land in the counts the tests read (the CPU suite's conftest sets the
+    same, and ``--noconftest`` skips it). ``fresh_tuner`` turns it on."""
+    from spacemesh_tpu_torch.ops import autotune
+
+    monkeypatch.setenv(autotune.ENV_AUTOTUNE, "off")
+    autotune.reset_memo()
+    yield
+    autotune.reset_memo()
+
+
 def _rand_u32(shape, seed):
     return np.random.default_rng(seed).integers(0, 2**32, shape,
                                                 dtype=np.uint32)
@@ -705,3 +718,66 @@ def test_certifier_on_the_card(atx_world, monkeypatch):
     with pytest.raises(ValueError, match="failed verification"):
         svc.certify(proof=bad, **kw)
 
+
+
+@pytest.fixture
+def fresh_tuner(dev, tmp_path, monkeypatch):
+    """The autotuner over a private winners file, racing on (the kernel
+    libraries stay where they are built)."""
+    from spacemesh_tpu_torch.ops import autotune
+    from spacemesh_tpu_torch.parallel import topology
+
+    monkeypatch.setattr(autotune, "cache_path",
+                        lambda: str(tmp_path / "romix_autotune.json"))
+    for var in (autotune.ENV_IMPL, autotune.ENV_CHUNK, autotune.ENV_MESH,
+                autotune.ENV_AUTOTUNE):
+        monkeypatch.delenv(var, raising=False)
+    autotune.reset_memo()
+    topology.reset()
+    yield autotune
+    autotune.reset_memo()
+
+
+def test_race_on_the_card(fresh_tuner, monkeypatch):
+    """A race on the card at N=1024 (chunk rows 2048 and below the
+    calibration batch): every row is the kernel's, the plain twins never
+    run, and the labels under the winner equal hashlib."""
+    autotune = fresh_tuner
+    _forbid_plain_twins(monkeypatch)
+    d = autotune.decide(1024, 4096, platform="cuda")
+    rows = autotune.raced_rows("cuda", 1024)
+    assert [(r["impl"], r["chunk"]) for r in rows] == [
+        ("cuda", None), ("cuda", 2048)]
+    assert d.impl == "cuda" and d.source == "race"
+    got = scrypt.scrypt_labels(COMMIT, np.arange(4096, dtype=np.uint64),
+                               n=1024, device="cuda")
+    for i in (0, 2047, 2048, 4095):
+        assert bytes(got[i]) == hashlib.scrypt(
+            COMMIT, salt=int(i).to_bytes(8, "little"), n=1024, r=1, p=1,
+            dklen=16)
+
+
+def test_two_stripes_on_one_card_equal_one_device(dev, monkeypatch):
+    """Two stripes of one card, each on its own stream: the striped labels
+    and min-scan equal one device's, and the stripes' streams differ."""
+    from spacemesh_tpu_torch.parallel import mesh as pmesh
+
+    _forbid_plain_twins(monkeypatch)
+    mesh = pmesh.data_mesh(["cuda:0", "cuda:0"])
+    lay = pmesh.lane_sharding(mesh)
+    assert lay.streams[0] is not lay.streams[1]
+    idx = np.arange(3001, dtype=np.uint64)
+    lo, hi = scrypt.split_indices(idx)
+    cw = scrypt.commitment_to_words(COMMIT)
+    carry = scrypt.vrf_carry_init()
+    words, carries, snap = pmesh.labels_with_min_sharded(
+        mesh, cw, lo, hi, carry, n=1024)
+    one, _, want_snap = scrypt.scrypt_labels_with_min(
+        u32.from_numpy(cw, dev), u32.from_numpy(lo, dev),
+        u32.from_numpy(hi, dev), u32.from_numpy(carry, dev), n=1024,
+        chunk=None)
+    torch.cuda.synchronize()
+    assert [w.shape[1] for w in words] == [1501, 1500]
+    assert torch.equal(torch.cat(words, 1), one)
+    assert torch.equal(snap, want_snap)
+    assert all(torch.equal(c, want_snap) for c in carries)

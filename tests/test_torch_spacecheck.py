@@ -323,7 +323,12 @@ def test_jax_and_port_checkers_agree_on_the_stripped_port(tmp_path, capsys):
     jax_found = _findings(jax_main, jax_root, "spacemesh_tpu", capsys)
     port_found = _findings(cli_main, port_root, "spacemesh_tpu_torch",
                            capsys)
-    assert port_found == jax_found
+    # SC010's text is the port's own (a mesh of streams, not of XLA
+    # shardings); its sites must still be the JAX checker's
+    assert [f[:4] if f[0] == "SC010" else f for f in port_found] \
+        == [f[:4] if f[0] == "SC010" else f for f in jax_found]
+    assert any(f[0] == "SC010" and f[4].startswith("per-call Mesh(...)")
+               for f in port_found)
     rules = {f[0] for f in port_found}
     assert {"SC001", "SC002", "SC004", "SC007"} <= rules
 

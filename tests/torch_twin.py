@@ -67,10 +67,16 @@ def _twin(name: str):
     return load(name)
 
 
-def load(name: str, pkg: str = "spacemesh_tpu_torch"):
+def load(name: str, pkg: str = "spacemesh_tpu_torch", drop=()):
     """``tests/<name>.py`` as a module over ``pkg``; a ``tests.<other>``
-    module it imports is that module's port twin too."""
+    module it imports is that module's port twin too. Each line of
+    ``drop`` is taken out of the source first (an import of a module the
+    port does not have, used only by tests a twin leaves out)."""
     src = (TESTS / f"{name}.py").read_text()
+    for line in drop:
+        if line not in src:
+            raise ValueError(f"tests/{name}.py has no line {line!r}")
+        src = src.replace(line, "")
     src = re.sub(r"\bspacemesh_tpu\b", pkg, src)
     if pkg == "spacemesh_tpu_torch":
         src = _CALL.sub(r"_on_cpu(\1)(", src)
@@ -97,11 +103,12 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
-def export(name: str, ns: dict, only=None) -> pytypes.ModuleType:
+def export(name: str, ns: dict, only=None, drop=()) -> pytypes.ModuleType:
     """Put ``tests/<name>.py``'s port twin's tests (or the ``only`` ones)
     and its fixtures into ``ns``; the twin is the one ``tests.<name>``
-    imports resolve to (``_twin``), so a file may patch it first."""
-    mod = _twin(name)
+    imports resolve to (``_twin``), so a file may patch it first. With
+    ``drop`` (see :func:`load`) the twin is a copy of its own."""
+    mod = load(name, drop=drop) if drop else _twin(name)
     for key, val in vars(mod).items():
         is_test = key.startswith("test_") and callable(val)
         if is_test and only is not None and key not in only:
@@ -147,10 +154,10 @@ def hashlib_post():
         return u32.from_numpy(np.frombuffer(lab.tobytes(), dtype=">u4")
                               .reshape(-1, 4).T.astype(np.uint32))
 
-    def words(cw, lo, hi, *, n):
+    def words(cw, lo, hi, *, n, chunk=None):
         return be_words(labels(cw, lo, hi, n))
 
-    def hashed(cw, lo, hi, ch, nonce, *, n, words_out=False):
+    def hashed(cw, lo, hi, ch, nonce, *, n, words_out=False, chunk=None):
         lab = labels(cw, lo, hi, n)
         vals = proving_cuda.proving_hash(
             ch, nonce, lo, hi, u32.from_numpy(scrypt.labels_to_words(lab)))
