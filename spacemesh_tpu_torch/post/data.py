@@ -155,6 +155,12 @@ class LabelStore:
             except OSError:
                 pass
 
+    def invalidate(self) -> None:
+        """Recovery hook: a cached read fd pins the pre-truncation inode,
+        so after recovery rewrites or truncates label files the cached
+        fds must not serve stale bytes. Alias of close(); reads reopen."""
+        self.close()
+
     def write_labels(self, start_index: int, labels: bytes) -> None:
         """Write ``labels`` (concatenated 16B records) at ``start_index``.
         Positioned writes without O_TRUNC, so concurrent writers never
@@ -306,6 +312,7 @@ class LabelWriter:
         self._error: BaseException | None = None
         self._closed = False
         self.labels_submitted = 0
+        self.bytes_written = 0
         self.write_seconds = 0.0
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
@@ -526,6 +533,7 @@ class LabelWriter:
             with self._idle:
                 self._shared.touch()
                 self.write_seconds += time.perf_counter() - t0
+                self.bytes_written += len(labels)
                 self._done[start] = (start + count, labels)
                 self._advance_locked()
                 self._inflight -= 1
@@ -567,6 +575,7 @@ class LabelReader:
         self._error: BaseException | None = None
         self._closed = False
         self.read_seconds = 0.0
+        self.bytes_read = 0
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
                              name=f"label-reader-{i}")
@@ -635,6 +644,7 @@ class LabelReader:
             with self._cond:
                 self._shared.touch()
                 self.read_seconds += time.perf_counter() - t0
+                self.bytes_read += len(data)
                 self._results[slot] = data
                 self._cond.notify_all()
 
@@ -687,8 +697,8 @@ def _crc_of_range(store: LabelStore, start: int, end: int,
     return crc
 
 
-def recover_store(data_dir: str | Path, meta: PostMetadata,
-                  fs=None) -> RecoveryReport:
+def recover_store(data_dir: str | Path, meta: PostMetadata, fs=None,
+                  store: LabelStore | None = None) -> RecoveryReport:
     """Reopen-time recovery: converge the label files and the metadata
     cursor to a verified, mutually consistent state.
 
@@ -701,9 +711,13 @@ def recover_store(data_dir: str | Path, meta: PostMetadata,
     4. Persist the repaired metadata.
 
     Repairs count in the ``post_store_recovery_*`` metrics; the pass is
-    an ``init.recover`` span.
+    an ``init.recover`` span. With ``store``, recovery runs on the
+    caller's store, drops its cached read fds wherever the files may
+    have changed under them, and leaves it open; without it, recovery
+    opens and closes a store of its own.
     """
-    st = LabelStore(data_dir, meta, fs=fs)
+    own_store = store is None
+    st = store if store is not None else LabelStore(data_dir, meta, fs=fs)
     report = RecoveryReport()
     span = tracing.span("init.recover", {"dir": str(data_dir)}
                         if tracing.is_enabled() else None)
@@ -724,6 +738,7 @@ def recover_store(data_dir: str | Path, meta: PostMetadata,
             while intervals:
                 end, want = intervals[-1]
                 prev = intervals[-2][0] if len(intervals) > 1 else 0
+                st.invalidate()  # never verify through stale fds
                 try:
                     got = _crc_of_range(st, prev, end)
                 except OSError:
@@ -740,6 +755,7 @@ def recover_store(data_dir: str | Path, meta: PostMetadata,
         else:
             cursor = min(cursor, extent)
             if cursor > 0:
+                st.invalidate()
                 intervals = []
                 start = 0
                 while start < cursor:
@@ -769,6 +785,7 @@ def recover_store(data_dir: str | Path, meta: PostMetadata,
                 report.truncated_bytes += size - expect
                 touched = True
         if touched:
+            st.invalidate()
             fsio.fsync_dir(st.dir, fs=st.fs)
 
         changed = (cursor != meta.labels_written
@@ -787,4 +804,5 @@ def recover_store(data_dir: str | Path, meta: PostMetadata,
         return report
     finally:
         span.__exit__(None, None, None)
-        st.close()
+        if own_store:
+            st.close()

@@ -6,11 +6,16 @@ and resume, must give a store byte-identical to the JAX package's
 uninjected one. ENOSPC parks the writer (``degraded()``, ``kick()``) and
 the session completes; EIO fails typed and a rerun resumes; short writes
 are retried; a power cut inside a metadata save keeps the old content; the
-``post_store_*`` counters move as the JAX package's do. The port's
-operation numbering may differ from the JAX package's, so outcomes are
-compared, never operation indices.
+``post_store_*`` counters move as the JAX package's do. Recovery on a
+caller's store (``recover_store(..., store=)``) drops the store's cached
+read fds, so no read serves the pre-recovery inode; its report equals the
+JAX package's. A recovery is an ``init.recover`` span, ENOSPC flips the
+``post.store`` readiness probe, and a scheduler-finished resume keeps a
+ledger that covers its cursor. The port's operation numbering may differ
+from the JAX package's, so outcomes are compared, never operation indices.
 """
 
+import dataclasses
 import errno
 import hashlib
 import os
@@ -23,6 +28,7 @@ from unittest import mock
 import pytest
 import torch
 
+from spacemesh_tpu.post import data as jdata
 from spacemesh_tpu.post import faultfs as jfaultfs
 from spacemesh_tpu.post import initializer as jinit
 from spacemesh_tpu.utils import metrics as jmetrics
@@ -33,7 +39,8 @@ from spacemesh_tpu_torch.post import initializer as tinit
 from spacemesh_tpu_torch.post.data import (LabelStore, LabelWriteError,
                                            PostMetaCorrupt, PostMetadata,
                                            recover_store)
-from spacemesh_tpu_torch.utils import fsio, metrics
+from spacemesh_tpu_torch.obs import health
+from spacemesh_tpu_torch.utils import fsio, metrics, tracing
 
 NODE = hashlib.sha256(b"torch-crash-node").digest()
 COMMIT = hashlib.sha256(b"torch-crash-commitment").digest()
@@ -476,6 +483,185 @@ def test_fresh_dir_with_stray_label_files_is_wiped(tmp_path, reference):
     (tmp_path / "postdata_0.bin").write_bytes(b"\x55" * 333)
     _port_init(tmp_path)
     assert _store_state(tmp_path) == ref
+
+
+def _swap_inodes(d, meta, good):
+    """Replace both label files by NEW inodes: file 0 keeps the first
+    interval's bytes, file 1 is garbage that fails the tail CRC."""
+    lpf = meta.labels_per_file
+    f0, f1 = d / "postdata_0.bin", d / "postdata_1.bin"
+    os.unlink(f0)
+    f0.write_bytes(good[:lpf * 16])
+    os.unlink(f1)
+    f1.write_bytes(b"\x13" * (TOTAL - lpf) * 16)
+    return f0
+
+
+def test_read_fd_cache_invalidated_across_recovery(tmp_path, reference):
+    """Recovery on a caller's store drops the store's cached read fds: a
+    cached fd pins the pre-recovery inode, so later reads must see the
+    repaired file, not the unlinked one. The report and the metadata
+    equal the JAX package's on the same surgery."""
+    ref, _ = reference
+    out = {}
+    for name, init, Store, recover, Meta in (
+            ("jax", _jax_init, jdata.LabelStore, jdata.recover_store,
+             jdata.PostMetadata),
+            ("port", _port_init, LabelStore, recover_store, PostMetadata)):
+        d = tmp_path / name
+        init(d)
+        meta = Meta.load(d)
+        store = Store(d, meta)
+        good = store.read_labels(0, TOTAL)  # caches one fd per file
+        assert hashlib.sha256(good).hexdigest() == ref[0]
+        f0 = _swap_inodes(d, meta, good)
+        report = recover(d, meta, store=store)
+        out[name] = (dataclasses.asdict(report), meta.labels_written,
+                     meta.intervals)
+        # the store was the caller's: still open, and reading the CURRENT
+        # inode, as a direct write to it shows
+        with open(f0, "r+b") as fh:
+            fh.write(b"\xEE" * 16)
+        assert store.read_labels(0, 1) == b"\xEE" * 16, \
+            f"{name}: a cached fd served the pre-recovery inode"
+        store.close()
+    assert out["port"] == out["jax"]
+    report, written, _ = out["port"]
+    assert report["intervals_dropped"] >= 1  # the garbage tail failed
+    assert written == FILE_BYTES // 16
+
+
+def test_recovery_reuses_only_the_store_it_was_given(tmp_path, reference):
+    """Without ``store=`` recovery opens and closes a store of its own, and
+    a caller's store goes on serving the unlinked inode through its cached
+    fd; recovery with ``store=`` drops that fd and leaves the store open
+    on the files as they are now."""
+    _port_init(tmp_path)
+    meta = PostMetadata.load(tmp_path)
+    lpf = meta.labels_per_file
+    store = LabelStore(tmp_path, meta)
+    good = store.read_labels(0, TOTAL)
+    fds = dict(store._read_fds)
+    f0 = _swap_inodes(tmp_path, meta, good)
+    report = recover_store(tmp_path, PostMetadata.load(tmp_path))
+    assert report.intervals_dropped >= 1 and report.removed_files == 1
+    assert store._read_fds == fds  # recovery never saw this store
+    # file 1 is gone from the directory, yet the cached fd still reads it
+    assert store.read_labels(lpf, 1) == good[lpf * 16:(lpf + 1) * 16]
+    again = recover_store(tmp_path, PostMetadata.load(tmp_path), store=store)
+    assert not again.acted and again.verified_labels == lpf
+    assert 1 not in store._read_fds
+    with pytest.raises(OSError):
+        store.read_labels(lpf, 1)
+    with open(f0, "r+b") as fh:
+        fh.write(b"\xEE" * 16)
+    assert store.read_labels(0, 1) == b"\xEE" * 16
+    store.close()
+
+
+def test_recovery_emits_span_and_metrics(tmp_path, reference):
+    """A power cut late in the init, a reboot and a rerun: the rerun's
+    recovery is an ``init.recover`` span, the injection and recovery
+    counters move, and the store is the JAX package's."""
+    ref, total_ops = reference
+    inj0 = sum(metrics.post_store_fault_injections.sample().values())
+    rec0 = sum(metrics.post_store_recovery_runs.sample().values())
+    tracing.start(capacity=16384)
+    try:
+        fs = faultfs.FaultFS(faultfs.FaultPlan(
+            [faultfs.FaultSpec(op=max(total_ops - 2, 1), kind="powercut")],
+            seed=5))
+        with pytest.raises(BaseException) as ei:
+            _port_init(tmp_path, fs=fs)
+        assert faultfs.power_cut_behind(ei.value) is not None
+        fs.reboot()
+        _port_init(tmp_path, fs=fs)
+        names = {e["name"] for e in tracing.export()["traceEvents"]}
+    finally:
+        tracing.stop()
+    assert "init.recover" in names
+    assert _store_state(tmp_path) == ref
+    assert sum(metrics.post_store_fault_injections.sample().values()) > inj0
+    assert sum(metrics.post_store_recovery_runs.sample().values()) >= rec0
+
+
+def test_enospc_degrades_readyz_then_resumes(tmp_path, reference):
+    """ENOSPC mid-init flips the ``post.store`` probe and a health report's
+    readiness without ending the process, and the init completes to the
+    JAX package's store once the plan releases space."""
+    ref, _ = reference
+    waits0 = sum(metrics.post_store_enospc_waits.sample().values())
+    engine = health.HealthEngine(time_source=lambda: 1000.0)
+    seen = []
+
+    def on_inject(spec, n):
+        if spec.kind != "enospc" or len(seen) > 3:
+            return
+        report = engine.tick(1000.0)
+        ent = report["components"].get("post.store")
+        if ent is not None:
+            seen.append((report["ready"], ent["healthy"], ent["reason"]))
+
+    fs = faultfs.FaultFS(faultfs.FaultPlan(
+        [faultfs.FaultSpec(op=1, kind="enospc", hold_ops=5)], seed=4,
+        on_inject=on_inject))
+    _port_init(tmp_path, fs=fs, enospc_retry_s=0.01)
+    assert _store_state(tmp_path) == ref
+    degraded = [x for x in seen if not x[1]]
+    assert degraded, f"post.store never flipped degraded: {seen}"
+    assert not degraded[0][0], "/readyz stayed ready through ENOSPC"
+    assert "enospc" in degraded[0][2]
+    assert sum(metrics.post_store_enospc_waits.sample().values()) > waits0
+    # ...and cleared with the session
+    assert "post.store" not in health.HEALTH.names()
+    assert metrics.post_store_degraded.sample().get((), 1.0) == 0.0
+
+
+def test_scheduler_resume_preserves_checkpoint_ledger(tmp_path, reference):
+    """A partial init, then the scheduler's packed path finishes the store:
+    the ledger covers the persisted cursor, so the next reopen's recovery
+    keeps every label. The ledgers and the recovery reports equal the JAX
+    package's."""
+    from spacemesh_tpu.runtime import TenantScheduler as JScheduler
+    from spacemesh_tpu_torch.runtime import TenantScheduler
+
+    ref, _ = reference
+    out = {}
+    for name, init_mod, data_mod, sched_cls, cpu in (
+            ("port", tinit, tdata, TenantScheduler, dict(device="cpu")),
+            ("jax", jinit, jdata, JScheduler, {})):
+        d = tmp_path / name
+        meta = init_mod.open_or_create_meta(
+            d, node_id=NODE, commitment=COMMIT, num_units=1,
+            labels_per_unit=TOTAL, scrypt_n=N, max_file_size=FILE_BYTES)
+        init = init_mod.Initializer(
+            d, meta, batch_size=BATCH, writers=1, mesh=None, inflight=1,
+            save_barrier=True, meta_interval_s=1e9,
+            meta_interval_labels=BATCH,
+            progress=lambda done, total: init.stop(), **cpu)
+        init.run()
+        partial = data_mod.PostMetadata.load(d)
+        assert 0 < partial.labels_written < TOTAL and partial.intervals
+        with sched_cls(workers=2, pack_lanes=BATCH, **cpu) as sched:
+            sched.register_tenant("t")
+            try:
+                sched.submit_init(
+                    "t", d, node_id=NODE, commitment=COMMIT, num_units=1,
+                    labels_per_unit=TOTAL, scrypt_n=N,
+                    max_file_size=FILE_BYTES).result(timeout=300)
+            finally:
+                sched.unregister_tenant("t")
+        done = data_mod.PostMetadata.load(d)
+        report = data_mod.recover_store(d, data_mod.PostMetadata.load(d))
+        out[name] = (partial.labels_written, partial.intervals,
+                     done.labels_written, done.intervals,
+                     dataclasses.asdict(report))
+        assert _store_state(d) == ref
+    assert out["port"] == out["jax"]
+    _, _, written, intervals, report = out["port"]
+    assert written == TOTAL and intervals[-1][0] == TOTAL
+    assert report["rolled_back_labels"] == 0
+    assert report["truncated_bytes"] == 0
 
 
 # --- typed metadata errors, staging cleanup, the fsio contract ---------------

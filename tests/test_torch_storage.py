@@ -4,13 +4,19 @@ JAX package's.
 The cases of ``tests/test_storage.py`` run against the port's modules;
 then the two packages share files: a state database written by either
 opens in the other with the same schema, ``user_version`` and rows, and a
-pre-0004 database migrates to the same rows in both. Exact equality.
+pre-0004 database migrates to the same rows in both. The cases of
+``tests/test_reward_migration.py`` (migrations 0004 and 0005: re-encoded
+legacy blocks, the recomputed aggregated-hash chain, the boundary fence, a
+no-op on a consistent chain, no boundary on a fresh database) build the
+same old database with each package and migrate it: equal files, equal
+rows read back. Exact equality.
 """
 
 import io
 import sqlite3
 import threading
 import time
+import types as pytypes
 
 import numpy as np
 import pytest
@@ -27,6 +33,7 @@ from spacemesh_tpu.storage import misc as jmisc
 from spacemesh_tpu.storage import transactions as jtxs
 from spacemesh_tpu.utils import metrics as jmetrics
 from spacemesh_tpu_torch.core import types
+from spacemesh_tpu_torch.core.hashing import sum256
 from spacemesh_tpu_torch.storage import (atxs, ballots, blocks, cache, db,
                                          layers, misc, transactions)
 from spacemesh_tpu_torch.utils import metrics as tmetrics
@@ -441,6 +448,184 @@ def test_legacy_database_migrates_to_the_same_rows(tmp_path):
     assert dumps["port"]["user_version"] == 5
     assert dumps["port"]["migration_marks"] == [
         ("block_id_rewrite_boundary", 3)]
+
+
+# --- twins of tests/test_reward_migration.py: migration 0005 ---------------
+
+JAX_DB = pytypes.SimpleNamespace(db=jdb, types=jtypes, sum256=jsum256,
+                                 blocks=jblocks, layers=jlayers, misc=jmisc)
+PORT_DB = pytypes.SimpleNamespace(db=db, types=types, sum256=sum256,
+                                  blocks=blocks, layers=layers, misc=misc)
+
+
+def _legacy_layer(d, P, layer, data, agg=None, cert=True):
+    """A pre-0004 layer: a legacy block blob applied, its aggregated hash
+    chained on ``agg`` (genesis when None), and a certificate for it."""
+    bid = P.sum256(data)
+    agg = P.sum256(bytes(32) if agg is None else agg, bid)
+    d.exec("INSERT INTO blocks (id, layer, data) VALUES (?,?,?)",
+           (bid, layer, data))
+    d.exec("INSERT INTO layers (id, applied_block, aggregated_hash)"
+           " VALUES (?,?,?)", (layer, bid, agg))
+    if cert:
+        d.exec("INSERT INTO certificates (layer, block_id) VALUES (?,?)",
+               (layer, bid))
+    return bid, agg
+
+
+def _view(d, P, layers_):
+    """What the node reads back after the migration: each layer's blocks,
+    applied block and aggregated hash, the certificates and the boundary."""
+    return {"blocks": {ly: [b.to_bytes() for b in P.blocks.in_layer(d, ly)]
+                       for ly in layers_},
+            "applied": {ly: P.layers.applied_block(d, ly) for ly in layers_},
+            "agg": {ly: P.layers.aggregated_hash(d, ly) for ly in layers_},
+            "certs": [r["layer"] for r in d.all(
+                "SELECT layer FROM certificates ORDER BY layer")],
+            "boundary": P.misc.migration_boundary(d)}
+
+
+def _migrate_both(tmp_path, build, layers_):
+    """``build(path, P)`` writes an old database with package ``P``'s own
+    schema; each package opens its own copy (running its migrations).
+    Returns the port's view after the two dumps and views are held equal,
+    and the view again after a reopen (the migration does not re-run)."""
+    out = {}
+    for name, P in (("jax", JAX_DB), ("port", PORT_DB)):
+        path = tmp_path / f"{name}.db"
+        ctx = build(path, P)
+        state = P.db.open_state(path)
+        view = _view(state, P, layers_)
+        state.close()
+        again = P.db.open_state(path)
+        assert _view(again, P, layers_) == view
+        again.close()
+        out[name] = (_dump(path), view, ctx)
+    assert out["port"][0] == out["jax"][0]
+    assert out["port"][1] == out["jax"][1]
+    assert out["port"][0]["user_version"] == 5
+    return out["port"][1], out["port"][2]
+
+
+def test_reward_migration_reencodes_legacy_blocks(tmp_path):
+    coinbase = b"\x07" * 24
+
+    def build(path, P):
+        old = P.db.Database(path, P.db.STATE_MIGRATIONS[:3], name="state")
+        bid, _ = _legacy_layer(old, P, 5, _legacy_block_bytes(
+            5, 9, [(coinbase, 3)], [b"\x21" * 32]))
+        old.close()
+        return bid
+
+    view, old_id = _migrate_both(tmp_path, build, [5])
+    (raw,) = view["blocks"][5]
+    b = types.Block.from_bytes(raw)
+    assert b.tick_height == 9 and b.tx_ids == [b"\x21" * 32]
+    assert b.rewards == [types.Reward(atx_id=bytes(32), coinbase=coinbase,
+                                      weight=3)]
+    assert b.id != old_id and view["applied"][5] == b.id
+    # certificates signed over the old id are dropped, not rewritten, and
+    # the boundary fences pre-rewrite ballots off from recovery
+    assert view["certs"] == [] and view["boundary"] == 5
+
+
+def test_reward_migration_recomputes_aggregated_hash_chain(tmp_path):
+    def build(path, P):
+        old = P.db.Database(path, P.db.STATE_MIGRATIONS[:3], name="state")
+        ids, agg = {}, None
+        for layer in (1, 2, 3):
+            ids[layer], agg = _legacy_layer(
+                old, P, layer, _legacy_block_bytes(
+                    layer, 0, [(b"\x01" * 24, layer)], []), agg, cert=False)
+        old.close()
+        return ids
+
+    view, ids = _migrate_both(tmp_path, build, [1, 2, 3])
+    expect = bytes(32)
+    for layer in (1, 2, 3):
+        new_id = view["applied"][layer]
+        assert new_id != ids[layer]
+        expect = sum256(expect, new_id)
+        assert view["agg"][layer] == expect
+    assert view["boundary"] == 3
+
+
+def _version4(path, P, legacy):
+    """A database the previous build migrated to version 4: the ids
+    rewritten, the derived data (chain, certificates) left stale."""
+    old = P.db.Database(path, P.db.STATE_MIGRATIONS[:3], name="state")
+    for layer, data in legacy:
+        _legacy_layer(old, P, layer, data)
+    old.close()
+    return P.db.Database(path, P.db.STATE_MIGRATIONS[:4], name="state")
+
+
+def test_reward_migration_version4_database_gets_fixups_via_0005(tmp_path):
+    data = _legacy_block_bytes(7, 1, [(b"\x09" * 24, 2)], [])
+
+    def build(path, P):
+        mid = _version4(path, P, [(7, data)])
+        assert mid.one("SELECT COUNT(*) c FROM certificates")["c"] == 1
+        new_id = P.layers.applied_block(mid, 7)
+        assert new_id != P.sum256(data)
+        assert P.layers.aggregated_hash(mid, 7) == \
+            P.sum256(bytes(32), P.sum256(data))
+        mid.close()
+        return new_id
+
+    view, new_id = _migrate_both(tmp_path, build, [7])
+    assert view["agg"][7] == sum256(bytes(32), new_id)
+    assert view["certs"] == [] and view["boundary"] == 7
+
+
+def test_reward_migration_0005_fences_only_pre_rewrite_layers(tmp_path):
+    data = _legacy_block_bytes(1, 0, [(b"\x01" * 24, 1)], [])
+
+    def build(path, P):
+        mid = _version4(path, P, [(1, data)])
+        new1 = P.layers.applied_block(mid, 1)
+        # the node kept running at version 4 and applied layer 2 with a
+        # new-format block, chained on the stale stored value
+        stale = P.layers.aggregated_hash(mid, 1)
+        blk2 = P.types.Block(layer=2, tick_height=0, rewards=[], tx_ids=[])
+        mid.exec("INSERT INTO blocks (id, layer, data) VALUES (?,?,?)",
+                 (blk2.id, 2, blk2.to_bytes()))
+        mid.exec("INSERT INTO layers (id, applied_block, aggregated_hash)"
+                 " VALUES (?,?,?)", (2, blk2.id, P.sum256(stale, blk2.id)))
+        mid.exec("INSERT INTO certificates (layer, block_id) VALUES (?,?)",
+                 (2, blk2.id))
+        mid.close()
+        return new1, blk2.id
+
+    view, (new1, id2) = _migrate_both(tmp_path, build, [1, 2])
+    assert view["boundary"] == 1
+    assert view["certs"] == [2]  # the valid post-rewrite certificate kept
+    assert view["agg"][1] == sum256(bytes(32), new1)
+    assert view["agg"][2] == sum256(sum256(bytes(32), new1), id2)
+
+
+def test_reward_migration_0005_is_noop_on_consistent_chain(tmp_path):
+    def build(path, P):
+        mid = P.db.Database(path, P.db.STATE_MIGRATIONS[:4], name="state")
+        blk = P.types.Block(layer=3, tick_height=0, rewards=[], tx_ids=[])
+        mid.exec("INSERT INTO blocks (id, layer, data) VALUES (?,?,?)",
+                 (blk.id, 3, blk.to_bytes()))
+        mid.exec("INSERT INTO layers (id, applied_block, aggregated_hash)"
+                 " VALUES (?,?,?)", (3, blk.id, P.sum256(bytes(32), blk.id)))
+        mid.exec("INSERT INTO certificates (layer, block_id) VALUES (?,?)",
+                 (3, blk.id))
+        mid.close()
+        return blk.id
+
+    view, bid = _migrate_both(tmp_path, build, [3])
+    assert view["certs"] == [3] and view["boundary"] == -1
+    assert view["agg"][3] == sum256(bytes(32), bid)
+
+
+def test_reward_migration_fresh_database_has_no_boundary(tmp_path):
+    view, _ = _migrate_both(tmp_path, lambda path, P: None, [0])
+    assert view == {"blocks": {0: []}, "applied": {0: None},
+                    "agg": {0: None}, "certs": [], "boundary": -1}
 
 
 def test_metric_families_match():
