@@ -21,9 +21,13 @@ of the mix phase's dependent random reads. The lanes of one launch are
 capped to what fits the card's free memory, and a larger batch runs as
 several launches over lane chunks.
 
-:func:`romix` takes the kernel for a CUDA tensor and :func:`romix_r1`, the
-plain PyTorch version, only for a CPU tensor; a kernel that fails to build
-or launch raises. ``launches`` counts kernel launches.
+:func:`scratch` allocates V for one batch (the caller may take it ahead of
+the launches, as ``ops/scrypt.py`` does inside its ``romix.scratch``
+span); :func:`romix` takes the kernel for a CUDA tensor and
+:func:`romix_r1`, the plain PyTorch version, only for a CPU tensor; a
+kernel that fails to build or launch raises. ``launches`` counts kernel
+launches; on the card each call's enqueue (the output's allocation, every
+chunk's launch and its error check) runs inside a ``romix.launch`` span.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import ctypes
 
 import torch
 
+from ..utils import tracing
 from . import _build
 from .salsa import blockmix_r1
 from .u32 import DTYPE
@@ -109,14 +114,31 @@ def _lib():
     return fn
 
 
+def scratch(n: int, lanes: int, device: torch.device,
+            max_lanes: int | None = None) -> torch.Tensor | None:
+    """V for a batch of ``lanes`` on the card: (per, n, 32) int32, ``per``
+    the lanes of one launch, at most ``max_lanes`` (default: what fits the
+    free memory). None on the CPU, whose plain twin makes its own, and for
+    an empty batch."""
+    if device.type != "cuda" or lanes == 0:
+        return None
+    per = min(lanes, max_lanes if max_lanes is not None
+              else lanes_that_fit(n, device))
+    if per < 1:
+        raise ValueError("max_lanes must be positive")
+    return torch.empty((per, n, 32), dtype=DTYPE, device=device)
+
+
 def romix(x: torch.Tensor, n: int, *, max_lanes: int | None = None,
-          mix_phase: bool = True) -> torch.Tensor:
+          mix_phase: bool = True, v: torch.Tensor | None = None
+          ) -> torch.Tensor:
     """ROMix over a (32, B) int32 block batch; returns (32, B).
 
     On a CUDA tensor this launches ``csrc/romix.cu`` over chunks of at most
-    ``max_lanes`` lanes (default: what fits the free memory); on a CPU
-    tensor it runs :func:`romix_r1`, over the same chunks when
-    ``max_lanes`` is given. ``mix_phase=False`` stops after the
+    ``max_lanes`` lanes (default: what fits the free memory), in the
+    scratch ``v`` when given (from :func:`scratch`; its lanes are the
+    chunk); on a CPU tensor it runs :func:`romix_r1`, over the same chunks
+    when ``max_lanes`` is given. ``mix_phase=False`` stops after the
     fill phase."""
     global launches
     check_n(n)
@@ -137,25 +159,24 @@ def romix(x: torch.Tensor, n: int, *, max_lanes: int | None = None,
                           for c0 in range(0, b, max_lanes)], dim=1)
     if dev.type != "cuda":
         raise ValueError(f"romix: unsupported device {dev}")
-    x = x.contiguous()
-    b = shape[1]
-    out = torch.empty_like(x)
-    if b == 0:
+    with tracing.span("romix.launch"):
+        x = x.contiguous()
+        b = shape[1]
+        out = torch.empty_like(x)
+        if b == 0:
+            return out
+        fn = _lib()
+        if v is None:
+            v = scratch(n, b, dev, max_lanes)
+        per = v.shape[0]
+        xp, op, vp = x.data_ptr(), out.data_ptr(), v.data_ptr()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for c0 in range(0, b, per):
+                lanes = min(per, b - c0)
+                err = fn(xp + 4 * c0, op + 4 * c0, vp, b, lanes, n,
+                         int(mix_phase), stream)
+                with _build.count_lock:
+                    launches += 1
+                _build.check(err, "romix_r1_launch")
         return out
-    fn = _lib()
-    per = min(b, max_lanes if max_lanes is not None
-              else lanes_that_fit(n, dev))
-    if per < 1:
-        raise ValueError("max_lanes must be positive")
-    v = torch.empty((per, n, 32), dtype=DTYPE, device=dev)
-    xp, op, vp = x.data_ptr(), out.data_ptr(), v.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for c0 in range(0, b, per):
-            lanes = min(per, b - c0)
-            err = fn(xp + 4 * c0, op + 4 * c0, vp, b, lanes, n,
-                     int(mix_phase), stream)
-            with _build.count_lock:
-                launches += 1
-            _build.check(err, "romix_r1_launch")
-    return out

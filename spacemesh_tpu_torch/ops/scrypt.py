@@ -24,7 +24,11 @@ Pallas fallback exist for XLA and the TPU; the port has one kernel.
 
 Each batch's launches run inside a ``romix.dispatch`` span (the enqueue;
 the kernels' device time shows in a ``torch.profiler`` capture, which the
-``SPACEMESH_TRACE_TORCH`` bridge lines the spans up against).
+``SPACEMESH_TRACE_TORCH`` bridge lines the spans up against), with one
+child span per host step: ``romix.scratch`` (the autotuned decision and
+ROMix's V, ``romix_cuda.scratch``), ``scrypt.expand``, ``romix.launch``
+(``ops/romix_cuda.py``) and ``scrypt.finish``. The VRF min-scan's enqueue
+is a ``scrypt.minscan`` span beside it.
 """
 
 from __future__ import annotations
@@ -63,6 +67,20 @@ def _chunk(chunk, n: int, idx_lo) -> int | None:
                            platform=idx_lo.device.type).chunk
 
 
+def _scratch(chunk, n: int, idx_lo):
+    """-> (max_lanes, V) for one batch: ROMix's lane chunk and its scratch
+    (``romix_cuda.scratch``; None on the CPU)."""
+    with tracing.span("romix.scratch"):
+        max_lanes = _chunk(chunk, n, idx_lo)
+        return max_lanes, romix_cuda.scratch(n, int(idx_lo.shape[0]),
+                                             idx_lo.device, max_lanes)
+
+
+def _expand(commitment_words, idx_lo, idx_hi):
+    with tracing.span("scrypt.expand"):
+        return pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
+
+
 def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *, n: int,
                         chunk=TUNED) -> torch.Tensor:
     """Labels for (B,) index halves -> (4, B) int32 BE words (batch minor);
@@ -70,10 +88,11 @@ def scrypt_labels_words(commitment_words, idx_lo, idx_hi, *, n: int,
     card, as three kernel launches (ROMix as one launch per ``chunk``
     lanes)."""
     with _dispatch_span(n, idx_lo):
-        max_lanes = _chunk(chunk, n, idx_lo)
-        blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
-        blk = romix_cuda.romix(blk, n, max_lanes=max_lanes)
-        return pbkdf2_cuda.finish(commitment_words, blk)
+        max_lanes, v = _scratch(chunk, n, idx_lo)
+        blk = _expand(commitment_words, idx_lo, idx_hi)
+        blk = romix_cuda.romix(blk, n, max_lanes=max_lanes, v=v)
+        with tracing.span("scrypt.finish"):
+            return pbkdf2_cuda.finish(commitment_words, blk)
 
 
 def scrypt_labels_hash(commitment_words, idx_lo, idx_hi, challenge_words,
@@ -87,12 +106,13 @@ def scrypt_labels_hash(commitment_words, idx_lo, idx_hi, challenge_words,
     ``challenge_words`` and ``nonce`` as ``ops/proving_cuda.py``'s
     proving hash takes them."""
     with _dispatch_span(n, idx_lo, hash=True):
-        max_lanes = _chunk(chunk, n, idx_lo)
-        blk = pbkdf2_cuda.expand(commitment_words, idx_lo, idx_hi)
-        blk = romix_cuda.romix(blk, n, max_lanes=max_lanes)
-        return pbkdf2_cuda.finish_hash(commitment_words, blk,
-                                       challenge_words, nonce, idx_lo,
-                                       idx_hi, words_out=words_out)
+        max_lanes, v = _scratch(chunk, n, idx_lo)
+        blk = _expand(commitment_words, idx_lo, idx_hi)
+        blk = romix_cuda.romix(blk, n, max_lanes=max_lanes, v=v)
+        with tracing.span("scrypt.finish"):
+            return pbkdf2_cuda.finish_hash(commitment_words, blk,
+                                           challenge_words, nonce, idx_lo,
+                                           idx_hi, words_out=words_out)
 
 
 def scrypt_labels_packed(commitment_words, idx_lo, idx_hi, *,
@@ -197,7 +217,8 @@ def scrypt_labels_with_min(commitment_words, idx_lo, idx_hi, carry, *,
     while the carry rolls on to later batches."""
     words = scrypt_labels_words(commitment_words, idx_lo, idx_hi, n=n,
                                 chunk=chunk)
-    new_carry, snapshot = _minscan(words, idx_lo, idx_hi, carry)
+    with tracing.span("scrypt.minscan"):
+        new_carry, snapshot = _minscan(words, idx_lo, idx_hi, carry)
     return words, new_carry, snapshot
 
 

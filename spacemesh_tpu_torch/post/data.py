@@ -432,9 +432,6 @@ class LabelWriter:
             self._idle.notify_all()
         return f, crc
 
-    def queue_depth(self) -> int:
-        return self._q.qsize()
-
     def drain(self) -> None:
         """Block until every submitted write is durably on disk. Does not
         cut the checkpoint CRC interval."""

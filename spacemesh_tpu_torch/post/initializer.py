@@ -34,7 +34,13 @@ cursors) and ``post.store`` (ENOSPC parking), with ``restart_component``
 hooks that stop the session. The spans are the JAX package's:
 ``init.run``, ``init.dispatch`` (the engine's), ``init.fetch``,
 ``init.write_stall``, ``init.write`` (writer threads, parented across the
-pool), ``init.drain_stall`` and ``init.save_meta``.
+pool), ``init.drain_stall`` and ``init.save_meta``; and the port's own,
+which name every host step between two ROMix launches: ``init.build``
+(the batch's index halves and their copies to the card), the label
+kernels' steps and ``scrypt.minscan`` (``ops/scrypt.py``) and
+``device.host_copy`` under ``init.dispatch``; ``device.host_wait`` and
+``init.to_bytes`` (the words' byte conversion) under ``init.fetch``; and
+``init.checkpoint`` (the writer's drain and fsync before a metadata save).
 
 ``mesh`` is the JAX ``Initializer``'s: ``None`` (one device), ``"auto"``
 (the default: ``ops/autotune.py:resolve_auto_mesh``, which on the card
@@ -48,16 +54,17 @@ reads its device count. A striped batch goes through
 back through a ``HostCopy`` on its own stream and are written at their
 own first index, and the VRF carry stays replicated on the stripes from
 batch to batch (placed once per pass). The per-stripe fetch seconds feed
-``post_mesh_shard_labels_per_sec`` and ``post_mesh_shard_imbalance``.
+``post_mesh_shard_imbalance``.
 
 Left out against the JAX package: the ``writer_queue`` option (no caller
 sets it: the queue depth is :data:`DEFAULT_WRITER_QUEUE`).
 
 The ``post_pipeline_*`` metrics are the JAX package's, recorded at its
-sites: batches dispatched, the in-flight depth, the write-queue depth, the
-writer-backpressure stall, the stage seconds (dispatch/fetch/write/stall),
-the metadata saves and the last session's labels/s. They are host
-counters: no launch and no sync on the card's path.
+sites: batches dispatched, the in-flight depth, the stage seconds
+(dispatch/fetch/write/stall), the metadata saves and the last session's
+labels/s. They are host counters: no launch and no sync on the card's
+path. The JAX package's write-queue depth and writer-stall counter are
+left out: nothing reads them (the stall is the ``stall`` stage).
 """
 
 from __future__ import annotations
@@ -296,10 +303,10 @@ class Initializer:
 
         def dispatch(item):
             start, count = item
-            lo, hi = scrypt.split_indices(
-                np.arange(start, start + count, dtype=np.uint64))
             metrics.post_pipeline_dispatched.inc()
             if mesh is not None:
+                lo, hi = scrypt.split_indices(
+                    np.arange(start, start + count, dtype=np.uint64))
                 words, carry_cell[0], snap = pmesh.labels_with_min_sharded(
                     mesh, cw_host, lo, hi, carry_cell[0], n=meta.scrypt_n,
                     chunk=decision.chunk)
@@ -308,9 +315,13 @@ class Initializer:
                     firsts, pmesh.host_copies(mesh, words)) if hc]
                 return (start, count, parts,
                         pmesh.host_copies(mesh, [snap])[0])
+            with tracing.span("init.build"):
+                lo, hi = scrypt.split_indices(
+                    np.arange(start, start + count, dtype=np.uint64))
+                lo, hi = u32.from_numpy(lo, dev), u32.from_numpy(hi, dev)
             words, carry_cell[0], snap = scrypt.scrypt_labels_with_min(
-                cw, u32.from_numpy(lo, dev), u32.from_numpy(hi, dev),
-                carry_cell[0], n=meta.scrypt_n, chunk=decision.chunk)
+                cw, lo, hi, carry_cell[0], n=meta.scrypt_n,
+                chunk=decision.chunk)
             return start, count, [(0, HostCopy(words))], HostCopy(snap)
 
         def retire(ticket):
@@ -350,7 +361,6 @@ class Initializer:
             # it (the gauge is process-global)
             writer.clear_degraded()
             metrics.post_pipeline_inflight.set(0)
-            metrics.post_pipeline_queue_depth.set(0)
 
         if meta.labels_written >= total:
             self.status = Status.COMPLETE
@@ -386,7 +396,8 @@ class Initializer:
                 # the first stripe's time includes the wait for the batch;
                 # later ones are (nearly) the copy alone
                 shard_times.append((arr.shape[1], time.perf_counter() - t0))
-                data = scrypt.labels_to_bytes(arr)
+                with tracing.span("init.to_bytes"):
+                    data = scrypt.labels_to_bytes(arr)
                 ts = time.perf_counter()
                 with tracing.span("init.write_stall"):
                     writer.submit(start + first, data)
@@ -397,18 +408,11 @@ class Initializer:
                 secs = [t for _, t in shard_times]
                 top, low = max(secs), min(secs)
                 imbalance = (top - low) / top if top > 0 else 0.0
-                rates = [m / t for m, t in shard_times if t > 0]
                 metrics.post_mesh_shard_imbalance.set(imbalance)
-                if rates:
-                    metrics.post_mesh_shard_labels_per_sec.set(
-                        sum(rates) / len(rates))
                 rsp.set(shards=len(shard_times),
                         shard_imbalance=round(imbalance, 4))
         stats.fetch_s += time.perf_counter() - tf - stall
         stats.write_stall_s += stall
-        if stall > 0:
-            metrics.post_pipeline_stall_seconds.inc(stall)
-        metrics.post_pipeline_queue_depth.set(writer.queue_depth())
         metrics.post_pipeline_labels.inc(count)
         self._fetched = start + count
         if self.progress:
@@ -434,16 +438,17 @@ class Initializer:
         ``writer.wait_for_space`` and retries, like a label write."""
         meta = self.meta
         t0 = time.perf_counter()
-        if self.save_barrier:
-            writer.drain()
-        while True:
-            try:
-                durable, crc = writer.checkpoint()
-                break
-            except OSError as e:
-                if e.errno != errno.ENOSPC or not writer.enospc_wait:
-                    raise
-                writer.wait_for_space("label-file fsync")
+        with tracing.span("init.checkpoint"):
+            if self.save_barrier:
+                writer.drain()
+            while True:
+                try:
+                    durable, crc = writer.checkpoint()
+                    break
+                except OSError as e:
+                    if e.errno != errno.ENOSPC or not writer.enospc_wait:
+                        raise
+                    writer.wait_for_space("label-file fsync")
         decoded = scrypt.vrf_carry_decode(self._snapshot)
         meta.labels_written = durable
         prev_end = meta.intervals[-1][0] if meta.intervals else 0

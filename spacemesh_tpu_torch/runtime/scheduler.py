@@ -24,8 +24,11 @@ admits work from every tenant into the dispatch -> retire engine
   (``runtime/workloads.py:fold_min_host``, bit-identical to the device
   scan).
 * **Gang-scheduled prove windows.** One prove window (a whole disk pass)
-  runs as one quantum on one worker, gated by a ``gang_windows``
-  semaphore, so at most that many windows hold device state at once.
+  runs as one quantum on one worker, and at most ``gang_windows`` such
+  quanta run at once. A gang slot is taken under the scheduler's lock when
+  the quantum is picked (a gang job is not picked while every slot is
+  held) and given back under it when the quantum ends, so no worker holds
+  a job while it waits for a slot and the next slot goes by fair share.
 * **Tenant labels.** The ``runtime_*`` metrics of scheduled work carry the
   tenant id.
 
@@ -40,8 +43,15 @@ pack there.
 
 The locks and conditions are the race sanitizer's (``utils/sanitize.py``)
 and the tenant tables are declared shared to it; each quantum is a
-``runtime.quantum`` span, each pack's launches a ``runtime.pack.dispatch``
-span and each tenant's share of a retired pack a ``runtime.segment`` span.
+``runtime.quantum`` span, and the wait before it (from the job's enqueue or
+requeue to the quantum's start, a gang slot's wait included) a detached
+``runtime.queue_wait`` span and an observation of
+``runtime_quantum_wait_seconds``. The packer's steps are spans too:
+``runtime.pack.compose`` (cutting a pack, its linger included), each pack's
+launches a ``runtime.pack.dispatch`` span holding ``runtime.pack.build``
+(the lane arrays and their copies to the card), and its retire
+``runtime.pack.fetch`` (the wait for the labels), ``runtime.pack.to_bytes``
+and one ``runtime.segment`` span per tenant's share.
 
 Packs take the shared mesh routing (``ops/autotune.py:
 resolve_auto_mesh``, as ``spacemesh_tpu/runtime/scheduler.py`` does): on
@@ -140,7 +150,7 @@ class _Job:
     """A worker-pool job: runs as one or more quanta."""
 
     __slots__ = ("handle", "tenant", "kind", "fn", "deadline", "cancelled",
-                 "gang", "abort")
+                 "gang", "abort", "queued_at", "wait_span")
 
     def __init__(self, handle: JobHandle, tenant: _Tenant, kind: str, fn,
                  deadline: float | None, gang: bool = False, abort=None):
@@ -157,6 +167,22 @@ class _Job:
         # the job resolves without completing; never called while a
         # quantum runs
         self.abort = abort
+        self.queue()
+
+    def queue(self) -> None:
+        """Start the wait for the next quantum (at enqueue and requeue)."""
+        self.queued_at = time.perf_counter()
+        self.wait_span = tracing.span(
+            "runtime.queue_wait",
+            {"tenant": self.tenant.id, "kind": self.kind,
+             "job": self.handle.id, "gang": self.gang}
+            if tracing.is_enabled() else None).begin()
+
+    def started(self) -> None:
+        """The quantum starts: the wait ends."""
+        self.wait_span.end()
+        metrics.runtime_quantum_wait.observe(
+            time.perf_counter() - self.queued_at, kind=self.kind)
 
 
 class _InitJob:
@@ -276,7 +302,8 @@ class TenantScheduler:
         self._closed = False
         self._lane_cost_ema = 1e-4  # seconds per packed init lane
         self.pack_stats = PackStats()
-        self._gang = threading.Semaphore(max(int(gang_windows), 1))
+        self._gang_windows = max(int(gang_windows), 1)
+        self._gang_running = 0  # gang quanta running now, under _lock
         self._workers = [
             threading.Thread(target=self._worker_loop, daemon=True,
                              name=f"runtime-worker-{i}")
@@ -641,15 +668,21 @@ class TenantScheduler:
 
     # guarded by: self._lock — _worker_loop picks with the scheduler lock held
     def _pick_job(self) -> _Job | None:
-        """Under the lock: the next quantum by deadline, then fair share."""
+        """Under the lock: the next quantum by deadline, then fair share;
+        no gang job while every gang slot is held (a tenant whose next job
+        is one waits in the queue, charged nothing)."""
         now = self._now()
+        gang_full = self._gang_running >= self._gang_windows
         best_t = None
         overdue_job = None
         overdue_deadline = None
         for t in self._tenants.values():
-            if not t.jobs or t.running >= t.max_inflight:
+            if not t.jobs or t.running >= t.max_inflight \
+                    or (gang_full and t.jobs[0].gang):
                 continue
             for job in t.jobs:
+                if gang_full and job.gang:
+                    continue
                 if job.deadline is not None \
                         and job.deadline <= now + _DEADLINE_SLACK_S \
                         and (overdue_deadline is None
@@ -680,15 +713,17 @@ class TenantScheduler:
                     if job is None:  # closed
                         return
                     job.tenant.running += 1
+                    if job.gang:
+                        self._gang_running += 1
                 self._run_quantum(job)
 
     def _run_quantum(self, job: _Job) -> None:
+        """One quantum of a picked job; a gang job's slot was taken at
+        the pick (every quantum of a gang job holds one: the pow gate is
+        cheap) and goes back here."""
         t0 = time.perf_counter()
         outcome, result, error = "continue", None, None
-        # the gang gate covers every quantum of a gang job (the pow gate
-        # is cheap)
-        if job.gang:
-            self._gang.acquire()
+        job.started()
         try:
             with tracing.span("runtime.quantum",
                               {"tenant": job.tenant.id, "kind": job.kind,
@@ -699,11 +734,11 @@ class TenantScheduler:
                 except Exception as exc:  # noqa: BLE001 — the job fails, the pool survives
                     outcome, error = "error", exc
         finally:
-            if job.gang:
-                self._gang.release()
             dt = time.perf_counter() - t0
             with self._lock:
                 self._shared.touch()
+                if job.gang:
+                    self._gang_running -= 1
                 # unregistered while this quantum ran: the detached tenant
                 # is never picked again (the JAX package requeues onto it,
                 # stranding the handle and a prove job's open session)
@@ -721,6 +756,7 @@ class TenantScheduler:
                 if requeue:
                     # a multi-quantum job goes on ahead of its tenant's
                     # later jobs; fair share decides across tenants
+                    job.queue()
                     job.tenant.jobs.appendleft(job)
                 self._work.notify()
             if error is not None:
@@ -821,21 +857,25 @@ class TenantScheduler:
         from ..ops import autotune, scrypt, u32
 
         segments, n = pack
-        lanes = sum(s.count for s in segments)
-        cw = np.empty((8, lanes), dtype=np.uint32)
-        idx = np.empty(lanes, dtype=np.uint64)
-        for s in segments:
-            cw[:, s.lane0:s.lane0 + s.count] = s.job.cw[:, None]
-            idx[s.lane0:s.lane0 + s.count] = np.arange(
-                s.start, s.start + s.count, dtype=np.uint64)
-        metrics.runtime_pack_occupancy.observe(lanes)
-        metrics.runtime_pack_tenants.observe(
-            len({s.job.tenant.id for s in segments}))
-        dev = self.device
-        lo, hi = scrypt.split_indices(idx)
-        # the tuned mesh routing every mesh-aware entry point shares
-        devs, d = autotune.resolve_auto_mesh(n, lanes, platform=dev.type)
-        if devs is not None and len(devs) > 1:
+        with tracing.span("runtime.pack.build"):
+            lanes = sum(s.count for s in segments)
+            cw = np.empty((8, lanes), dtype=np.uint32)
+            idx = np.empty(lanes, dtype=np.uint64)
+            for s in segments:
+                cw[:, s.lane0:s.lane0 + s.count] = s.job.cw[:, None]
+                idx[s.lane0:s.lane0 + s.count] = np.arange(
+                    s.start, s.start + s.count, dtype=np.uint64)
+            metrics.runtime_pack_occupancy.observe(lanes)
+            metrics.runtime_pack_tenants.observe(
+                len({s.job.tenant.id for s in segments}))
+            dev = self.device
+            lo, hi = scrypt.split_indices(idx)
+            # the tuned mesh routing every mesh-aware entry point shares
+            devs, d = autotune.resolve_auto_mesh(n, lanes, platform=dev.type)
+            striped = devs is not None and len(devs) > 1
+            if not striped:
+                cw, lo, hi = (u32.from_numpy(a, dev) for a in (cw, lo, hi))
+        if striped:
             from ..parallel import mesh as pmesh
 
             mesh = pmesh.data_mesh(devs)
@@ -843,9 +883,7 @@ class TenantScheduler:
                 mesh, cw, lo, hi, n=n, chunk=d.chunk))
             return ([p for p in parts if p is not None], segments,
                     time.perf_counter())
-        words = scrypt.scrypt_labels_packed(
-            u32.from_numpy(cw, dev), u32.from_numpy(lo, dev),
-            u32.from_numpy(hi, dev), n=n, chunk=d.chunk)
+        words = scrypt.scrypt_labels_packed(cw, lo, hi, n=n, chunk=d.chunk)
         return [HostCopy(words)], segments, time.perf_counter()
 
     def _retire_pack(self, ticket) -> None:
@@ -855,7 +893,8 @@ class TenantScheduler:
         st = self.pack_stats
         tf = time.perf_counter()
         # the pack's only wait on the device (one copy per stripe)
-        arrs = [p.get() for p in parts]
+        with tracing.span("runtime.pack.fetch"):
+            arrs = [p.get() for p in parts]
         st.fetch_s += time.perf_counter() - tf
         lanes = sum(s.count for s in segments)
         dt = time.perf_counter() - t_dispatch
@@ -869,7 +908,8 @@ class TenantScheduler:
         st.lanes += lanes
         st.segments += len(segments)
         # one byte conversion for the whole pack, sliced per segment
-        pack_bytes = b"".join(scrypt.labels_to_bytes(a) for a in arrs)
+        with tracing.span("runtime.pack.to_bytes"):
+            pack_bytes = b"".join(scrypt.labels_to_bytes(a) for a in arrs)
         finalize: list[_InitJob] = []
         for s in segments:
             job: _InitJob = s.job
@@ -982,7 +1022,9 @@ class TenantScheduler:
                 # block for work only with the window empty: with packs in
                 # flight an empty queue yields IDLE, so the engine retires
                 # instead of holding a full window behind a quiet queue
-                pack = self._compose_pack(block=pipe.pending_count == 0)
+                with tracing.span("runtime.pack.compose"):
+                    pack = self._compose_pack(
+                        block=pipe.pending_count == 0)
                 if pack is None or not pack[0]:
                     if self._closed:
                         return

@@ -12,10 +12,12 @@ and the ROMix autotuner's ``post_romix_autotune_races_total``; the
 ``post_store_*`` family
 (label-store reads, fsyncs, fault injections, recovery, ENOSPC parking);
 the ``runtime_*`` family (the device-job engine and the multi-tenant
-scheduler, ``runtime/``); the verification farm's and verifyd's, the
-breakers' and the verifyd fleet's (``failover_*``, ``fleet_*``,
-``federated_procs``); the instrumentation's: the span tracer's capture
-state (``trace_*``), the sanitizers' (``sanitize_violations_total``), the
+scheduler, ``runtime/``); the CUDA caching allocator's cudaMalloc calls
+(``device_allocator_calls``, set by ``device.py``'s collector); the
+verification farm's and verifyd's, the breakers' and the verifyd fleet's
+(``failover_*``, ``fleet_*``, ``federated_procs``); the
+instrumentation's: the span tracer's capture state (``trace_*``), the
+sanitizers' (``sanitize_violations_total``), the
 health engine's (``slo_*``, ``component_*``, the event-loop lag), the
 flight recorder's (``flight_bundles_total``), the remediation engine's and
 the engine's host fallbacks (``runtime_fallbacks_total``); gossip's and
@@ -325,11 +327,6 @@ post_pipeline_dispatched = REGISTRY.counter(
     "label batches enqueued on the accelerator")
 post_pipeline_inflight = REGISTRY.gauge(
     "post_pipeline_inflight_batches", "device batches currently in flight")
-post_pipeline_queue_depth = REGISTRY.gauge(
-    "post_pipeline_write_queue_depth", "label writes queued for disk")
-post_pipeline_stall_seconds = REGISTRY.counter(
-    "post_pipeline_stall_seconds_total",
-    "dispatch-loop seconds blocked on writer backpressure")
 post_pipeline_stage_seconds = REGISTRY.counter(
     "post_pipeline_stage_seconds_total",
     "host seconds per pipeline stage (label=stage)")
@@ -339,16 +336,13 @@ post_pipeline_labels_per_sec = REGISTRY.gauge(
     "post_pipeline_labels_per_sec", "labels/s of the last init session")
 
 # the device mesh (parallel/, routed by ops/autotune.py and consumed by
-# post/initializer.py + post/prover.py). A stripe's fetch seconds include
-# the first stripe's wait for the batch to retire; the imbalance gauge is
-# (max-min)/max over the last batch's per-stripe fetch seconds, so a
-# straggling device or stream is visible without a trace capture.
+# post/initializer.py + post/prover.py). The imbalance gauge is (max-min)/
+# max over the last batch's per-stripe fetch seconds (the first stripe's
+# include the wait for the batch), so a straggling device or stream is
+# visible without a trace capture.
 post_mesh_devices = REGISTRY.gauge(
     "post_mesh_devices",
     "device count label batches are sharded over (1 = single device)")
-post_mesh_shard_labels_per_sec = REGISTRY.gauge(
-    "post_mesh_shard_labels_per_sec",
-    "mean per-shard label fetch throughput of the last sharded batch")
 post_mesh_shard_imbalance = REGISTRY.gauge(
     "post_mesh_shard_imbalance",
     "(max-min)/max per-shard fetch seconds of the last sharded batch")
@@ -470,6 +464,21 @@ runtime_quantum_seconds = REGISTRY.counter(
 runtime_deadline_boosts = REGISTRY.counter(
     "runtime_deadline_boosts_total",
     "quanta admitted by deadline (EDF) ahead of fair-share order")
+runtime_quantum_wait = REGISTRY.histogram(
+    "runtime_quantum_wait_seconds",
+    "seconds from a job's enqueue or requeue to its quantum's start, the "
+    "wait for a gang slot included (label: kind)",
+    buckets=(0.001, 0.01, 0.1, 0.5, 1.0, 2.0, 5.0, 10.0, 30.0,
+             float("inf")))
+
+# the CUDA caching allocator's cudaMalloc and cudaFree calls, totals since
+# the process started, set by device.py's collector for every card it has
+# resolved. A cudaFree waits for the whole card, so a count that grows in
+# steady state marks an allocator stall
+device_allocator_calls = REGISTRY.gauge(
+    "device_allocator_calls",
+    "CUDA caching-allocator cudaMalloc/cudaFree calls since start "
+    "(label: call=malloc|free|retry)")
 
 # verification farm (verify/farm.py): the micro-batching admission service
 # for signatures / VRFs / POST proofs / poet membership / k2pow witnesses.

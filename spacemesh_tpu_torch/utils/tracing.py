@@ -46,6 +46,11 @@ Controls:
   thread that started it only; ``chip_smoke.py`` ``[trace]`` pairs those
   ranges with the same spans in this ring to put both on one clock, then
   joins every launch, whatever its thread, to the ring's spans.
+* Garbage collection: while a capture runs, a hook in ``gc.callbacks``
+  records each collection as a ``host.gc`` span (``generation``,
+  ``collected``), since a collection stops every thread of the process.
+  ``start()`` installs the hook and ``stop()`` removes it, so with tracing
+  off no collection pays for it.
 
 Span linkage in the export: every event's ``args`` carries its ``id``
 and its ``parent`` id; cross-cutting links that are not parent/child
@@ -68,6 +73,7 @@ tracer could never draw.
 from __future__ import annotations
 
 import contextvars
+import gc
 import itertools
 import json
 import os
@@ -243,6 +249,7 @@ class Tracer:
         self._recorded = 0  # approximate under thread races; display only
         self._tid_names: dict[int, str] = {}
         self._started_at: float | None = None
+        self._gc_t0: int | None = None
 
     # --- lifecycle ----------------------------------------------------
 
@@ -263,12 +270,33 @@ class Tracer:
         self._tid_names = {}
         self._started_at = time.time()
         self.enabled = True
+        if self._on_gc not in gc.callbacks:
+            gc.callbacks.append(self._on_gc)
 
     def stop(self) -> int:
         """Stop recording; the ring stays exportable. Returns the number
         of spans retained."""
         self.enabled = False
+        while self._on_gc in gc.callbacks:
+            gc.callbacks.remove(self._on_gc)
+        self._gc_t0 = None
         return min(self._recorded, self.capacity)
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        """``gc.callbacks`` hook: one ``host.gc`` span per collection.
+        A collection runs on one thread with the GIL held, so a start and
+        its stop never interleave with another's."""
+        if phase == "start":
+            self._gc_t0 = time.perf_counter_ns()
+            return
+        t0, self._gc_t0 = self._gc_t0, None
+        if t0 is None:
+            return
+        self._record("host.gc", "host", t0 // 1000,
+                     (time.perf_counter_ns() - t0) // 1000, next(self._ids),
+                     _current.get(),
+                     {"generation": info.get("generation"),
+                      "collected": info.get("collected")}, "X")
 
     def recorded(self) -> int:
         """Spans recorded since start (including overwritten ones)."""

@@ -781,3 +781,39 @@ def test_two_stripes_on_one_card_equal_one_device(dev, monkeypatch):
     assert torch.equal(torch.cat(words, 1), one)
     assert torch.equal(snap, want_snap)
     assert all(torch.equal(c, want_snap) for c in carries)
+
+
+def test_traced_init_on_the_card_names_every_host_step(dev, tmp_path):
+    """A traced init on the card: ROMix's scratch and its launches are spans
+    under ``romix.dispatch`` beside the PBKDF2 enqueues, the copies and
+    waits under the pipeline's dispatch and fetch; after it the allocator
+    collector reads the card's statistics, and the launch count is the
+    unchunked one (one launch a batch)."""
+    from spacemesh_tpu_torch.utils import metrics, tracing
+
+    geom = dict(node_id=CH, commitment=COMMIT, num_units=1,
+                labels_per_unit=3 * 512, scrypt_n=1024,
+                max_file_size=1 << 16)
+    before = romix_cuda.launches
+    tracing.start(capacity=1 << 14, torch_bridge=False)
+    try:
+        initializer.initialize(tmp_path, batch_size=512, device="cuda",
+                               **geom)
+    finally:
+        tracing.stop()
+    assert romix_cuda.launches == before + 3
+    evs = [e for e in tracing.export()["traceEvents"] if e.get("ph") == "X"]
+    by_id = {e["args"]["id"]: e["name"] for e in evs}
+    parents: dict = {}
+    for e in evs:
+        parents.setdefault(e["name"], set()).add(
+            by_id.get(e["args"].get("parent")))
+    for name in ("romix.scratch", "scrypt.expand", "romix.launch",
+                 "scrypt.finish"):
+        assert parents[name] == {"romix.dispatch"}, name
+    assert parents["device.host_copy"] == {"init.dispatch"}
+    assert parents["device.host_wait"] == {"init.fetch"}
+    assert sum(e["name"] == "romix.launch" for e in evs) == 3
+    calls = metrics.REGISTRY.sample()["device_allocator_calls"][1]
+    assert calls[(("call", "malloc"),)] >= 1
+    assert {(("call", "free"),), (("call", "retry"),)} <= set(calls)
