@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import Handoff
 from ..utils import tracing
 from . import pbkdf2_cuda, romix_cuda, u32
 from .romix_cuda import check_n as _check_n
@@ -214,11 +215,19 @@ def scrypt_labels_with_min(commitment_words, idx_lo, idx_hi, carry, *,
 
     Returns ``(words, new_carry, snapshot)``: (4, B) BE label words, the
     next carry, and an independent copy of it that a caller may keep
-    while the carry rolls on to later batches."""
+    while the carry rolls on to later batches. ``carry`` is a tensor, or
+    a ``device.Handoff`` that batches on two streams share: it is taken
+    right before the scan, so only the scan waits for the previous
+    batch's, and it is given the next carry."""
     words = scrypt_labels_words(commitment_words, idx_lo, idx_hi, n=n,
                                 chunk=chunk)
     with tracing.span("scrypt.minscan"):
-        new_carry, snapshot = _minscan(words, idx_lo, idx_hi, carry)
+        if isinstance(carry, Handoff):
+            new_carry, snapshot = _minscan(words, idx_lo, idx_hi,
+                                           carry.take())
+            carry.put(new_carry)
+        else:
+            new_carry, snapshot = _minscan(words, idx_lo, idx_hi, carry)
     return words, new_carry, snapshot
 
 

@@ -56,6 +56,14 @@ own first index, and the VRF carry stays replicated on the stripes from
 batch to batch (placed once per pass). The per-stripe fetch seconds feed
 ``post_mesh_shard_imbalance``.
 
+On one card consecutive batches run on the two streams of a
+``device.StreamRing`` when two batches' ROMix V fit the card
+(``device.label_ring``, decided at the session's first batch), so two
+batches' kernels share it; the VRF carry crosses from one stream to the
+other through a ``device.Handoff``, which orders only the next batch's
+scan after the previous one's. A striped session keeps its stripes'
+streams.
+
 Left out against the JAX package: the ``writer_queue`` option (no caller
 sets it: the queue depth is :data:`DEFAULT_WRITER_QUEUE`).
 
@@ -80,7 +88,7 @@ from typing import Callable
 
 import numpy as np
 
-from ..device import HostCopy, resolve
+from ..device import Handoff, HostCopy, label_ring, resolve
 from ..obs import health as health_mod
 from ..obs import remediate as remediate_mod
 from ..ops import scrypt, u32
@@ -255,7 +263,7 @@ class Initializer:
 
             carry_cell = [pmesh.replicate(mesh, carry_host)]
         else:
-            carry_cell = [u32.from_numpy(carry_host, dev)]
+            carry = Handoff(u32.from_numpy(carry_host, dev))
         self._snapshot = carry_host
 
         writer = self.store.start_writer(
@@ -319,9 +327,8 @@ class Initializer:
                 lo, hi = scrypt.split_indices(
                     np.arange(start, start + count, dtype=np.uint64))
                 lo, hi = u32.from_numpy(lo, dev), u32.from_numpy(hi, dev)
-            words, carry_cell[0], snap = scrypt.scrypt_labels_with_min(
-                cw, lo, hi, carry_cell[0], n=meta.scrypt_n,
-                chunk=decision.chunk)
+            words, _, snap = scrypt.scrypt_labels_with_min(
+                cw, lo, hi, carry, n=meta.scrypt_n, chunk=decision.chunk)
             return start, count, [(0, HostCopy(words))], HostCopy(snap)
 
         def retire(ticket):
@@ -333,7 +340,9 @@ class Initializer:
             kind="init", tenant=self.tenant, inflight=self.inflight,
             stop=lambda: self._stop, span="init",
             attrs=lambda item: {"start": item[0], "count": item[1]},
-            on_inflight=metrics.post_pipeline_inflight.set)
+            on_inflight=metrics.post_pipeline_inflight.set,
+            ring=None if mesh is not None else (
+                lambda item: label_ring(dev, item[1], meta.scrypt_n)))
         try:
             pipe.run(batches(), dispatch, retire)
             if pipe.stats.stopped:

@@ -20,6 +20,15 @@ Every run counts its batches in the ``runtime_*`` metrics under its
 records an ``f"{span}.dispatch"`` span per batch carrying them, so a
 multi-tenant process decomposes per identity.
 
+``ring=`` builds a ``device.StreamRing`` from the first item: consecutive
+batches are then dispatched on alternate CUDA streams, each batch's whole
+dispatch under its stream, and ``runtime_batches_overlapped_total`` counts
+the batches dispatched while the other stream's previous batch was still
+on the card. Only the label pipelines pass one (``post/initializer.py``
+and the scheduler's packer); every other pipeline keeps the caller's
+stream. ``runtime_pipeline_streams{kind}`` reads the stream count of the
+last pipeline of a kind to start (1 without a ring).
+
 One deliberate difference from the JAX package: no entry point of the
 port passes a ``fallback``. The JAX k2pow search hands a failing device
 dispatch to a host re-scan (``spacemesh_tpu/ops/pow.py``); on the card
@@ -100,6 +109,8 @@ class Pipeline:
                   records none.
     ``attrs``     ``item -> dict`` extra dispatch-span attributes.
     ``on_inflight`` depth hook (pipeline-specific gauges).
+    ``ring``      ``item -> device.StreamRing``, called with the first
+                  item; None keeps the caller's stream.
     """
 
     def __init__(self, *, kind: str = "-", tenant: str = "-",
@@ -109,7 +120,8 @@ class Pipeline:
                  breaker=None,
                  span: str | None = None,
                  attrs: Optional[Callable[[Any], dict]] = None,
-                 on_inflight: Optional[Callable[[int], None]] = None):
+                 on_inflight: Optional[Callable[[int], None]] = None,
+                 ring: Optional[Callable[[Any], Any]] = None):
         self.kind = kind
         self.tenant = tenant
         self.inflight = max(int(inflight), 1)
@@ -119,6 +131,8 @@ class Pipeline:
         self._span = span
         self._attrs = attrs
         self._on_inflight = on_inflight
+        self._ring_for = ring
+        self.ring = None
         self.stats = PipelineStats()
         self._pending: deque = deque()
         self._last_depth = 0
@@ -166,11 +180,26 @@ class Pipeline:
         metrics.runtime_fallbacks.inc(kind=self.kind)
         return ticket
 
+    def _on_ring(self, dispatch, item):
+        """One dispatch on the item's ring stream, counted when it overlaps
+        the other stream's previous batch."""
+        if self._ring_for is None:
+            return self._attempt(dispatch, item)
+        if self.ring is None:
+            self.ring = self._ring_for(item)
+            metrics.runtime_pipeline_streams.set(self.ring.size,
+                                                 kind=self.kind)
+        with self.ring.batch() as overlapped:
+            ticket = self._attempt(dispatch, item)
+        if overlapped:
+            metrics.runtime_overlapped.inc(kind=self.kind, tenant=self.tenant)
+        return ticket
+
     def _dispatch(self, dispatch, item):
         stats = self.stats
         t0 = time.perf_counter()
         if self._span is None:
-            ticket = self._attempt(dispatch, item)
+            ticket = self._on_ring(dispatch, item)
         else:
             attrs = None
             if tracing.is_enabled():
@@ -178,7 +207,7 @@ class Pipeline:
                 if self._attrs is not None:
                     attrs.update(self._attrs(item))
             with tracing.span(f"{self._span}.dispatch", attrs):
-                ticket = self._attempt(dispatch, item)
+                ticket = self._on_ring(dispatch, item)
         dt = time.perf_counter() - t0
         stats.dispatch_s += dt
         if not stats.batches:
@@ -210,6 +239,8 @@ class Pipeline:
         predicate ended the run (``stats.stopped`` tells them apart)."""
         stats = self.stats
         pending = self._pending
+        if self._ring_for is None:
+            metrics.runtime_pipeline_streams.set(1, kind=self.kind)
         try:
             for item in items:
                 if self._stopped():
@@ -236,6 +267,8 @@ class Pipeline:
                     return result
             return None
         finally:
+            if self.ring is not None:
+                self.ring.close()
             self._set_inflight(0)
             for stage, secs in (("dispatch", stats.dispatch_s),
                                 ("retire", stats.retire_s)):

@@ -37,7 +37,11 @@ their own. On one shared stream a quantum's device-to-host copy would wait
 behind every pack queued before it (up to ``inflight`` ROMix launches of
 about 31 ms each at 32768 lanes). Each quantum's tensors live on the
 stream of the thread that made them, and no device tensor outlives its
-quantum, so nothing crosses streams. The scheduler takes ``device=``
+quantum, so nothing crosses streams. The packer's packs alternate over the
+two streams of a ``device.StreamRing`` where two full packs' ROMix V fit
+the card (decided at the first pack), so two packs' kernels share it; a
+pack's tensors stay on its ring stream, and no device state crosses packs
+(each tenant's minimum is folded on the host). The scheduler takes ``device=``
 (default ``"cuda"``; it raises without a card) and runs every quantum and
 pack there.
 
@@ -1003,6 +1007,20 @@ class TenantScheduler:
         else:
             self._resolve(job, result=job.meta)
 
+    def _pack_ring(self, pack):
+        """The packer's stream ring, from its first pack's N: two streams
+        where two full packs' V fit the card, one where packs stripe over
+        cards (each stripe has its own stream there)."""
+        from ..device import StreamRing, label_ring
+        from ..ops import autotune
+
+        n = pack[1]
+        devs, _ = autotune.resolve_auto_mesh(n, self.pack_lanes,
+                                             platform=self.device.type)
+        if devs is not None and len(devs) > 1:
+            return StreamRing(self.device)
+        return label_ring(self.device, self.pack_lanes, n)
+
     def _packer_loop(self) -> None:
         """The shared init stream: one engine pipeline whose items are
         cross-tenant packs, kept ``inflight`` deep for the scheduler's
@@ -1013,7 +1031,8 @@ class TenantScheduler:
                                    "lanes": sum(s.count for s in p[0]),
                                    "tenants": len({s.job.tenant.id
                                                    for s in p[0]})},
-                               stop=lambda: self._closed)  # spacecheck: ok=SC007 monotonic close flag; a stale read only delays stop by one batch
+                               stop=lambda: self._closed,  # spacecheck: ok=SC007 monotonic close flag; a stale read only delays stop by one batch
+                               ring=self._pack_ring)
 
         def packs():
             while True:

@@ -441,6 +441,18 @@ runtime_fallbacks = REGISTRY.counter(
     "runtime_fallbacks_total",
     "dispatch failures absorbed by a pipeline's fallback hook "
     "(label: kind); no entry point of the port passes a fallback")
+# the label pipelines' stream ring (device.py:StreamRing): a batch counts
+# as overlapped when it is dispatched while the other ring stream's
+# previous batch is still on the card
+runtime_overlapped = REGISTRY.counter(
+    "runtime_batches_overlapped_total",
+    "device batches dispatched while the other ring stream's previous "
+    "batch was still on the card (labels: kind, tenant)")
+runtime_pipeline_streams = REGISTRY.gauge(
+    "runtime_pipeline_streams",
+    "CUDA streams a pipeline's batches alternate over, set at its start: "
+    "2 for a label pipeline whose two batches fit the card, else 1 "
+    "(label: kind)")
 runtime_tenant_jobs = REGISTRY.counter(
     "runtime_tenant_jobs_total",
     "scheduler jobs by outcome (labels: tenant, kind, state)")

@@ -817,3 +817,134 @@ def test_traced_init_on_the_card_names_every_host_step(dev, tmp_path):
     calls = metrics.REGISTRY.sample()["device_allocator_calls"][1]
     assert calls[(("call", "malloc"),)] >= 1
     assert {(("call", "free"),), (("call", "retry"),)} <= set(calls)
+
+
+# --- the label pipelines' stream ring on the card ----------------------------
+
+RING_N = 1024
+RING_BATCH = 32768  # 4 GiB of V a batch at N=1024: two fit the card
+
+
+def _one_stream(monkeypatch):
+    """Every label pipeline on its caller's stream alone, as without the
+    ring."""
+    from spacemesh_tpu_torch import device
+
+    def one(dev, lanes, n):
+        return device.StreamRing(dev)
+    monkeypatch.setattr(initializer, "label_ring", one)
+    monkeypatch.setattr(device, "label_ring", one)
+
+
+def _digests(d):
+    return [hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(d.glob("postdata_*.bin"))]
+
+
+def _device_ops(prof):
+    """(name, stream, start, end) of every kernel, copy and fill of a
+    capture, in start order."""
+    import json
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        events = json.load(open(f.name))["traceEvents"]
+    return sorted(((e["name"], e["args"]["stream"], e["ts"],
+                    e["ts"] + e["dur"])
+                   for e in events if e.get("ph") == "X" and e.get("cat")
+                   in ("kernel", "gpu_memcpy", "gpu_memset")),
+                  key=lambda o: o[2])
+
+
+def test_solo_init_on_two_streams_equals_one_stream(dev, tmp_path,
+                                                    monkeypatch):
+    """Nine batches at N=1024, the last ragged: the ring writes the bytes
+    and the VRF nonce that one stream writes, each batch is one ROMix
+    launch, and a profiler capture shows ROMix launches of two batches on
+    the card at once on two streams, with nothing of the loop on the
+    caller's stream (the legacy default stream here) after the two uploads
+    made before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spacemesh_tpu_torch.utils import metrics
+
+    geom = dict(node_id=CH, commitment=COMMIT, num_units=1,
+                labels_per_unit=8 * RING_BATCH + 3000, scrypt_n=RING_N,
+                max_file_size=1 << 22)
+    key = (("kind", "init"), ("tenant", "ring"))
+    out, ops = {}, {}
+    for streams in (2, 1):
+        with monkeypatch.context() as m:
+            if streams == 1:
+                _one_stream(m)
+            launches = romix_cuda.launches
+            over = metrics.runtime_overlapped.sample().get(key, 0)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                meta, res = initializer.initialize(
+                    tmp_path / str(streams), batch_size=RING_BATCH,
+                    device="cuda", tenant="ring", **geom)
+                torch.cuda.synchronize()
+            assert res.stats.batches == 9
+            assert romix_cuda.launches == launches + 9
+            assert metrics.runtime_pipeline_streams.sample()[
+                (("kind", "init"),)] == streams
+            overlapped = metrics.runtime_overlapped.sample().get(key, 0) \
+                - over
+            assert (overlapped >= 1) if streams == 2 else overlapped == 0
+        out[streams] = (meta.labels_written, meta.vrf_nonce,
+                        meta.vrf_nonce_value,
+                        _digests(tmp_path / str(streams)))
+        ops[streams] = _device_ops(prof)
+    assert out[2] == out[1] and out[2][0] == 8 * RING_BATCH + 3000
+    romix = [o for o in ops[2] if "romix_kernel" in o[0]]
+    assert len(romix) == 9 and len({o[1] for o in romix}) == 2
+    assert any(a[1] != b[1] and a[2] < b[3] and b[2] < a[3]
+               for i, a in enumerate(romix) for b in romix[i + 1:])
+    caller = ops[2][0][1]  # the commitment's upload, before the loop
+    assert caller not in {o[1] for o in romix}
+    assert [o for o in ops[2] if o[1] == caller and o[2] >= romix[0][2]] \
+        == []
+    assert len({o[1] for o in ops[1] if "romix_kernel" in o[0]}) == 1
+
+
+def test_packed_init_on_two_streams_equals_one_stream(dev, tmp_path,
+                                                      monkeypatch):
+    """Three identities at ragged totals through the packer at N=1024: the
+    ring writes the stores and VRF nonces one stream writes, and each pack
+    is one ROMix launch."""
+    from spacemesh_tpu_torch.runtime import TenantScheduler
+    from spacemesh_tpu_torch.utils import metrics
+
+    totals = (9000, 12000, 20000)
+    stores = {}
+    for streams in (2, 1):
+        with monkeypatch.context() as m:
+            if streams == 1:
+                _one_stream(m)
+            launches = romix_cuda.launches
+            with TenantScheduler(pack_lanes=8192, autostart=False,
+                                 device="cuda") as sched:
+                handles = []
+                for i, total in enumerate(totals):
+                    tid = f"r{i}"
+                    sched.register_tenant(tid)
+                    handles.append(sched.submit_init(
+                        tid, tmp_path / str(streams) / tid,
+                        node_id=hashlib.sha256(b"rn%d" % i).digest(),
+                        commitment=hashlib.sha256(b"rc%d" % i).digest(),
+                        num_units=1, labels_per_unit=total,
+                        scrypt_n=RING_N, max_file_size=1 << 20))
+                sched.start()
+                metas = [h.result(timeout=120) for h in handles]
+                packs = sched.pack_stats.packs
+            assert packs >= 6 and romix_cuda.launches == launches + packs
+            assert metrics.runtime_pipeline_streams.sample()[
+                (("kind", "init_pack"),)] == streams
+        stores[streams] = [
+            (m_.labels_written, m_.vrf_nonce, m_.vrf_nonce_value,
+             _digests(tmp_path / str(streams) / f"r{i}"))
+            for i, m_ in enumerate(metas)]
+    assert stores[2] == stores[1]
+    assert [s[0] for s in stores[2]] == list(totals)
